@@ -44,7 +44,7 @@ SIGNATURES = {
 DTYPE_CODES = {'bfloat16': 0, 'float32': 1}
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
     if not os.path.exists(path):
         raise RuntimeError('nvcc not found: the kernels build only where the '
@@ -72,7 +72,7 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(BUILD_ROOT, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = nvcc_path()
     tmp = tempfile.mkdtemp(dir=BUILD_ROOT, prefix='tmp-')
     try:
         procs = []

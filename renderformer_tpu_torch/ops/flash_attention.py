@@ -93,16 +93,9 @@ def flash_fwd_rope_plain(q, k_rot, v, mask, cosq, sinq):
     return (acc / l.permute(0, 2, 1, 3)).to(q.dtype)
 
 
-def flash_fwd_rope(q, k_rot, v, mask, cosq, sinq):
-    """Attention of q (rotated inside) against pre-rotated K.
-
-    q [B, Sq, H, D]; k_rot [B, Sk, H, D]; v [Bkv, Sk, H, D]; mask [B, Sk]
-    bool or None; cosq/sinq [B, Sq, D] fp32 (unscaled).  Returns
-    [B, Sq, H, D] in q's dtype."""
-    _check_shapes(q, k_rot, v, mask, cosq, sinq)
-    check_no_grad(q, k_rot, v)
-    if use_plain(q):
-        return flash_fwd_rope_plain(q, k_rot, v, mask, cosq, sinq)
+def launch_flash_fwd_rope(lib, q, k_rot, v, mask, cosq, sinq):
+    """Launch ``rf_flash_fwd_rope`` of the loaded kernel library ``lib`` on
+    CUDA tensors already checked by ``flash_fwd_rope``; counts nothing."""
     b, sq, h, d = q.shape
     bkv, sk = v.shape[0], v.shape[1]
     if q.dtype not in KERNEL_DTYPES:
@@ -120,7 +113,6 @@ def flash_fwd_rope(q, k_rot, v, mask, cosq, sinq):
         mask = mask.view(torch.uint8)
         check_cuda_tensor('mask', mask, torch.uint8, (b, sk))
     out = torch.empty_like(q)
-    lib = _build.library()
     rc = lib.rf_flash_fwd_rope(
         q.data_ptr(), k_rot.data_ptr(), v.data_ptr(),
         mask.data_ptr() if mask is not None else None,
@@ -129,6 +121,20 @@ def flash_fwd_rope(q, k_rot, v, mask, cosq, sinq):
         b, b // bkv, sq, sk, h, d, q_scale(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, 'rf_flash_fwd_rope')
+    return out
+
+
+def flash_fwd_rope(q, k_rot, v, mask, cosq, sinq):
+    """Attention of q (rotated inside) against pre-rotated K.
+
+    q [B, Sq, H, D]; k_rot [B, Sk, H, D]; v [Bkv, Sk, H, D]; mask [B, Sk]
+    bool or None; cosq/sinq [B, Sq, D] fp32 (unscaled).  Returns
+    [B, Sq, H, D] in q's dtype."""
+    _check_shapes(q, k_rot, v, mask, cosq, sinq)
+    check_no_grad(q, k_rot, v)
+    if use_plain(q):
+        return flash_fwd_rope_plain(q, k_rot, v, mask, cosq, sinq)
+    out = launch_flash_fwd_rope(_build.library(), q, k_rot, v, mask, cosq, sinq)
     LAUNCHES['flash_fwd_rope_mask' if mask is not None else 'flash_fwd_rope_nomask'] += 1
     return out
 
