@@ -40,6 +40,12 @@ SIGNATURES = {
     'rf_rot_kv_broadcast': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, out, dtype, B, IH, IW, OH, OW, C, stream
     'rf_resize_bilinear': [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, out, dtype, B, IH, IW, OH, OW, C, stream
+    'rf_resize_s2d': [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, table, out, B, nW, ws, row_bytes, stream
+    'rf_shifted_regroup': [_P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, regions, out, dtype, has_mask, BW, nW, H, qscale, stream
+    'rf_swin_window_attention': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 DTYPE_CODES = {'bfloat16': 0, 'float32': 1}
 

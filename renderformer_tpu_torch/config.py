@@ -106,14 +106,25 @@ class RenderFormerConfig:
             return cls.from_dict(json.load(f))
 
 
+DPT_TAILS = ('composed', 's2d', 'plain')
+
+
 @dataclass(frozen=True)
 class RuntimeConfig:
     """Compute dtypes of a render: stage 1 and the view stage (stage 2 and
     the DPT head).  RoPE, camera math and softmax statistics are fp32
-    regardless."""
+    regardless.  ``dpt_tail`` evaluates the DPT output tail as
+    ``'composed'`` (one composed 5x5 conv in space-to-depth layout, the
+    JAX package's default), ``'s2d'`` or ``'plain'``; all three are the
+    same function up to summation order (``nn/dpt.py``)."""
 
     compute_dtype: str = 'bfloat16'
     view_dtype: str = 'bfloat16'
+    dpt_tail: str = 'composed'
+
+    def __post_init__(self):
+        if self.dpt_tail not in DPT_TAILS:
+            raise ValueError(f'dpt_tail {self.dpt_tail!r} is not one of {DPT_TAILS}')
 
 
 V1_BASE = RenderFormerConfig()

@@ -6,9 +6,10 @@ as their RoPE position.  Stage-1 tokens are not copied per view: the
 decoder's K/V projections read them once per scene, and masks and
 camera-space positions stay per view.
 
-This slice renders the released architecture family: triangle RoPE
+The port renders the released architecture family: triangle RoPE
 (``pe_type='rope'``), patch-layout rays (``vdir_num_freqs=0``), the DPT
-head and full attention in the view stage.  Other configurations raise.
+head, and full or Swin window self-attention in the view stage.  Other
+configurations raise.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ def check_supported(cfg: RenderFormerConfig) -> None:
         "pe_type != 'rope'": cfg.pe_type != 'rope',
         'vdir_num_freqs != 0': cfg.vdir_num_freqs != 0,
         'use_dpt_decoder=False': not cfg.use_dpt_decoder,
-        'view_transformer_use_swin_attn=True': cfg.view_transformer_use_swin_attn,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:

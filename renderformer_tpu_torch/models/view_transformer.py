@@ -1,8 +1,8 @@
 """Stage 2: view-dependent ray decoding.
 
-Patch-layout ray tokens -> cross/self-attention decoder over the stage-1
-triangle tokens -> DPT head -> ELU(alpha=1e-3).  The view stage runs in
-the dtype of its weights.
+Patch-layout ray tokens -> cross/self-attention decoder (full or Swin
+window self-attention) over the stage-1 triangle tokens -> DPT head ->
+ELU(alpha=1e-3).  The view stage runs in the dtype of its weights.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ class ViewTransformer(nn.Module):
             qk_norm=cfg.qk_norm,
             rope_type=cfg.rope_type,
             rope_double_max_freq=cfg.rope_double_max_freq,
+            use_swin_attn=cfg.view_transformer_use_swin_attn,
         )
         self.out_dpt = DPTHead(in_channels=d, features=cfg.dpt_features,
                                out_channels=tuple(cfg.dpt_out_channels),
@@ -48,7 +49,8 @@ class ViewTransformer(nn.Module):
         """camera_o [B, 3]; ray_map [B, T, 3*p*p] patch-layout directions;
         tri_tokens [Bkv, N, D] with Bkv dividing B (views share their
         scene's tokens); tri_pos [B, N, 9] camera-space positions;
-        valid_mask [B, N] bool.  Returns the image [B, H, W, out_dim] fp32."""
+        valid_mask [B, N] bool.  Returns the image [B, H, W, out_dim]
+        fp32."""
         cfg = self.config
         dtype = self.ray_map_encoder.weight.dtype
         n_tok = ray_map.shape[1]
@@ -61,6 +63,6 @@ class ViewTransformer(nn.Module):
         ray_pos = camera_o[:, None, :].repeat(1, n_tok, 3)
         _, taps = self.transformer(
             ray_tokens, tri_tokens.to(dtype), valid_mask, tri_pos, ray_pos,
-            out_layers=tuple(cfg.dpt_tap_layers()))
+            out_layers=tuple(cfg.dpt_tap_layers()), grid=(patch_h, patch_w))
         img = self.out_dpt(taps, patch_h, patch_w, patch_size=cfg.patch_size)
         return elu(img.float(), alpha=1e-3)

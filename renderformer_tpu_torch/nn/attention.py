@@ -1,13 +1,16 @@
-"""Attention stack: MHA with RoPE, pre-norm blocks, encoder and decoder.
+"""Attention stack: MHA with RoPE, Swin window attention, pre-norm
+blocks, encoder and decoder.
 
 Layouts follow the JAX package: activations ``[B, S, C]``, per-head
 ``[B, S, H, Dh]`` with the head axis after the sequence, key masks
-``[B, Sk]`` bool with True = attend.  Every attention site carries RoPE
-and goes through :func:`renderformer_tpu_torch.ops.flash_attention.
+``[B, Sk]`` bool with True = attend.  Every full attention site carries
+RoPE and goes through :func:`renderformer_tpu_torch.ops.flash_attention.
 flash_attention_rope` (kernels K3 then K1/K2 on the card).  Cross
 attention takes K/V at a batch ``Bkv`` dividing the query batch: the K/V
 projections and the k-norm run once per scene and the kernels read the
-scene's rows for each of its views.
+scene's rows for each of its views.  Swin self-attention has no RoPE: it
+attends inside 8x8 windows (kernel K6), and its shifted layers regroup
+the window-ordered stream around it (kernel K7).
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ import torch.nn.functional as F
 from renderformer_tpu_torch.encodings.rope import (
     freqs_to_cos_sin, rope_frequencies, triangle_freqs)
 from renderformer_tpu_torch.nn.core import ATTN_EPS, RopeFreqs, gelu, make_norm, silu
+from renderformer_tpu_torch.nn.swin import seq_from_window_order, seq_to_window_order
 from renderformer_tpu_torch.ops.flash_attention import flash_attention_rope
+from renderformer_tpu_torch.ops.shifted_regroup import shifted_regroup
+from renderformer_tpu_torch.ops.swin_attention import region_table, swin_window_attention
 
 
 def sdpa(q, k, v, mask=None):
@@ -65,6 +71,15 @@ class FeedForward(nn.Module):
         return self.w2(h)
 
 
+def _split_in_proj(x, in_proj: nn.Linear, d: int):
+    """q, k, v as three products from the sliced packed weight instead of one
+    packed product and a split along its minor dim."""
+    w, b3 = in_proj.weight, in_proj.bias
+    return tuple(F.linear(x, w[i * d:(i + 1) * d],
+                          None if b3 is None else b3[i * d:(i + 1) * d])
+                 for i in range(3))
+
+
 class MultiHeadAttention(nn.Module):
     """Self-attention (``kv_dim=None``, packed ``in_proj``) or cross-attention,
     with optional qk-norm, RoPE on q and k."""
@@ -97,14 +112,7 @@ class MultiHeadAttention(nn.Module):
         bs_kv, sk = k.shape[0], k.shape[1]
         out_dtype = q.dtype
         if self.is_self_attn:
-            # three products from the sliced weight instead of one packed
-            # product and a split along its minor dim
-            d = self.query_dim
-            w, b3 = self.in_proj.weight, self.in_proj.bias
-            x = q
-            q, k, v = (F.linear(x, w[i * d:(i + 1) * d],
-                                None if b3 is None else b3[i * d:(i + 1) * d])
-                       for i in range(3))
+            q, k, v = _split_in_proj(q, self.in_proj, self.query_dim)
         else:
             q, k, v = self.q_proj(q), self.k_proj(k), self.v_proj(v)
         if self.qk_norm:
@@ -121,14 +129,64 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out.reshape(bs, sq, -1)).to(out_dtype)
 
 
+class SwinSelfAttention(nn.Module):
+    """Window self-attention over a window-ordered stream ``[B, S, C]`` of
+    an h x w token grid: no RoPE, packed ``in_proj``, optional qk-norm.  A
+    shifted layer (``shift_size = window_size // 2``) regroups the stream
+    into shifted-window order before the projections and back after
+    ``out_proj``, and masks pairs of tokens from different regions."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int = 0,
+                 bias: bool = False, qk_norm: bool = False, norm_type: str = 'rms_norm'):
+        super().__init__()
+        if shift_size not in (0, window_size // 2):
+            raise ValueError(f'shift {shift_size}: the model shifts by 0 or '
+                             f'window_size // 2 = {window_size // 2}')
+        self.dim = dim
+        self.num_heads = num_heads
+        self.window_size = window_size
+        self.shift_size = shift_size
+        self.in_proj = nn.Linear(dim, 3 * dim, bias=bias)
+        self.out_proj = nn.Linear(dim, dim, bias=bias)
+        self.qk_norm = qk_norm
+        if qk_norm:
+            self.q_norm = make_norm(norm_type, dim, ATTN_EPS)
+            self.k_norm = make_norm(norm_type, dim, ATTN_EPS)
+
+    def forward(self, x, grid):
+        """x [B, S, C] in unshifted-window order of the (h, w) grid."""
+        b, s, c = x.shape
+        h, w = grid
+        ws = self.window_size
+        shifted = self.shift_size > 0
+        if shifted:
+            x = shifted_regroup(x, (h, w), ws)
+        q, k, v = _split_in_proj(x, self.in_proj, c)
+        if self.qk_norm:
+            q = self.q_norm(q).to(v.dtype)
+            k = self.k_norm(k).to(v.dtype)
+        win = (b * s // (ws * ws), ws * ws, c)
+        regions = region_table(h, w, ws, self.shift_size, x.device) if shifted else None
+        out = swin_window_attention(
+            q.to(v.dtype).reshape(win), k.to(v.dtype).reshape(win), v.reshape(win),
+            num_heads=self.num_heads, regions=regions)
+        out = self.out_proj(out).reshape(b, s, c)
+        if shifted:
+            out = shifted_regroup(out, (h, w), ws, inverse=True)
+        return out
+
+
 class AttentionLayer(nn.Module):
     """Pre-norm block: x += MHA(norm(x)); [x += self_attn(norm(x))];
-    x += FFN(norm(x))."""
+    x += FFN(norm(x)).  With ``use_swin_attn`` the self-attention is
+    :class:`SwinSelfAttention` on the window-ordered stream."""
 
     def __init__(self, query_dim: int, num_heads: int, ffn_hidden_dim: int,
                  kv_dim: Optional[int] = None, bias: bool = False,
                  activation: str = 'swiglu', norm_type: str = 'rms_norm',
-                 qk_norm: bool = False, add_self_attn: bool = False):
+                 qk_norm: bool = False, add_self_attn: bool = False,
+                 use_swin_attn: bool = False, window_size: int = 8,
+                 shift_size: int = 0):
         super().__init__()
         self.multihead_attn = MultiHeadAttention(query_dim, num_heads, kv_dim, bias,
                                                  qk_norm, norm_type)
@@ -139,20 +197,30 @@ class AttentionLayer(nn.Module):
         if self.is_cross:
             self.kv_norm = make_norm(norm_type, kv_dim, ATTN_EPS)
         self.add_self_attn = add_self_attn
+        self.use_swin_attn = use_swin_attn
         if add_self_attn:
-            self.self_attn = MultiHeadAttention(query_dim, num_heads, None, bias,
-                                                qk_norm, norm_type)
+            if use_swin_attn:
+                self.self_attn = SwinSelfAttention(query_dim, num_heads, window_size,
+                                                   shift_size, bias, qk_norm, norm_type)
+            else:
+                self.self_attn = MultiHeadAttention(query_dim, num_heads, None, bias,
+                                                    qk_norm, norm_type)
             self.self_attn_norm = make_norm(norm_type, query_dim, ATTN_EPS)
 
     def forward(self, query, kv=None, mask=None, rope_cos=None, rope_sin=None,
-                rope_ctx_cos=None, rope_ctx_sin=None):
+                rope_ctx_cos=None, rope_ctx_sin=None, grid=None):
+        """``grid`` = (patch_h, patch_w) of a window-ordered Swin stream."""
         q = self.query_norm(query)
         kv = self.kv_norm(kv) if self.is_cross else q
         query = query + self.multihead_attn(q, kv, kv, mask, rope_cos, rope_sin,
                                             rope_ctx_cos, rope_ctx_sin)
         if self.add_self_attn:
             q = self.self_attn_norm(query)
-            query = query + self.self_attn(q, q, q, None, rope_cos, rope_sin)
+            if self.use_swin_attn:
+                sa = self.self_attn(q, grid)
+            else:
+                sa = self.self_attn(q, q, q, None, rope_cos, rope_sin)
+            query = query + sa
         return query + self.ffn(self.ffn_norm(query))
 
 
@@ -191,32 +259,55 @@ class TransformerEncoder(nn.Module):
 
 class TransformerDecoder(nn.Module):
     """Cross-attention (rays -> triangles) + self-attention blocks, with
-    intermediate-layer taps for the DPT head."""
+    intermediate-layer taps for the DPT head.
+
+    With ``use_swin_attn`` the self-attention is window attention, unshifted
+    on even layers and shifted by ``shift_size`` on odd ones, and the
+    residual stream and the q-side RoPE tables stay in unshifted-window
+    order for the whole stack (cross-attention, norms and FFN do not depend
+    on the token order); each tap and the output go back to row-major
+    order."""
 
     def __init__(self, num_layers: int, num_heads: int, hidden_dim: int,
                  ffn_hidden_dim: int, ctx_dim: int, rope_dim: int,
                  include_self_attn: bool = True, bias: bool = False,
                  activation: str = 'swiglu', norm_type: str = 'rms_norm',
                  qk_norm: bool = False, rope_type: str = 'triangle',
-                 rope_double_max_freq: bool = False):
+                 rope_double_max_freq: bool = False, use_swin_attn: bool = False,
+                 window_size: int = 8, shift_size: int = 4):
         super().__init__()
         self.head_dim = hidden_dim // num_heads
+        self.use_swin_attn = use_swin_attn
+        self.window_size = window_size
         self.layers = nn.ModuleList([
             AttentionLayer(hidden_dim, num_heads, ffn_hidden_dim, kv_dim=ctx_dim,
                            bias=bias, activation=activation, norm_type=norm_type,
-                           qk_norm=qk_norm, add_self_attn=include_self_attn)
-            for _ in range(num_layers)])
+                           qk_norm=qk_norm, add_self_attn=include_self_attn,
+                           use_swin_attn=use_swin_attn, window_size=window_size,
+                           shift_size=0 if idx % 2 == 0 else shift_size)
+            for idx in range(num_layers)])
         rd = _resolved_rope_dim(rope_dim, rope_type, self.head_dim)
         self.rope_emb = RopeFreqs(rope_frequencies(rd, rope_double_max_freq))
 
     def forward(self, x, ctx, mask, triangle_pos, ray_pos,
-                out_layers: Sequence[int] = ()):
+                out_layers: Sequence[int] = (), grid=None):
+        """``grid`` = (patch_h, patch_w) of the ray tokens, for Swin."""
         freqs = self.rope_emb.freqs
         cos, sin = rope_tables(ray_pos, freqs, self.head_dim)
         ctx_cos, ctx_sin = rope_tables(triangle_pos, freqs, self.head_dim)
+        windowed = self.use_swin_attn
+        if windowed:
+            if grid is None:
+                raise ValueError('a Swin decoder needs the token grid')
+            ph, pw, ws = grid[0], grid[1], self.window_size
+            x = seq_to_window_order(x, ph, pw, ws)
+            cos = seq_to_window_order(cos, ph, pw, ws)
+            sin = seq_to_window_order(sin, ph, pw, ws)
         outs = []
         for idx, layer in enumerate(self.layers):
-            x = layer(x, ctx, mask, cos, sin, ctx_cos, ctx_sin)
+            x = layer(x, ctx, mask, cos, sin, ctx_cos, ctx_sin, grid=grid)
             if idx in out_layers:
-                outs.append(x)
+                outs.append(seq_from_window_order(x, ph, pw, ws) if windowed else x)
+        if windowed:
+            x = seq_from_window_order(x, ph, pw, ws)
         return x, outs

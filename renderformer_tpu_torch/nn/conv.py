@@ -5,7 +5,9 @@ function boundary (the JAX package's layout) with torch-layout weights.
 tensor, so no layout copy is made on either side.
 ``conv_transpose2d_block`` uses that both DPT transposed convs have
 stride == kernel_size and no padding: each input pixel emits its own
-output block, so the op is one matrix product.
+output block, so the op is one matrix product.  ``resize_axis`` resizes
+one axis, e.g. the four border rows and columns that the composed DPT
+tail needs without the full-resolution image.
 """
 
 from __future__ import annotations
@@ -15,7 +17,10 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from renderformer_tpu_torch.ops.fused_resize import resize_bilinear
+from renderformer_tpu_torch.ops.fused_resize import resize_axis, resize_bilinear
+
+__all__ = ['conv2d', 'conv_transpose2d_block', 'resize_axis',
+           'resize_bilinear_align_corners']
 
 
 def conv2d(x, weight, bias=None, stride: int = 1, padding: int = 0):

@@ -1,4 +1,4 @@
-"""DPT multi-scale conv decoder head, NHWC, with the plain output tail.
+"""DPT multi-scale conv decoder head, NHWC.
 
 Fuses the outputs of 4 decoder layers into a full-resolution image:
 per-layer 1x1 projection -> resize (convT x4 / convT x2 / identity /
@@ -8,17 +8,40 @@ align_corners bilinear upsampling (kernel K4) -> output convs.
 The refinenets run ``out_conv`` before their upsample: a 1x1 conv mixes
 channels per pixel and the bilinear resize mixes pixels per channel, so
 the two commute (up to fp rounding), as in the JAX package.
+
+The output tail has three evaluations (``DPTHead.tail``, which the
+pipeline sets from ``RuntimeConfig.dpt_tail``), equal up to summation
+order:
+
+* ``'composed'`` (default): refinenet1's upsample goes straight into
+  space-to-depth layout (kernel K5), and output_conv1 and
+  output_conv2[0] run as one composed 5x5 conv in that layout with an
+  exact 1-px ring fix (``ops/dpt_tail.py``); the full-resolution
+  feature map is never made;
+* ``'s2d'``: each output conv in space-to-depth form (``ops/s2d_conv.py``);
+* ``'plain'``: the convs as written.
+
+The fast tails need the mid-tail resize to be the identity (refinenet1's
+x2 upsample lands at full resolution, as at patch size 8) and an even
+image; elsewhere the head takes the plain tail, as the JAX package does.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn as nn
 
+from renderformer_tpu_torch.config import DPT_TAILS
 from renderformer_tpu_torch.nn.conv import (
-    conv2d, conv_transpose2d_block, resize_bilinear_align_corners)
+    conv2d, conv_transpose2d_block, resize_axis, resize_bilinear_align_corners)
 from renderformer_tpu_torch.nn.core import silu
+from renderformer_tpu_torch.ops.dpt_tail import (
+    block_diag_1x1, compose_tail_weights, composed_tail_full)
+from renderformer_tpu_torch.ops.fused_resize import resize_s2d
+from renderformer_tpu_torch.ops.s2d_conv import (
+    conv2d_hwio, depth_to_space, s2d_block_kernel, space_to_depth)
 
 
 def _conv(cin, cout, k, bias=True, stride=1, padding=0):
@@ -28,6 +51,11 @@ def _conv(cin, cout, k, bias=True, stride=1, padding=0):
 def _apply(conv: nn.Conv2d, x):
     return conv2d(x, conv.weight, conv.bias, stride=conv.stride[0],
                   padding=conv.padding[0])
+
+
+def _hwio(conv: nn.Conv2d):
+    """The conv's OIHW weight as an HWIO view."""
+    return conv.weight.permute(2, 3, 1, 0)
 
 
 class ResidualConvUnit(nn.Module):
@@ -52,13 +80,17 @@ class FeatureFusionBlock(nn.Module):
             self.resConvUnit1 = ResidualConvUnit(features)
         self.resConvUnit2 = ResidualConvUnit(features)
 
-    def forward(self, x, res=None, size=None):
+    def forward(self, x, res=None, size=None, skip_resize: bool = False):
+        """``skip_resize`` returns the tensor before the upsample, which the
+        composed tail writes straight into space-to-depth layout."""
         if res is not None:
             x = x + self.resConvUnit1(res)
         x = self.resConvUnit2(x)
         if size is None:
             size = (x.shape[1] * 2, x.shape[2] * 2)
         x = _apply(self.out_conv, x)
+        if skip_resize:
+            return x
         return resize_bilinear_align_corners(x, size)
 
 
@@ -88,11 +120,36 @@ class DPTHead(nn.Module):
             _conv(features // 2, 32, 3, padding=1), nn.SiLU(),
             _conv(32, out_dim, 1))
         self.scratch = scratch
+        # the output tail, one of DPT_TAILS; the pipeline sets it from
+        # RuntimeConfig.dpt_tail
+        self.tail = 'composed'
+        self._tail_weights = None   # (key, compose_tail_weights(...))
+
+    def _composed_weights(self):
+        """The composed tail's weights, made once for each version of the
+        output convs' weights (and inference mode, whose tensors cannot
+        leave it).  Made anew when autograd records the weights, so a
+        gradient reaches them."""
+        oc1, oc2 = self.scratch.output_conv1, self.scratch.output_conv2
+        convs = (oc1, oc2[0], oc2[2])
+        params = [p for c in convs for p in (c.weight, c.bias)]
+        args = [t for c in convs for t in (_hwio(c), c.bias)]
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return compose_tail_weights(*args)
+        key = (torch.is_inference_mode_enabled(),) + tuple(
+            (p.data_ptr(), p._version, p.dtype, p.device) for p in params)
+        if self._tail_weights is None or self._tail_weights[0] != key:
+            self._tail_weights = (key, compose_tail_weights(*args))
+        return self._tail_weights[1]
 
     def forward(self, out_features: Sequence, patch_h: int, patch_w: int,
                 patch_size: int = 16):
         """out_features: 4 token tensors [B, N, D] (N = patch_h*patch_w).
-        Returns the image [B, H, W, out_dim] (NHWC)."""
+        The output tail is ``self.tail``.  Returns the image
+        [B, H, W, out_dim] (NHWC)."""
+        tail = self.tail
+        if tail not in DPT_TAILS:
+            raise ValueError(f'dpt tail {tail!r} is not one of {DPT_TAILS}')
         feats = []
         for i, x in enumerate(out_features):
             b, _, d = x.shape
@@ -113,11 +170,40 @@ class DPTHead(nn.Module):
         p4 = s.refinenet4(l4, size=l3.shape[1:3])
         p3 = s.refinenet3(p4, l3, size=l2.shape[1:3])
         p2 = s.refinenet2(p3, l2, size=l1.shape[1:3])
-        p1 = s.refinenet1(p2, l1)
 
-        out = _apply(s.output_conv1, p1)
-        out = resize_bilinear_align_corners(
-            out, (patch_h * patch_size, patch_w * patch_size))
-        oc2 = s.output_conv2
+        out_hw = (patch_h * patch_size, patch_w * patch_size)
+        oc1, oc2 = s.output_conv1, s.output_conv2
+        fast_ok = ((l1.shape[1] * 2, l1.shape[2] * 2) == out_hw
+                   and out_hw[0] % 2 == 0 and out_hw[1] % 2 == 0)
+        if tail == 'composed' and fast_ok:
+            t = s.refinenet1(p2, l1, skip_resize=True)
+            u_s2d = resize_s2d(t.contiguous(), out_hw)
+            # border rows and columns of the full-resolution u from 1-D
+            # edge resizes: align_corners maps edges onto edges
+            borders = (resize_axis(t[:, 0], 1, out_hw[1]),
+                       resize_axis(t[:, -1], 1, out_hw[1]),
+                       resize_axis(t[:, :, 0], 1, out_hw[0]),
+                       resize_axis(t[:, :, -1], 1, out_hw[0]))
+            return composed_tail_full(
+                None, _hwio(oc1), oc1.bias, _hwio(oc2[0]), oc2[0].bias,
+                _hwio(oc2[2]), oc2[2].bias, silu, u_s2d=u_s2d, borders=borders,
+                weights=self._composed_weights())
+
+        p1 = s.refinenet1(p2, l1)
+        if tail == 's2d' and fast_ok and tuple(p1.shape[1:3]) == out_hw:
+            return self._output_tail_s2d(p1)
+        out = _apply(oc1, p1)
+        out = resize_bilinear_align_corners(out, out_hw)
         out = silu(_apply(oc2[0], out))
         return _apply(oc2[2], out)
+
+    def _output_tail_s2d(self, x):
+        """output_conv1 -> output_conv2 with each conv in space-to-depth
+        form, one layout pass each way."""
+        oc1, oc2 = self.scratch.output_conv1, self.scratch.output_conv2
+        x = space_to_depth(x)
+        x = conv2d_hwio(x, s2d_block_kernel(_hwio(oc1)), oc1.bias.repeat(4), padding=1)
+        x = conv2d_hwio(x, s2d_block_kernel(_hwio(oc2[0])), oc2[0].bias.repeat(4),
+                        padding=1)
+        x = conv2d_hwio(silu(x), block_diag_1x1(_hwio(oc2[2])), oc2[2].bias.repeat(4))
+        return depth_to_space(x)

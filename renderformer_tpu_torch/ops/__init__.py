@@ -19,6 +19,9 @@ LAUNCHES = {
     'flash_fwd_rope_nomask': 0,
     'rot_kv_broadcast': 0,
     'resize_bilinear': 0,
+    'resize_s2d': 0,
+    'swin_window_attention': 0,
+    'shifted_regroup': 0,
 }
 
 _plain_on_cuda = False

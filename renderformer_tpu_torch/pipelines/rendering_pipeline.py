@@ -147,6 +147,8 @@ class RenderingPipeline:
         view_dtype = dtype if view_precision is None else _DTYPES[view_precision]
         out_dt = _OUT_DTYPES[output_dtype] if output_dtype else None
         model = self._model_for(dtype, view_dtype)
+        # pipelines may share a model, so the tail is set at every render
+        model.view_transformer.out_dpt.tail = self.runtime.dpt_tail
 
         def arg(x, dt):
             return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,

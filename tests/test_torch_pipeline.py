@@ -9,7 +9,7 @@ import torch
 
 from renderformer_tpu import RenderFormerConfig as JaxConfig
 from renderformer_tpu import RenderingPipeline as JaxPipeline
-from renderformer_tpu_torch import RenderFormerConfig, RenderingPipeline
+from renderformer_tpu_torch import RenderFormerConfig, RenderingPipeline, RuntimeConfig
 from renderformer_tpu_torch.convert import jax_params_to_state_dict
 from renderformer_tpu_torch.models.renderformer import RenderFormer
 
@@ -46,12 +46,12 @@ def _psnr(ref, x):
 
 @pytest.fixture(scope='module')
 def renders():
-    """JAX renders (plain and default DPT tails, fp32 and bf16) and port
-    renders, shared by the tests of this file: the JAX compiles dominate."""
+    """JAX renders and port renders, each with the plain and the default
+    composed DPT tail, in fp32 and bf16, shared by the tests of this file:
+    the JAX compiles dominate."""
     jp = JaxPipeline.from_config(JaxConfig(**TINY), seed=0)
     model = RenderFormer(RenderFormerConfig(**TINY))
     model.load_state_dict(jax_params_to_state_dict(jax.tree.map(np.asarray, jp.params)))
-    tp = RenderingPipeline(model, device='cpu')
     scene = _scene()
     out = {}
     with pytest.MonkeyPatch.context() as mp:
@@ -60,15 +60,21 @@ def renders():
             for prec in ('fp32', 'bf16'):
                 out[('jax', tail, prec)] = np.asarray(
                     jp.render(*scene, resolution=RES, precision=prec))
-    for prec in ('fp32', 'bf16'):
-        img = tp.render(*scene, resolution=RES, precision=prec)
-        assert isinstance(img, torch.Tensor) and img.device.type == 'cpu'
-        out[('port', prec)] = img.numpy()
+    for tail in ('plain', 'composed'):
+        tp = RenderingPipeline(model, runtime=RuntimeConfig(dpt_tail=tail), device='cpu')
+        for prec in ('fp32', 'bf16'):
+            img = tp.render(*scene, resolution=RES, precision=prec)
+            assert isinstance(img, torch.Tensor) and img.device.type == 'cpu'
+            out[('port', tail, prec)] = img.numpy()
+    # the port's default tail is the composed one, as the JAX package's
+    default = RenderingPipeline(model, device='cpu').render(
+        *scene, resolution=RES, precision='fp32').numpy()
+    np.testing.assert_array_equal(default, out[('port', 'composed', 'fp32')])
     return out
 
 
 def test_fp32_matches_jax_plain_tail(renders):
-    got, want = renders[('port', 'fp32')], renders[('jax', 'plain', 'fp32')]
+    got, want = renders[('port', 'plain', 'fp32')], renders[('jax', 'plain', 'fp32')]
     assert got.shape == want.shape == (1, V, RES, RES, 3)
     assert np.isfinite(got).all()
     # fp32 end to end; the same function up to summation order
@@ -76,20 +82,23 @@ def test_fp32_matches_jax_plain_tail(renders):
 
 
 def test_fp32_against_jax_default_composed_tail(renders):
-    # the composed 5x5 tail is exact up to fp summation order: the repo's
-    # golden bar of 55 dB
-    assert _psnr(renders[('jax', 'composed', 'fp32')], renders[('port', 'fp32')]) >= 55.0
+    got, want = renders[('port', 'composed', 'fp32')], renders[('jax', 'composed', 'fp32')]
+    assert np.isfinite(got).all()
+    # both composed 5x5 tails: the same function up to summation order
+    assert np.abs(got - want).max() <= 1e-4
+    # and within the repo's golden bar of the plain tail
+    assert _psnr(renders[('jax', 'plain', 'fp32')], got) >= 55.0
 
 
 @pytest.mark.parametrize('tail', ['plain', 'composed'])
 def test_bf16_bounded_by_psnr(renders, tail):
-    got = renders[('port', 'bf16')]
+    got = renders[('port', tail, 'bf16')]
     assert np.isfinite(got).all()
     # bf16 rounds at other points in the two frameworks (fused bias adds,
     # online vs one-pass softmax): held to 40 dB, the chip render's bar
     assert _psnr(renders[('jax', tail, 'bf16')], got) >= 40.0
     # and the bf16 render stays near the fp32 one
-    assert _psnr(renders[('port', 'fp32')], got) >= 35.0
+    assert _psnr(renders[('port', tail, 'fp32')], got) >= 35.0
 
 
 def test_output_dtype_and_fp16_clamp():
