@@ -20,12 +20,31 @@ Phases, each printing its own lines:
   5. speed, for each model: rays/s of the bf16 render on inputs already on
      the card, median of timed renders, and a profiler breakdown of one
      render (device time by kernel, and the device's idle share of the
-     median unprofiled render).
-Then one JSON line with every kernel's numbers per render of each model,
-the nvidia-smi line, and the result line.  Any failed check exits non-zero
-before the result line.  Imports nothing of JAX.
+     median unprofiled render);
+  6. training kernels: the forward with its logsumexp (K1/K2, timed in
+     turn with the render's instantiation), K3, the flash backward through
+     its wrapper (K8 fused; K9 two-kernel, each of its dQ and dK/dV kernels
+     timed alone against the plain version of its part), K4, K5 and the
+     transposed resize (K4^T) against their plain versions, at every shape
+     of the v1-base train step, in bf16 and fp32, timed as in phase 3;
+  7. train: v1-base at full width and depth from a seeded init, the
+     train_step_bench.py workload (1 scene x 1 view x 2048 triangles at
+     256^2, bf16 stage 1 with an fp32 view stage, remat, AdamW): exact launch
+     counts of one step with the fused backward and one with the two-kernel
+     backward (counts set to 0 just before each step, read just after); the
+     loss, grad norm, gradient cosine and worst per-parameter gradient of the
+     kernel step against the same step through the plain versions, and of
+     fused against two-kernel, within AGREE_BARS, while a planted fault in
+     the backward must fall outside them; finite
+     loss and grad norm over 3 steps; the median step time of 5 steps after a
+     warm-up, trained rays/s, peak memory, and the device's idle share from
+     one profiled step.
+Then one JSON line with every kernel's numbers per render of each model
+and per train step, the nvidia-smi line, and the result line.  Any failed
+check exits non-zero before the result line.  Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -51,6 +70,14 @@ GRID = RES // 8         # the 64 x 64 patch grid
 NW = (GRID // 8) ** 2   # 8 x 8 windows a view
 BASE, SWIN = 'v1-base', 'v1.1-swin-large'
 PATHS = (BASE, SWIN)
+# the train step at 256^2, 1 view, 2048 triangles; fused and two-kernel backward
+TRAIN, TRAIN2 = 'train v1-base', 'train v1-base twokernel'
+TRAIN_PATHS = (TRAIN, TRAIN2)
+ALL_PATHS = PATHS + TRAIN_PATHS
+TRAIN_RES = 256
+TRAIN_ST = (TRAIN_RES // 8) ** 2   # 1024 ray tokens
+TRAIN_STEPS = 5                    # timed steps after a warm-up
+LSE_BURST = 20                     # launches per timing of the logsumexp A/B
 
 KERNELS = {
     'flash_fwd_rope_mask': dict(
@@ -62,7 +89,22 @@ KERNELS = {
     'rot_kv_broadcast': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/rot_kv.cu',
         replaces='renderformer_tpu/ops/flash_attention.py:819'),
+    'flash_bwd_mask': dict(
+        route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd.cu',
+        replaces='renderformer_tpu/ops/flash_attention.py:425'),
+    'flash_bwd_nomask': dict(
+        route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd.cu',
+        replaces='renderformer_tpu/ops/flash_attention.py:425'),
+    'flash_bwd_dq': dict(
+        route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd.cu',
+        replaces='renderformer_tpu/ops/flash_attention.py:323'),
+    'flash_bwd_dkv': dict(
+        route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd.cu',
+        replaces='renderformer_tpu/ops/flash_attention.py:368'),
     'resize_bilinear': dict(
+        route='cuda', source='renderformer_tpu_torch/csrc/resize.cu',
+        replaces='renderformer_tpu/ops/fused_resize.py:100'),
+    'resize_bilinear_t': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/resize.cu',
         replaces='renderformer_tpu/ops/fused_resize.py:100'),
     'resize_s2d': dict(
@@ -82,13 +124,26 @@ KERNELS = {
 # swin-large: 12 encoder + 12 decoder masked attentions (K1, K3), window
 #   attention in every decoder layer (K6), the regroup before and after it in
 #   the 6 shifted layers (K7), and the same DPT head.
+# One v1-base train step with remat (each of the 24 attention sites runs K3
+# and K1/K2 with the logsumexp in the forward, both again in the backward's
+# recomputation, then K3 and the backward), the three K4 upsamples and K5 in
+# the forward (the DPT head is not recomputed), and K4^T for the VJP of each.
+_NONE = dict.fromkeys(('flash_bwd_mask', 'flash_bwd_nomask', 'flash_bwd_dq', 'flash_bwd_dkv',
+                       'resize_bilinear_t'), 0)
+_TRAIN = {'flash_fwd_rope_mask': 36, 'flash_fwd_rope_nomask': 12, 'rot_kv_broadcast': 72,
+          'resize_bilinear': 3, 'resize_bilinear_t': 4, 'resize_s2d': 1,
+          'swin_window_attention': 0, 'shifted_regroup': 0}
 EXPECTED_LAUNCHES = {
     BASE: {'flash_fwd_rope_mask': 18, 'flash_fwd_rope_nomask': 6,
            'rot_kv_broadcast': 24, 'resize_bilinear': 3, 'resize_s2d': 1,
-           'swin_window_attention': 0, 'shifted_regroup': 0},
+           'swin_window_attention': 0, 'shifted_regroup': 0, **_NONE},
     SWIN: {'flash_fwd_rope_mask': 24, 'flash_fwd_rope_nomask': 0,
            'rot_kv_broadcast': 24, 'resize_bilinear': 3, 'resize_s2d': 1,
-           'swin_window_attention': 12, 'shifted_regroup': 12},
+           'swin_window_attention': 12, 'shifted_regroup': 12, **_NONE},
+    TRAIN: {**_TRAIN, 'flash_bwd_mask': 18, 'flash_bwd_nomask': 6, 'flash_bwd_dq': 0,
+            'flash_bwd_dkv': 0},
+    TRAIN2: {**_TRAIN, 'flash_bwd_mask': 0, 'flash_bwd_nomask': 0, 'flash_bwd_dq': 24,
+             'flash_bwd_dkv': 24},
 }
 
 
@@ -136,6 +191,34 @@ def psnr(ref, x):
     return 10 * np.log10(peak ** 2 / max(mse, 1e-30))
 
 
+def record_row(rows, kernel, site, dtype, per_run, out, ref, tol, why, fn, lib_fn, nbytes,
+               flops, flop_rate, plain_fn=None):
+    """Check one (kernel, site, dtype) and time fn as the kernel and plain_fn
+    (default: fn inside reference_kernels()) as the plain version.  out, ref
+    and tol may be tuples, checked pair by pair.  per_run: launches at this
+    shape and dtype in one run of each path."""
+    from renderformer_tpu_torch.ops import reference_kernels
+    outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    tols = tol if isinstance(tol, tuple) else (tol,) * len(outs)
+    errs = [float((o.float() - r.float()).abs().max()) for o, r in zip(outs, refs)]
+    ms = time_ms(fn)
+    if plain_fn is None:
+        with reference_kernels():
+            plain_ms = time_ms(fn, iters=3, warmup=1)
+    else:
+        plain_ms = time_ms(plain_fn, iters=3, warmup=1)
+    lib_ms = time_ms(lib_fn) if lib_fn is not None else None
+    bms, by = bound_ms(nbytes, flops, flop_rate)
+    row = dict(kernel=kernel, site=site, dtype=str(dtype).split('.')[-1], per_run=per_run,
+               max_abs_err=max(errs), errs=errs, tol=list(tols), tol_reason=why, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    print('kernel ' + json.dumps(row), flush=True)
+    for e, t in zip(errs, tols):
+        if not np.isfinite(e) or e > t:
+            fail(f'{kernel} {site} {row["dtype"]}: max err {e} > {t}')
+    rows.append(row)
+
+
 def attention_tol(ref, dtype, what):
     """Output-scaled tolerance of the attention kernels (K1, K2, K6)."""
     import torch
@@ -145,6 +228,73 @@ def attention_tol(ref, dtype, what):
             f'q and P round to bf16 in both, {what}, and out rounds once to '
             'bf16: 4 ulps of max|ref|')
     return amax * 2.0 ** -16, 'fp32 sums in another order: 2^-16 of max|ref|'
+
+
+def check_resize(rows, x, hw, per_run):
+    """K4 on x [B, n, n, C] to hw against its plain version."""
+    import torch
+    import torch.nn.functional as F
+    from renderformer_tpu_torch.ops import reference_kernels
+    from renderformer_tpu_torch.ops.fused_resize import resize_bilinear
+    b, n_in, _, c = x.shape
+    it = x.element_size()
+    with torch.inference_mode():
+        out = resize_bilinear(x, hw)
+        with reference_kernels():
+            ref = resize_bilinear(x, hw)
+        amax = float(x.float().abs().max())
+        if x.dtype == torch.bfloat16:
+            tol, why = amax * 2.0 ** -5, ('the plain version rounds frac, 1-frac and each '
+                                          'lerp to bf16; the kernel rounds once: 4 ulps of '
+                                          'max|x|')
+        else:
+            tol, why = amax * 2.0 ** -22, 'same fp32 ops in the same order'
+        xc = x.permute(0, 3, 1, 2)
+        record_row(rows, 'resize_bilinear', f'{n_in}to{hw[0]}', x.dtype, per_run, out, ref,
+                   tol, why, lambda: resize_bilinear(x, hw),
+                   lambda: F.interpolate(xc, size=hw, mode='bilinear', align_corners=True),
+                   b * (n_in * n_in + hw[0] * hw[1]) * c * it, 8 * b * hw[0] * hw[1] * c,
+                   PEAK_FP32)
+
+
+def check_resize_s2d(rows, x, hw, per_run):
+    """K5 on x [B, n, n, C] to hw in s2d layout against its plain version."""
+    import torch
+    import torch.nn.functional as F
+    from renderformer_tpu_torch.ops import reference_kernels
+    from renderformer_tpu_torch.ops.fused_resize import resize_s2d
+    from renderformer_tpu_torch.ops.s2d_conv import space_to_depth
+    b, n_in, _, c = x.shape
+    it = x.element_size()
+    with torch.inference_mode():
+        out = resize_s2d(x, hw)
+        with reference_kernels():
+            ref = resize_s2d(x, hw)
+        xc = x.permute(0, 3, 1, 2)
+        record_row(rows, 'resize_s2d', f'{n_in}to{hw[0]}_s2d', x.dtype, per_run,
+                   out, ref, 0.0, 'the plain resize in fp32 rounded once, then '
+                   'space_to_depth: the same ops in the same order, bit for bit',
+                   lambda: resize_s2d(x, hw),
+                   lambda: space_to_depth(F.interpolate(
+                       xc, size=hw, mode='bilinear', align_corners=True
+                   ).permute(0, 2, 3, 1)),
+                   b * (n_in * n_in + hw[0] * hw[1]) * c * it, 8 * b * hw[0] * hw[1] * c,
+                   PEAK_FP32)
+
+
+def k3_bytes(b, bkv, sk, h, it):
+    """K3 reads k at the scene batch and the fp32 tables, writes k at the q batch."""
+    return bkv * sk * h * D * it + 2 * b * sk * D * 4 + b * sk * h * D * it
+
+
+K3_WHY = ('same fp32 arithmetic as the plain version; one ulp of the largest output for '
+          'a differently rounded product')
+
+
+def k3_tol(ref):
+    import torch
+    return float(ref.float().abs().max()) * (2.0 ** -7 if ref.dtype == torch.bfloat16
+                                             else 2.0 ** -22)
 
 
 # ---------------------------------------------------------------------------
@@ -158,8 +308,6 @@ def kernel_checks():
     from renderformer_tpu_torch.ops import reference_kernels
     from renderformer_tpu_torch.ops.flash_attention import (
         flash_fwd_rope, rot_kv_broadcast, rot_kv_broadcast_plain)
-    from renderformer_tpu_torch.ops.fused_resize import resize_bilinear, resize_s2d
-    from renderformer_tpu_torch.ops.s2d_conv import space_to_depth
     from renderformer_tpu_torch.ops.shifted_regroup import regroup_index, shifted_regroup
     from renderformer_tpu_torch.ops.swin_attention import (
         region_table, swin_window_attention)
@@ -177,25 +325,10 @@ def kernel_checks():
         c, sn = make_cos_sin(pos, rope_dim=12, head_dim=D)
         return c[:, :, 0].contiguous(), sn[:, :, 0].contiguous()
 
-    def record(kernel, site, dtype, per_render, out, ref, tol, why, fn, lib_fn,
-               nbytes, flops, flop_rate):
-        """Check one (kernel, site, dtype) and time fn as the kernel and, inside
-        reference_kernels(), as the plain version.  per_render: launches at
-        this shape in one render of each model."""
-        err = float((out.float() - ref.float()).abs().max())
-        ms = time_ms(fn)
-        with reference_kernels():
-            plain_ms = time_ms(fn, iters=3, warmup=1)
-        lib_ms = time_ms(lib_fn) if lib_fn is not None else None
-        bms, by = bound_ms(nbytes, flops, flop_rate)
-        row = dict(kernel=kernel, site=site, dtype=str(dtype).split('.')[-1],
-                   per_render=per_render, max_abs_err=err, tol=tol, tol_reason=why,
-                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                   bound_by=by)
-        print('kernel ' + json.dumps(row), flush=True)
-        if not np.isfinite(err) or err > tol:
-            fail(f'{kernel} {site} {row["dtype"]}: max err {err} > {tol}')
-        rows.append(row)
+    def record(kernel, site, dtype, per_render, *args):
+        # the renders run bf16: an fp32 row is checked and timed, launched by no path
+        record_row(rows, kernel, site, dtype, per_render if dtype == torch.bfloat16 else {},
+                   *args)
 
     flash_sites = [  # name, B, Bkv, Sq, Sk, H, masked, launches per render
         ('stage1_self', 1, 1, SK, SK, 6, True, {BASE: 12}),
@@ -221,14 +354,9 @@ def kernel_checks():
                 # K3 at this site
                 out = rot_kv_broadcast(k, ck, sk_t)
                 ref = rot_kv_broadcast_plain(k, ck, sk_t)
-                tol = float(ref.float().abs().max()) * (2.0 ** -7 if dtype == torch.bfloat16
-                                                       else 2.0 ** -22)
-                record('rot_kv_broadcast', site, dtype, n, out, ref, tol,
-                       'same fp32 arithmetic as the plain version; one ulp of the '
-                       'largest output for a differently rounded product',
+                record('rot_kv_broadcast', site, dtype, n, out, ref, k3_tol(ref), K3_WHY,
                        lambda: rot_kv_broadcast(k, ck, sk_t), None,
-                       bkv * sk * H * D * it + 2 * b * sk * D * 4 + b * sk * H * D * it,
-                       3 * b * sk * H * D, PEAK_FP32)
+                       k3_bytes(b, bkv, sk, H, it), 3 * b * sk * H * D, PEAK_FP32)
                 k_rot = out
                 # K1 / K2 at this site
                 kname = 'flash_fwd_rope_mask' if masked else 'flash_fwd_rope_nomask'
@@ -252,51 +380,14 @@ def kernel_checks():
             del q, k, v, k_rot, out, ref, qr, qs, ks, vs
             torch.cuda.empty_cache()
 
-        # K4: refinenet4/3/2 upsamples of both DPT heads
+        # K4: refinenet4/3/2 upsamples of both DPT heads; K5: refinenet1's
+        # upsample into s2d layout, the composed tail's input
+        per_render = {BASE: 1, SWIN: 1} if dtype == torch.bfloat16 else {}
         for n_in in (32, 64, 128):
-            x = randn(V, n_in, n_in, DPT_C, dtype=dtype)
-            hw = (2 * n_in, 2 * n_in)
-            with torch.inference_mode():
-                out = resize_bilinear(x, hw)
-                with reference_kernels():
-                    ref = resize_bilinear(x, hw)
-                amax = float(x.float().abs().max())
-                if dtype == torch.bfloat16:
-                    tol, why = amax * 2.0 ** -5, ('the plain version rounds frac, '
-                                                  '1-frac and each lerp to bf16; the '
-                                                  'kernel rounds once: 4 ulps of max|x|')
-                else:
-                    tol, why = amax * 2.0 ** -22, 'same fp32 ops in the same order'
-                xc = x.permute(0, 3, 1, 2)
-                record('resize_bilinear', f'{n_in}to{2 * n_in}', dtype,
-                       {BASE: 1, SWIN: 1}, out, ref, tol, why,
-                       lambda: resize_bilinear(x, hw),
-                       lambda: F.interpolate(xc, size=hw, mode='bilinear',
-                                             align_corners=True),
-                       V * n_in * n_in * DPT_C * it + V * 4 * n_in * n_in * DPT_C * it,
-                       8 * V * 4 * n_in * n_in * DPT_C, PEAK_FP32)
-            del x, out, ref
-            torch.cuda.empty_cache()
-
-        # K5: refinenet1's upsample into s2d layout, the composed tail's input
-        n_in = RES // 2
-        x = randn(V, n_in, n_in, DPT_C, dtype=dtype)
-        hw = (RES, RES)
-        with torch.inference_mode():
-            out = resize_s2d(x, hw)
-            with reference_kernels():
-                ref = resize_s2d(x, hw)
-            xc = x.permute(0, 3, 1, 2)
-            record('resize_s2d', f'{n_in}to{RES}_s2d', dtype, {BASE: 1, SWIN: 1},
-                   out, ref, 0.0, 'the plain resize in fp32 rounded once, then '
-                   'space_to_depth: the same ops in the same order, bit for bit',
-                   lambda: resize_s2d(x, hw),
-                   lambda: space_to_depth(F.interpolate(
-                       xc, size=hw, mode='bilinear', align_corners=True
-                   ).permute(0, 2, 3, 1)),
-                   V * n_in * n_in * DPT_C * it + V * RES * RES * DPT_C * it,
-                   8 * V * RES * RES * DPT_C, PEAK_FP32)
-        del x, out, ref
+            check_resize(rows, randn(V, n_in, n_in, DPT_C, dtype=dtype), (2 * n_in, 2 * n_in),
+                         per_render)
+        check_resize_s2d(rows, randn(V, RES // 2, RES // 2, DPT_C, dtype=dtype), (RES, RES),
+                         per_render)
         torch.cuda.empty_cache()
 
         # K7 and K6 at the swin-large shapes: [8, 4096, 1024] window-ordered
@@ -452,28 +543,400 @@ def render_checks(card, preset):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def train_kernel_checks():
+    """The forward's logsumexp (K1/K2), K3, K8, K9's two kernels, K4, K5 and
+    K4^T at the v1-base train step's shapes, in bf16 and fp32; per_run counts
+    the launches at the dtype the step runs there (bf16 stage 1, fp32 view
+    stage) in one step of each backward that launches the kernel."""
+    import torch
+    import torch.nn.functional as F
+    from renderformer_tpu_torch import _build
+    from renderformer_tpu_torch.encodings.rope import make_cos_sin
+    from renderformer_tpu_torch.ops import reference_kernels
+    from renderformer_tpu_torch.ops.flash_attention import (
+        flash_bwd, flash_bwd_dkv_plain, flash_bwd_dq_plain, flash_fwd_rope, launch_flash_bwd,
+        launch_flash_fwd_rope, rot_kv_broadcast, rot_kv_broadcast_plain)
+    from renderformer_tpu_torch.ops.fused_resize import resize_bilinear_t
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(1)
+    lib = _build.library()
+    rows = []
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def tables(b, s):
+        c, sn = make_cos_sin(randn(b, s, 9) * 0.3, rope_dim=12, head_dim=D)
+        return c[:, :, 0].contiguous(), sn[:, :, 0].contiguous()
+
+    H = 6
+    sites = [  # name, Sq, Sk, masked, dtype of the step there, sites a step
+        ('train_stage1_self', SK, SK, True, torch.bfloat16, 12),
+        ('train_cross', TRAIN_ST, SK, True, torch.float32, 6),
+        ('train_ray_self', TRAIN_ST, TRAIN_ST, False, torch.float32, 6),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        it = 2 if dtype == torch.bfloat16 else 4
+        flop_rate = PEAK_BF16_TENSOR if dtype == torch.bfloat16 else PEAK_FP32
+        for site, sq, sk, masked, step_dtype, n in sites:
+            def per_step(k, paths=TRAIN_PATHS):
+                return {p: k * n for p in paths} if dtype == step_dtype else {}
+            q, do = randn(1, sq, H, D, dtype=dtype), randn(1, sq, H, D, dtype=dtype)
+            k, v = randn(1, sk, H, D, dtype=dtype), randn(1, sk, H, D, dtype=dtype)
+            cq, sq_t = tables(1, sq)
+            ck, sk_t = (cq, sq_t) if sq == sk else tables(1, sk)
+            mask = None
+            if masked:
+                mask = torch.ones(1, sk, dtype=torch.bool, device=dev)
+                mask[:, 16 + NTRI * 3 // 4:] = False
+            with torch.no_grad():
+                # K3: three times a step (forward, remat recompute, backward)
+                k_rot = rot_kv_broadcast(k, ck, sk_t)
+                ref_rot = rot_kv_broadcast_plain(k, ck, sk_t)
+                record_row(rows, 'rot_kv_broadcast', site, dtype, per_step(3), k_rot, ref_rot,
+                           k3_tol(ref_rot), K3_WHY, lambda: rot_kv_broadcast(k, ck, sk_t), None,
+                           k3_bytes(1, 1, sk, H, it), 3 * sk * H * D, PEAK_FP32)
+                # K1/K2 with the logsumexp: twice a step (forward, remat recompute)
+                kname = 'flash_fwd_rope_mask' if masked else 'flash_fwd_rope_nomask'
+                out, lse = flash_fwd_rope(q, k_rot, v, mask, cq, sq_t, with_lse=True)
+                with reference_kernels():
+                    ref_out, ref_lse = flash_fwd_rope(q, k_rot, v, mask, cq, sq_t,
+                                                      with_lse=True)
+                tol, why = attention_tol(ref_out, dtype, 'P at the running max vs the row max')
+                lse_tol = 1e-5 * float(ref_lse.abs().max()) + 2e-5
+                qs, ks = (rot_kv_broadcast_plain(q, cq, sq_t).transpose(1, 2).contiguous(),
+                          k_rot.transpose(1, 2).contiguous())
+                vs = v.transpose(1, 2).contiguous()
+                am = mask[:, None, None, :] if mask is not None else None
+                fwd_bytes = (2 * sq + 2 * sk) * H * D * it + (sk if masked else 0) \
+                    + 2 * sq * D * 4 + H * sq * 4
+                record_row(rows, kname, site + '_lse', dtype, per_step(2), (out, lse),
+                           (ref_out, ref_lse), (tol, lse_tol),
+                           why + '; lse m*ln2 + ln(l) in fp32: 1e-5 of max|lse| + 2e-5',
+                           lambda: flash_fwd_rope(q, k_rot, v, mask, cq, sq_t, with_lse=True),
+                           lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am),
+                           fwd_bytes, 4 * H * sq * sk * D, flop_rate)
+                # what the logsumexp costs: against the render's instantiation on
+                # the same inputs, the two timed in turn three times, each as
+                # bursts of LSE_BURST launches into buffers made beforehand, so
+                # that neither the host nor an allocation sits between them
+                lse_buf = torch.empty_like(lse)
+
+                def burst(buf):
+                    return lambda: [launch_flash_fwd_rope(lib, q, k_rot, v, mask, cq, sq_t, buf)
+                                    for _ in range(LSE_BURST)]
+
+                pairs = [(time_ms(burst(lse_buf)) / LSE_BURST, time_ms(burst(None)) / LSE_BURST)
+                         for _ in range(3)]
+                w, wo = (statistics.median(x) for x in zip(*pairs))
+                print(f'lse: {kname} {site} {rows[-1]["dtype"]}: {w:.4f} ms a launch with the '
+                      f'logsumexp, {wo:.4f} ms without ({w / wo - 1:+.3f}), medians of the '
+                      f'turns {[(round(a, 4), round(b, 4)) for a, b in pairs]}', flush=True)
+                lse = ref_lse
+                delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2).contiguous()
+                io = (q, k_rot, v, mask, lse, delta, do)
+                with reference_kernels():
+                    ref = flash_bwd(*io)
+                tols = tuple(attention_tol(r, dtype, '')[0] * 2 for r in ref)
+                why = ('q, P and dS round to the dtype in both, dQ sums by atomics (K8) in a '
+                       'run-dependent order: 8 bf16 ulps / 2^-15 of max|ref| per output')
+            # library yardsticks: autograd through SDPA on the same inputs, for
+            # all three gradients (K8), dq alone and (dk, dv) alone (K9's kernels)
+            ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (qs, ks, vs))
+            yl = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=am)
+            gl = do.transpose(1, 2).contiguous()
+
+            def lib_grad(*wrt):
+                return lambda: torch.autograd.grad(yl, wrt, gl, retain_graph=True)
+
+            b_in = (2 * sq + 2 * sk) * H * D * it + 2 * H * sq * 4 + (sk if masked else 0)
+            b_out_kv, b_out_q = 2 * sk * H * D * it, sq * H * D * it
+            with torch.no_grad():
+                # the wrappers the train step calls are checked; K9's kernels are
+                # timed one at a time, each against the plain version of its part
+                fused = flash_bwd(*io, 'fused')
+                record_row(rows, 'flash_bwd_mask' if masked else 'flash_bwd_nomask', site, dtype,
+                           per_step(1, (TRAIN,)), fused, ref, tols, why,
+                           lambda: flash_bwd(*io, 'fused'), lib_grad(ql, kl, vl),
+                           b_in + sq * H * D * it + b_out_kv + b_out_q,
+                           10 * H * sq * sk * D, flop_rate)
+                two = flash_bwd(*io, 'twokernel')
+                record_row(rows, 'flash_bwd_dq', site, dtype, per_step(1, (TRAIN2,)), two[0],
+                           ref[0], tols[0], why, lambda: launch_flash_bwd(lib, 'dq', *io),
+                           lib_grad(ql), b_in + b_out_q, 6 * H * sq * sk * D, flop_rate,
+                           plain_fn=lambda: flash_bwd_dq_plain(*io))
+                record_row(rows, 'flash_bwd_dkv', site, dtype, per_step(1, (TRAIN2,)), two[1:],
+                           ref[1:], tols[1:], why, lambda: launch_flash_bwd(lib, 'dkv', *io),
+                           lib_grad(kl, vl), b_in + b_out_kv, 8 * H * sq * sk * D, flop_rate,
+                           plain_fn=lambda: flash_bwd_dkv_plain(*io))
+            del q, do, k, v, k_rot, ref_rot, out, lse, ref_out, ref, fused, two, ql, kl, vl, io
+            del yl
+            torch.cuda.empty_cache()
+
+        # K4 and K5 in the fp32 view stage's DPT head (refinenet4/3/2, refinenet1)
+        view_stage = {p: 1 for p in TRAIN_PATHS} if dtype == torch.float32 else {}
+        for n_in in (16, 32, 64):
+            check_resize(rows, randn(1, n_in, n_in, DPT_C, dtype=dtype), (2 * n_in, 2 * n_in),
+                         view_stage)
+        check_resize_s2d(rows, randn(1, TRAIN_RES // 2, TRAIN_RES // 2, DPT_C, dtype=dtype),
+                         (TRAIN_RES, TRAIN_RES), view_stage)
+
+        # K4^T: the VJP of refinenet4/3/2's upsamples and (after depth_to_space)
+        # of refinenet1's K5, in the fp32 view stage
+        for n_in in (16, 32, 64, 128):
+            n_out = 2 * n_in
+            g = randn(1, n_out, n_out, DPT_C, dtype=dtype)
+            with torch.no_grad():
+                out = resize_bilinear_t(g, (n_in, n_in))
+                with reference_kernels():
+                    ref = resize_bilinear_t(g, (n_in, n_in))
+            amax = float(ref.float().abs().max())
+            tol = amax * (2.0 ** -8 if dtype == torch.bfloat16 else 1e-6)
+            xl = torch.zeros(1, DPT_C, n_in, n_in, dtype=dtype, device=dev,
+                             requires_grad=True)
+            yl = F.interpolate(xl, size=(n_out, n_out), mode='bilinear', align_corners=True)
+            gl = g.permute(0, 3, 1, 2)
+
+            def lib_t():
+                return torch.autograd.grad(yl, xl, gl, retain_graph=True)
+
+            with torch.no_grad():
+                record_row(rows, 'resize_bilinear_t', f'{n_out}to{n_in}', dtype, view_stage, out,
+                           ref, tol, 'the same nonzero weights in fp32, summed in another '
+                           'order and rounded once: 1 bf16 ulp / 1e-6 of max|ref|',
+                           lambda: resize_bilinear_t(g, (n_in, n_in)), lib_t,
+                           (n_out * n_out + n_in * n_in) * DPT_C * it,
+                           8 * n_out * n_out * DPT_C, PEAK_FP32)
+            del g, out, ref, xl, yl
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the v1-base train step
+# ---------------------------------------------------------------------------
+
+def train_batch(device):
+    """tools/train_step_bench.py's batch, made from numpy seed 0."""
+    import torch
+    rng = np.random.default_rng(0)
+    b = {'triangles': rng.normal(size=(1, NTRI, 3, 3)).astype(np.float32) * 0.3,
+         'texture': rng.uniform(0, 1, (1, NTRI, 13, 32, 32)).astype(np.float32),
+         'mask': np.ones((1, NTRI), bool),
+         'vn': rng.normal(size=(1, NTRI, 3, 3)).astype(np.float32),
+         'c2w': np.tile(np.eye(4, dtype=np.float32), (1, 1, 1, 1)),
+         'fov': np.full((1, 1, 1), 40.0, np.float32),
+         'gt': rng.uniform(0, 1, (1, 1, TRAIN_RES, TRAIN_RES, 3)).astype(np.float32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+# bars of a train step against another: relative loss and grad-norm
+# differences, the cosine of the flattened gradients, and the largest relative
+# difference of one parameter's gradient; about 4x to 60x the kernel step's
+# readings (PERF.md section 2).  The planted fault passes the first three and
+# only the last catches it.
+AGREE_BARS = dict(loss_rel=1e-4, grad_norm_rel=1e-3, one_minus_cosine=1e-5,
+                  worst_param_rel=5e-2)
+
+
+def grad_agreement(name, a, b, names):
+    """The agreement measures of two (loss, grads) results, grads in the
+    order of ``names``; printed, with the bars."""
+    import torch
+    (la, ga), (lb, gb) = a, b
+    la, lb = float(la), float(lb)
+
+    def dot(xs, ys):
+        return sum(float(torch.sum(x.double() * y.double())) for x, y in zip(xs, ys))
+
+    na, nb = dot(ga, ga) ** 0.5, dot(gb, gb) ** 0.5
+    diff = torch.stack(torch._foreach_norm(torch._foreach_sub(ga, gb))).tolist()
+    ref = torch.stack(torch._foreach_norm(gb)).tolist()
+    rel = [(d / r if r else (0.0 if d == 0 else float('inf')), n)
+           for d, r, n in zip(diff, ref, names)]
+    worst = sorted(rel, reverse=True)[:3]
+    m = dict(loss_rel=abs(la - lb) / abs(lb), grad_norm_rel=abs(na - nb) / nb,
+             one_minus_cosine=1 - dot(ga, gb) / (na * nb), worst_param_rel=worst[0][0])
+    print(f'train: {name}: loss {la:.7f} vs {lb:.7f}, grad norm {na:.6f} vs {nb:.6f}; '
+          + ', '.join(f'{k} {v:.3e} (bar {AGREE_BARS[k]})' for k, v in m.items())
+          + f'; worst parameters {[(n, f"{r:.3e}") for r, n in worst]}', flush=True)
+    return m
+
+
+def within_bars(m):
+    return all(m[k] <= bar for k, bar in AGREE_BARS.items())
+
+
+@contextlib.contextmanager
+def planted_fault():
+    """A wrong backward, the control of the agreement bars: dK keeps a factor
+    log2(e) (its 1/log2(e) left out) at the unmasked sites, the view stage's
+    ray self-attentions."""
+    from renderformer_tpu_torch.ops import flash_attention as fa
+    real = fa.flash_bwd
+
+    def faulty(q_rot, k_rot, v, mask, lse, delta, do, variant='fused'):
+        dq, dk, dv = real(q_rot, k_rot, v, mask, lse, delta, do, variant)
+        return dq, (dk if mask is not None else dk * fa.LOG2E), dv
+
+    fa.flash_bwd = faulty
+    try:
+        yield
+    finally:
+        fa.flash_bwd = real
+
+
+def train_checks(card):
+    """Phase 7; returns the launch counts of one step of each backward."""
+    import torch
+    from renderformer_tpu_torch.config import PRESETS
+    from renderformer_tpu_torch.models.renderformer import RenderFormer
+    from renderformer_tpu_torch.nn.core import init_weights
+    from renderformer_tpu_torch.ops import LAUNCHES, reference_kernels, reset_launch_counts
+    from renderformer_tpu_torch.training import state as ts
+
+    t0 = time.time()
+    with torch.device('meta'):
+        model = RenderFormer(PRESETS[BASE])
+    model = model.to_empty(device='cpu')
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to('cuda')
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = train_batch('cuda')
+    tcs = {v: ts.TrainConfig(precision='bfloat16', resolution=TRAIN_RES, steps_per_epoch=100,
+                             remat=True, flash_bwd=v) for v in ('fused', 'twokernel')}
+    print(f'train: v1-base seeded init, {n_params} parameters; dtypes '
+          f'{ts.resolve_dtypes(tcs["fused"])}, remat, {TRAIN_RES}^2, 1 view, {NTRI} tris '
+          f'({time.time() - t0:.1f} s)', flush=True)
+    tx = ts.make_optimizer(tcs['fused'])
+    state = ts.TrainState.create(model, tx, tcs['fused'])
+
+    # the gradient of the kernel step against the plain-version step, and a
+    # planted fault that the same bars must catch
+    names = [n for n, _ in model.named_parameters()]
+    grads_fused = ts.make_loss_fns(model, tcs['fused'])[1]
+    with reference_kernels():
+        plain = grads_fused(state, batch)
+    fused = grads_fused(state, batch)
+    two = ts.make_loss_fns(model, tcs['twokernel'])[1](state, batch)
+    with planted_fault():
+        bad = grads_fused(state, batch)
+    agree = {'fused_vs_plain': grad_agreement('fused vs plain', fused, plain, names),
+             'twokernel_vs_plain': grad_agreement('two-kernel vs plain', two, plain, names),
+             'fused_vs_twokernel': grad_agreement('fused vs two-kernel', fused, two, names)}
+    control = grad_agreement('planted fault vs plain', bad, plain, names)
+    for k, m in agree.items():
+        if not within_bars(m):
+            fail(f'train {k}: {m} past the bars {AGREE_BARS}')
+    if within_bars(control):
+        fail(f'train: the planted fault passes the bars ({control})')
+    agree['planted_fault_vs_plain'] = control
+    del plain, fused, two, bad
+    torch.cuda.empty_cache()
+
+    # one step of each backward on the main path, counts set to 0 just before
+    launches, losses = {}, []
+    for path, v in ((TRAIN, 'fused'), (TRAIN2, 'twokernel')):
+        step = ts.make_train_step(model, tx, tcs[v])[0]
+        reset_launch_counts()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        launches[path] = dict(LAUNCHES)
+        losses.append(m)
+        print(f'train: {path} launches ' + json.dumps(launches[path]), flush=True)
+        if launches[path] != EXPECTED_LAUNCHES[path]:
+            fail(f'{path} launch counts {launches[path]} != {EXPECTED_LAUNCHES[path]}')
+    step = ts.make_train_step(model, tx, tcs['fused'])[0]
+    state, m = step(state, batch)
+    losses.append(m)
+    print(f'train: 3 steps, loss / grad norm {[(x["loss"], x["grad_norm"]) for x in losses]}',
+          flush=True)
+    if not all(np.isfinite(x['loss']) and np.isfinite(x['grad_norm']) for x in losses):
+        fail('train: non-finite loss or grad norm')
+
+    # speed: median step of TRAIN_STEPS after a warm-up, on the card's batch
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    times = times[1:]
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'train: v1-base step {med * 1e3:.2f} ms median of {len(times)} '
+          f'({[round(x * 1e3, 2) for x in times]} ms), {TRAIN_RES ** 2 / med:.1f} trained '
+          f'rays/s, peak memory {peak:.2f} GiB, on {card}', flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    for e in kernels[:25]:
+        print(f'profile: train {e.self_device_time_total / 1e3:9.3f} ms '
+              f'{e.count:5d}x {e.key[:100]}', flush=True)
+    # where the host's time goes: ops by self CPU time
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    for e in host[:15]:
+        print(f'profile: train host {e.self_cpu_time_total / 1e3:9.3f} ms '
+              f'{e.count:5d}x {e.key[:100]}', flush=True)
+    print(f'train: device time {dev_ms:.2f} ms a step (profiled), device idle share '
+          f'{1 - dev_ms / (med * 1e3):.3f} of the {med * 1e3:.2f} ms median step '
+          f'({1 - dev_ms / (wall * 1e3):.3f} of the {wall * 1e3:.2f} ms profiled step)',
+          flush=True)
+    print('train ' + json.dumps({'step_ms': med * 1e3, 'rays_per_s': TRAIN_RES ** 2 / med,
+                                 'peak_gib': peak, 'device_ms': dev_ms,
+                                 'idle_share': 1 - dev_ms / (med * 1e3), **agree}), flush=True)
+    del state, model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _times(weighted):
+    """ms, plain_ms, bound_ms and library_ms of (row, launches) pairs: each
+    row's median times its launches, summed; library_ms None where a row has
+    no library call."""
+    lib = [r['library_ms'] for r, _ in weighted]
+    return dict(ms=sum(r['ms'] * n for r, n in weighted),
+                plain_ms=sum(r['plain_ms'] * n for r, n in weighted),
+                bound_ms=sum(r['bound_ms'] * n for r, n in weighted),
+                library_ms=(None if any(x is None for x in lib) else
+                            sum(x * n for x, (_, n) in zip(lib, weighted))))
+
+
 def kernel_summary(rows, launches):
-    """One entry a kernel: launches and times per render of each model,
-    summed over the two models (bf16 rows; the fp32 rows are printed above)."""
+    """One entry a kernel: its launches in each path's run, and its times
+    summed over the shapes and dtypes each path runs it at (a row's per_run
+    launches times its median ms), totalled over the paths and per path;
+    max_abs_err over every row of the kernel, fp32 and bf16."""
     kernels = []
     for name, meta in KERNELS.items():
-        mine = [r for r in rows if r['kernel'] == name and r['dtype'] == 'bfloat16']
-        per = [sum(r['per_render'].values()) for r in mine]
-        lib = [r['library_ms'] for r in mine]
-        bms = sum(r['bound_ms'] * n for r, n in zip(mine, per))
-        by_ops = sum(r['bound_ms'] * n for r, n in zip(mine, per)
-                     if r['bound_by'] == 'operations')
+        mine = [r for r in rows if r['kernel'] == name]
+        on_path = [(r, sum(r['per_run'].values())) for r in mine if r['per_run']]
+        total = _times(on_path)
+        by_ops = sum(r['bound_ms'] * n for r, n in on_path if r['bound_by'] == 'operations')
         kernels.append(dict(
-            name=name, **meta, launches=sum(launches[p][name] for p in PATHS),
-            launches_by_path={p: launches[p][name] for p in PATHS},
-            max_abs_err=max(r['max_abs_err'] for r in mine),
-            ms=sum(r['ms'] * n for r, n in zip(mine, per)),
-            ms_by_path={p: sum(r['ms'] * r['per_render'].get(p, 0) for r in mine)
-                        for p in PATHS},
-            plain_ms=sum(r['plain_ms'] * n for r, n in zip(mine, per)),
-            bound_ms=bms, bound_by='operations' if by_ops * 2 > bms else 'bytes',
-            library_ms=(None if any(x is None for x in lib) else
-                        sum(x * n for x, n in zip(lib, per)))))
+            name=name, **meta, launches=sum(launches[p][name] for p in ALL_PATHS),
+            launches_by_path={p: launches[p][name] for p in ALL_PATHS},
+            max_abs_err=max(r['max_abs_err'] for r in mine), **total,
+            bound_by='operations' if by_ops * 2 > total['bound_ms'] else 'bytes',
+            by_path={p: _times([(r, r['per_run'][p]) for r in mine if p in r['per_run']])
+                     for p in ALL_PATHS}))
     return kernels
 
 
@@ -503,9 +966,11 @@ def main():
 
     rows = kernel_checks()
     launches = {preset: render_checks(card, preset) for preset in PATHS}
+    rows += train_kernel_checks()
+    launches.update(train_checks(card))
     for name in KERNELS:
-        if not any(launches[p][name] for p in PATHS):
-            fail(f'{name} was launched by no render')
+        if not any(launches[p][name] for p in ALL_PATHS):
+            fail(f'{name} was launched by no path')
 
     print(json.dumps({'kernels': kernel_summary(rows, launches)}), flush=True)
     print(card_line(), flush=True)

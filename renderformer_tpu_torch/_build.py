@@ -32,14 +32,26 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # q, k_rot, v, mask, cos, sin, out, dtype, has_mask, B, reps, Sq, Sk, H, D,
-    # qscale, stream
-    'rf_flash_fwd_rope': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _F, _P],
+    # q, k_rot, v, mask, cos, sin, out, lse, dtype, has_mask, B, reps, Sq, Sk,
+    # H, D, qscale, stream
+    'rf_flash_fwd_rope': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _F, _P],
+    # q, k, v, dout, lse, delta, mask, dq_acc, dk, dv, dtype, has_mask, B,
+    # reps, Sq, Sk, H, D, qscale, dqscale, dkscale, stream
+    'rf_flash_bwd_kv': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    # q, k, v, dout, lse, delta, mask, dq, dtype, has_mask, B, reps, Sq, Sk,
+    # H, D, qscale, dqscale, stream
+    'rf_flash_bwd_dq': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _F, _F, _P],
     # k, cos, sin, out, dtype, B, reps, Sk, H, D, stream
     'rf_rot_kv_broadcast': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, out, dtype, B, IH, IW, OH, OW, C, stream
     'rf_resize_bilinear': [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # g, out, span_h, w_h, taps_h, span_w, w_w, taps_w, dtype, B, IH, IW, OH,
+    # OW, C, stream
+    'rf_resize_bilinear_t': [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P],
     # x, out, dtype, B, IH, IW, OH, OW, C, stream
     'rf_resize_s2d': [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, table, out, B, nW, ws, row_bytes, stream

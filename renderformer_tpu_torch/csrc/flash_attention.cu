@@ -13,7 +13,11 @@
 //   * K arrives already rotated at the full batch B (rot_kv.cu); V is read at
 //     batch b / reps, so the view fan-out never exists in memory;
 //   * a ragged Sk is masked inside the kernel (keys past Sk add -inf and are
-//     zero-filled), with no padded copies.
+//     zero-filled), with no padded copies;
+//   * with an lse pointer (the training forward, _fwd_epilogue with_lse) the
+//     epilogue also writes the natural-log logsumexp m2 * ln2 + ln(l) of each
+//     row, fp32, laid out [B, H, Sq]; a template flag, so the render's
+//     instantiation does no extra work.
 //
 // Bound on this card: at the main-path shapes (Sq = 4096 or 2064, D = 128)
 // the two products are ~4*Sq*Sk*D flops per (b, h) against ~2*(Sq+Sk)*D
@@ -57,13 +61,13 @@ constexpr size_t smem_bytes() {
 //           {row g+8, cols 2t+8..};
 //   B regs: {k rows 2t..2t+1, col g}, {k rows 2t+8..2t+9, col g};
 //   C:      c0,c1 at row g, cols 2t, 2t+1; c2,c3 at row g+8.
-template <typename T, int D, bool HAS_MASK>
+template <typename T, int D, bool HAS_MASK, bool WITH_LSE>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const uint8_t* __restrict__ mask,
                       const float* __restrict__ cosq, const float* __restrict__ sinq,
-                      T* __restrict__ out, int reps, int Sq, int Sk, int H,
-                      float qscale) {
+                      T* __restrict__ out, float* __restrict__ lse, int reps, int Sq,
+                      int Sk, int H, float qscale) {
   constexpr bool kBF = std::is_same<T, __nv_bfloat16>::value;
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int LD = D + VEC;          // padded shared-memory row stride
@@ -296,16 +300,18 @@ flash_fwd_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
         op[c] = from_float<T>(o[dt][2 * hh] / l_r[hh]);
         op[c + 1] = from_float<T>(o[dt][2 * hh + 1] / l_r[hh]);
       }
+      if (WITH_LSE && t4 == 0)
+        lse[((size_t)b * H + h) * Sq + qi] = m_r[hh] * 0.6931471805599453f + logf(l_r[hh]);
     }
   }
 }
 
-template <typename T, int D, bool HAS_MASK>
+template <typename T, int D, bool HAS_MASK, bool WITH_LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask,
-                   const void* cosq, const void* sinq, void* out, int B, int reps,
-                   int Sq, int Sk, int H, float qscale, cudaStream_t stream) {
+                   const void* cosq, const void* sinq, void* out, void* lse, int B,
+                   int reps, int Sq, int Sk, int H, float qscale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
-  auto kern = flash_fwd_rope_kernel<T, D, HAS_MASK>;
+  auto kern = flash_fwd_rope_kernel<T, D, HAS_MASK, WITH_LSE>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -313,39 +319,41 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
   kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(mask), static_cast<const float*>(cosq),
-      static_cast<const float*>(sinq), static_cast<T*>(out), reps, Sq, Sk, H, qscale);
+      static_cast<const float*>(sinq), static_cast<T*>(out), static_cast<float*>(lse),
+      reps, Sq, Sk, H, qscale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch_mask(int has_mask, const void* q, const void* k, const void* v,
-                        const void* mask, const void* cosq, const void* sinq, void* out,
-                        int B, int reps, int Sq, int Sk, int H, float qscale,
-                        cudaStream_t stream) {
-  if (has_mask)
-    return launch<T, D, true>(q, k, v, mask, cosq, sinq, out, B, reps, Sq, Sk, H, qscale,
-                              stream);
-  return launch<T, D, false>(q, k, v, mask, cosq, sinq, out, B, reps, Sq, Sk, H, qscale,
-                             stream);
+cudaError_t launch_variant(int has_mask, const void* q, const void* k, const void* v,
+                           const void* mask, const void* cosq, const void* sinq, void* out,
+                           void* lse, int B, int reps, int Sq, int Sk, int H, float qscale,
+                           cudaStream_t stream) {
+#define RF_LAUNCH(M, L) \
+  launch<T, D, M, L>(q, k, v, mask, cosq, sinq, out, lse, B, reps, Sq, Sk, H, qscale, stream)
+  if (has_mask) return lse ? RF_LAUNCH(true, true) : RF_LAUNCH(true, false);
+  return lse ? RF_LAUNCH(false, true) : RF_LAUNCH(false, false);
+#undef RF_LAUNCH
 }
 
 }  // namespace
 
 // q [B,Sq,H,D], k (rotated) [B,Sk,H,D], v [B/reps,Sk,H,D], mask [B,Sk] uint8
-// (ignored unless has_mask), cos/sin [B,Sq,D] fp32, out [B,Sq,H,D].
+// (ignored unless has_mask), cos/sin [B,Sq,D] fp32, out [B,Sq,H,D], lse [B,H,Sq]
+// fp32 or null (no logsumexp written).
 extern "C" int rf_flash_fwd_rope(const void* q, const void* k, const void* v,
                                  const void* mask, const void* cosq, const void* sinq,
-                                 void* out, int dtype, int has_mask, int B, int reps,
-                                 int Sq, int Sk, int H, int D, float qscale,
+                                 void* out, void* lse, int dtype, int has_mask, int B,
+                                 int reps, int Sq, int Sk, int H, int D, float qscale,
                                  void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || reps <= 0) return cudaErrorInvalidValue;
   if (D != 128) return cudaErrorInvalidValue;  // the head dim of the released models
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return launch_mask<__nv_bfloat16, 128>(has_mask, q, k, v, mask, cosq, sinq, out, B,
-                                           reps, Sq, Sk, H, qscale, s);
+    return launch_variant<__nv_bfloat16, 128>(has_mask, q, k, v, mask, cosq, sinq, out, lse,
+                                              B, reps, Sq, Sk, H, qscale, s);
   if (dtype == kF32)
-    return launch_mask<float, 128>(has_mask, q, k, v, mask, cosq, sinq, out, B, reps, Sq,
-                                   Sk, H, qscale, s);
+    return launch_variant<float, 128>(has_mask, q, k, v, mask, cosq, sinq, out, lse, B,
+                                      reps, Sq, Sk, H, qscale, s);
   return cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
 // Bilinear resize with align_corners=True, NHWC [B,IH,IW,C] -> [B,OH,OW,C]
-// (K4), and the same resize written in space-to-depth layout
-// [B,OH/2,OW/2,4C] (K5).
+// (K4), the same resize written in space-to-depth layout [B,OH/2,OW/2,4C]
+// (K5), and K4's adjoint [B,OH,OW,C] -> [B,IH,IW,C] (K4^T, the VJP of both).
 //
 // K4 replaces renderformer_tpu/ops/fused_resize.py:_kernel (reached through
 // _apply2d); K5 replaces :_kernel_s2d (reached through _apply2d_s2d), which
@@ -24,6 +24,17 @@
 // pixels); the four taps are 16-byte loads along C, and the input pixels
 // are re-read by the neighbouring outputs through L2 rather than staged in
 // shared memory.
+//
+// K4^T replaces _kernel run with transpose=True (_resize_bwd, and after a
+// depth_to_space _resize_s2d_bwd), which applied the adjoint interpolation
+// matrices of _axis_matrices as banded matmuls and rounded the H pass to the
+// dtype.  Here each input pixel gathers the output pixels that read it: per
+// axis a table gives, for input index i, the first output index, their count
+// and their weights (the nonzeros of column i of _interp_matrix(n_in, n_out)),
+// built once and cached on the card; the sums run in fp32, H inside W, and
+// round once, with no atomics, so the result is deterministic.  Memory bounds
+// it as it does K4: each output vector is written once, and its ~16 taps are
+// 16-byte loads that neighbouring input pixels share through L2.
 #include "common.cuh"
 
 using namespace rf;
@@ -120,6 +131,73 @@ __global__ void resize_s2d_kernel(const T* __restrict__ x, T* __restrict__ out, 
   }
 }
 
+// out [B, IH, IW, C] = K4's adjoint applied to g [B, OH, OW, C]; span_* [n_in][2]
+// = (first output index, count), w_* [n_in][taps] the weights
+template <typename T>
+__global__ void resize_t_kernel(const T* __restrict__ g, T* __restrict__ out,
+                                const int* __restrict__ span_h, const float* __restrict__ w_h,
+                                int taps_h, const int* __restrict__ span_w,
+                                const float* __restrict__ w_w, int taps_w, int IH, int IW,
+                                int OH, int OW, int C, long long total) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int cv = C / VEC;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(i % cv) * VEC;
+    long long t = i / cv;
+    const int ix = (int)(t % IW);
+    t /= IW;
+    const int iy = (int)(t % IH);
+    const long long b = t / IH;
+    const int y0 = span_h[2 * iy], ny = span_h[2 * iy + 1];
+    const int x0 = span_w[2 * ix], nx = span_w[2 * ix + 1];
+    const T* base = g + (size_t)b * OH * OW * C + c;
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    for (int bx = 0; bx < nx; ++bx) {
+      float col[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) col[e] = 0.f;
+      for (int ay = 0; ay < ny; ++ay) {
+        const float wy = w_h[iy * taps_h + ay];
+        const uint4 u =
+            *reinterpret_cast<const uint4*>(base + ((size_t)(y0 + ay) * OW + x0 + bx) * C);
+        const T* p = reinterpret_cast<const T*>(&u);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) col[e] = __fadd_rn(col[e], __fmul_rn(wy, to_float(p[e])));
+      }
+      const float wx = w_w[ix * taps_w + bx];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(wx, col[e]));
+    }
+    uint4 ur;
+    T* r = reinterpret_cast<T*>(&ur);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) r[e] = from_float<T>(acc[e]);
+    *reinterpret_cast<uint4*>(out + (((size_t)b * IH + iy) * IW + ix) * C + c) = ur;
+  }
+}
+
+int blocks_for(long long total, int threads) {
+  const long long want = (total + threads - 1) / threads;
+  return (int)(want < 132 * 64 ? want : 132 * 64);
+}
+
+template <typename T>
+cudaError_t launch_t(const void* g, void* out, const void* span_h, const void* w_h, int taps_h,
+                     const void* span_w, const void* w_w, int taps_w, int B, int IH, int IW,
+                     int OH, int OW, int C, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (C % VEC || taps_h <= 0 || taps_w <= 0) return cudaErrorInvalidValue;
+  const long long total = (long long)B * IH * IW * (C / VEC);
+  resize_t_kernel<T><<<blocks_for(total, 256), 256, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<T*>(out), static_cast<const int*>(span_h),
+      static_cast<const float*>(w_h), taps_h, static_cast<const int*>(span_w),
+      static_cast<const float*>(w_w), taps_w, IH, IW, OH, OW, C, total);
+  return cudaGetLastError();
+}
+
 template <typename T, bool S2D>
 cudaError_t launch(const void* x, void* out, int B, int IH, int IW, int OH, int OW, int C,
                    cudaStream_t stream) {
@@ -162,4 +240,23 @@ extern "C" int rf_resize_bilinear(const void* x, void* out, int dtype, int B, in
 extern "C" int rf_resize_s2d(const void* x, void* out, int dtype, int B, int IH, int IW,
                              int OH, int OW, int C, void* stream) {
   return dispatch<true>(x, out, dtype, B, IH, IW, OH, OW, C, stream);
+}
+
+// g [B, OH, OW, C] -> out [B, IH, IW, C], the adjoint of rf_resize_bilinear
+// from [IH, IW] to [OH, OW]; span_h [IH][2], w_h [IH][taps_h] (and _w over W)
+// int32 / fp32 on the card
+extern "C" int rf_resize_bilinear_t(const void* g, void* out, const void* span_h,
+                                    const void* w_h, int taps_h, const void* span_w,
+                                    const void* w_w, int taps_w, int dtype, int B, int IH,
+                                    int IW, int OH, int OW, int C, void* stream) {
+  if (B <= 0 || IH <= 0 || IW <= 0 || OH <= 0 || OW <= 0 || C <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16)
+    return launch_t<__nv_bfloat16>(g, out, span_h, w_h, taps_h, span_w, w_w, taps_w, B, IH,
+                                   IW, OH, OW, C, s);
+  if (dtype == kF32)
+    return launch_t<float>(g, out, span_h, w_h, taps_h, span_w, w_w, taps_w, B, IH, IW, OH,
+                           OW, C, s);
+  return cudaErrorInvalidValue;
 }

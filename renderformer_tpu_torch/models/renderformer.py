@@ -59,6 +59,17 @@ class RenderFormer(nn.Module):
             qk_norm=cfg.view_indep_qk_norm)
         self.view_transformer = ViewTransformer(cfg)
 
+    @property
+    def remat(self) -> bool:
+        """Gradient checkpointing of every transformer block of both stages
+        (the JAX package's ``RenderFormer.remat``)."""
+        return self.transformer.remat
+
+    @remat.setter
+    def remat(self, on: bool) -> None:
+        self.transformer.remat = bool(on)
+        self.view_transformer.transformer.remat = bool(on)
+
     def process_tri_vpos(self, tri_vpos, valid_mask):
         """Prepend the mask-weighted scene centroid (tiled x3) as the RoPE
         position of the register tokens; fp32."""

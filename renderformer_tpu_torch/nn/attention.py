@@ -11,6 +11,11 @@ projections and the k-norm run once per scene and the kernels read the
 scene's rows for each of its views.  Swin self-attention has no RoPE: it
 attends inside 8x8 windows (kernel K6), and its shifted layers regroup
 the window-ordered stream around it (kernel K7).
+
+With ``remat`` set on the encoder or decoder, each block runs under
+``torch.utils.checkpoint`` (non-reentrant) where autograd records it, as
+``jax.checkpoint`` wraps each block in the JAX package: the backward
+recomputes the block's forward instead of keeping its activations.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from renderformer_tpu_torch.encodings.rope import (
     freqs_to_cos_sin, rope_frequencies, triangle_freqs)
@@ -224,6 +231,29 @@ class AttentionLayer(nn.Module):
         return query + self.ffn(self.ffn_norm(query))
 
 
+def remat_call(module: nn.Module, *args):
+    """``module(*args)`` under torch.utils.checkpoint(use_reentrant=False).
+
+    The module's parameters and buffers are passed in as inputs of the
+    checkpointed call, so the recomputation in the backward uses the tensors
+    of this forward: the stage casts a train step puts in place with
+    ``functional_call`` are gone by the time the backward runs."""
+    named = dict(module.named_parameters())
+    named.update(module.named_buffers())
+    names, n = list(named), len(args)
+
+    def run(*flat):
+        return functional_call(module, dict(zip(names, flat[n:])), flat[:n])
+
+    return checkpoint(run, *args, *named.values(), use_reentrant=False)
+
+
+def _run_block(remat: bool, layer: nn.Module, *args):
+    if remat and torch.is_grad_enabled():
+        return remat_call(layer, *args)
+    return layer(*args)
+
+
 def _resolved_rope_dim(rope_dim, rope_type, head_dim):
     """'triangle_mixed' overrides rope_dim with head_dim."""
     if rope_type == 'triangle_mixed':
@@ -249,11 +279,12 @@ class TransformerEncoder(nn.Module):
             for _ in range(num_layers)])
         rd = _resolved_rope_dim(rope_dim, rope_type, self.head_dim)
         self.rope_emb = RopeFreqs(rope_frequencies(rd, rope_double_max_freq))
+        self.remat = False
 
     def forward(self, x, mask, triangle_pos):
         cos, sin = rope_tables(triangle_pos, self.rope_emb.freqs, self.head_dim)
         for layer in self.layers:
-            x = layer(x, mask=mask, rope_cos=cos, rope_sin=sin)
+            x = _run_block(self.remat, layer, x, None, mask, cos, sin)
         return x
 
 
@@ -288,6 +319,7 @@ class TransformerDecoder(nn.Module):
             for idx in range(num_layers)])
         rd = _resolved_rope_dim(rope_dim, rope_type, self.head_dim)
         self.rope_emb = RopeFreqs(rope_frequencies(rd, rope_double_max_freq))
+        self.remat = False
 
     def forward(self, x, ctx, mask, triangle_pos, ray_pos,
                 out_layers: Sequence[int] = (), grid=None):
@@ -305,7 +337,7 @@ class TransformerDecoder(nn.Module):
             sin = seq_to_window_order(sin, ph, pw, ws)
         outs = []
         for idx, layer in enumerate(self.layers):
-            x = layer(x, ctx, mask, cos, sin, ctx_cos, ctx_sin, grid=grid)
+            x = _run_block(self.remat, layer, x, ctx, mask, cos, sin, ctx_cos, ctx_sin, grid)
             if idx in out_layers:
                 outs.append(seq_from_window_order(x, ph, pw, ws) if windowed else x)
         if windowed:

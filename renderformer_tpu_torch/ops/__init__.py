@@ -18,7 +18,12 @@ LAUNCHES = {
     'flash_fwd_rope_mask': 0,
     'flash_fwd_rope_nomask': 0,
     'rot_kv_broadcast': 0,
+    'flash_bwd_mask': 0,
+    'flash_bwd_nomask': 0,
+    'flash_bwd_dq': 0,
+    'flash_bwd_dkv': 0,
     'resize_bilinear': 0,
+    'resize_bilinear_t': 0,
     'resize_s2d': 0,
     'swin_window_attention': 0,
     'shifted_regroup': 0,
@@ -54,13 +59,19 @@ def use_plain(t: torch.Tensor) -> bool:
     return _plain_on_cuda
 
 
-def check_no_grad(*tensors) -> None:
-    """The kernels are forward-only: refuse inputs that autograd tracks."""
+SWIN_NO_GRAD = ('Swin training is not ported yet: window attention and the shifted '
+                'regroup are forward-only; call under torch.no_grad() or '
+                'torch.inference_mode()')
+
+
+def check_no_grad(*tensors, why: str = SWIN_NO_GRAD) -> None:
+    """Refuse inputs that autograd tracks, for a wrapper whose result would
+    be cut off from the graph: window attention (K6) and the shifted regroup
+    (K7), which have no backward yet, and the raw forward kernels that
+    ``flash_attention_rope`` differentiates.  ``why`` is the error message."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            'the port\'s kernels are forward-only; call under '
-            'torch.no_grad() or torch.inference_mode()')
+        raise RuntimeError(why)
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype, shape) -> None:

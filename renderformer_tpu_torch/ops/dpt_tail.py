@@ -69,7 +69,8 @@ def _block5_taps(device: torch.device) -> torch.Tensor:
                             if -2 <= dy <= 2 and -2 <= dx <= 2:
                                 idx[u + 1, v + 1, 2 * ci + cj, 2 * a + b] = (
                                     (dy + 2) * 5 + dx + 2)
-    return torch.from_numpy(idx).to(device)
+    with torch.inference_mode(False):  # cached: usable later under autograd
+        return torch.from_numpy(idx).to(device)
 
 
 def s2d_block_kernel5(k5):

@@ -1,27 +1,32 @@
-"""RoPE flash-attention forward (kernels K1/K2) and the K broadcast-rotate
-(kernel K3), with their plain PyTorch versions.
+"""RoPE flash attention: the forward (kernels K1/K2, with the logsumexp
+for training), the K broadcast-rotate (kernel K3), the backward (kernel K8
+fused, or the two kernels of K9), their plain PyTorch versions, and the
+autograd Function that joins them.
 
 Layouts are the JAX package's: q ``[B, Sq, H, D]``, k/v ``[Bkv, Sk, H, D]``
 with ``Bkv`` dividing ``B`` (view-major fan-out: batch ``b`` reads scene
 ``b // reps``), key mask ``[B, Sk]`` bool (True = attend), head-shared
-RoPE tables ``[B, S, D]`` fp32.  The CUDA sources are
-``csrc/flash_attention.cu`` and ``csrc/rot_kv.cu``; their notes say what
-bounds each kernel on the card.
+RoPE tables ``[B, S, D]`` fp32.  The logsumexp and delta = rowsum(dO * O)
+are fp32 ``[B, H, Sq]``.  The CUDA sources are ``csrc/flash_attention.cu``,
+``csrc/rot_kv.cu`` and ``csrc/flash_bwd.cu``; their notes say what bounds
+each kernel on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 
 from renderformer_tpu_torch import _build
 from renderformer_tpu_torch.encodings.rope import apply_rope
-from renderformer_tpu_torch.ops import (
-    LAUNCHES, check_cuda_tensor, check_no_grad, use_plain)
+from renderformer_tpu_torch.ops import LAUNCHES, check_cuda_tensor, check_no_grad, use_plain
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+BWD_VARIANTS = ('fused', 'twokernel')
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_HEAD_DIMS = (128,)
 
@@ -77,7 +82,8 @@ def flash_fwd_rope_plain(q, k_rot, v, mask, cosq, sinq):
     """The kernels' function in torch ops: q rotated in fp32 with tables
     pre-scaled by D^-0.5*log2(e) and rounded to q's dtype, fp32 logits, a
     -1e30 bias on masked keys, an exp2 softmax, P rounded to v's dtype
-    before P.V in fp32, the sum divided by l and cast back."""
+    before P.V in fp32, the sum divided by l and cast back.  Returns (out,
+    lse) with the natural-log logsumexp m*ln2 + ln(l) [B, H, Sq] fp32."""
     b, sq, h, d = q.shape
     s = q_scale(d)
     qr = apply_rope(q, (cosq.float() * s)[:, :, None, :], (sinq.float() * s)[:, :, None, :])
@@ -90,53 +96,78 @@ def flash_fwd_rope_plain(q, k_rot, v, mask, cosq, sinq):
     l = p.sum(dim=-1, keepdim=True)
     vb = _fan_out(v, b)
     acc = torch.einsum('bhqk,bkhd->bqhd', p.to(v.dtype).float(), vb.float())
-    return (acc / l.permute(0, 2, 1, 3)).to(q.dtype)
+    lse = (m * LN2 + torch.log(l))[..., 0]
+    return (acc / l.permute(0, 2, 1, 3)).to(q.dtype), lse
 
 
-def launch_flash_fwd_rope(lib, q, k_rot, v, mask, cosq, sinq):
+def _dtype_code(t):
+    return _build.DTYPE_CODES[str(t.dtype).split('.')[-1]]
+
+
+def _check_kernel_dtype(what, t):
+    if t.dtype not in KERNEL_DTYPES:
+        raise ValueError(f'{what} kernel takes {KERNEL_DTYPES}, got {t.dtype}')
+    if t.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f'{what} kernel takes head dims {KERNEL_HEAD_DIMS}, '
+                         f'got {t.shape[-1]}')
+
+
+def _mask_bytes(mask, b, sk):
+    if mask is None:
+        return None
+    if mask.dtype != torch.bool:
+        raise ValueError(f'mask must be bool, got {mask.dtype}')
+    mask = mask.view(torch.uint8)
+    check_cuda_tensor('mask', mask, torch.uint8, (b, sk))
+    return mask
+
+
+def launch_flash_fwd_rope(lib, q, k_rot, v, mask, cosq, sinq, lse=None):
     """Launch ``rf_flash_fwd_rope`` of the loaded kernel library ``lib`` on
-    CUDA tensors already checked by ``flash_fwd_rope``; counts nothing."""
+    CUDA tensors already checked by ``flash_fwd_rope``, writing the
+    logsumexp into ``lse`` [B, H, Sq] fp32 when given; counts nothing."""
     b, sq, h, d = q.shape
     bkv, sk = v.shape[0], v.shape[1]
-    if q.dtype not in KERNEL_DTYPES:
-        raise ValueError(f'flash kernel takes {KERNEL_DTYPES}, got {q.dtype}')
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f'flash kernel takes head dims {KERNEL_HEAD_DIMS}, got {d}')
+    _check_kernel_dtype('flash', q)
     check_cuda_tensor('q', q, q.dtype, (b, sq, h, d))
     check_cuda_tensor('k', k_rot, q.dtype, (b, sk, h, d))
     check_cuda_tensor('v', v, q.dtype, (bkv, sk, h, d))
     check_cuda_tensor('cos', cosq, torch.float32, (b, sq, d))
     check_cuda_tensor('sin', sinq, torch.float32, (b, sq, d))
-    if mask is not None:
-        if mask.dtype != torch.bool:
-            raise ValueError(f'mask must be bool, got {mask.dtype}')
-        mask = mask.view(torch.uint8)
-        check_cuda_tensor('mask', mask, torch.uint8, (b, sk))
+    if lse is not None:
+        check_cuda_tensor('lse', lse, torch.float32, (b, h, sq))
+    mask = _mask_bytes(mask, b, sk)
     out = torch.empty_like(q)
     rc = lib.rf_flash_fwd_rope(
         q.data_ptr(), k_rot.data_ptr(), v.data_ptr(),
         mask.data_ptr() if mask is not None else None,
         cosq.data_ptr(), sinq.data_ptr(), out.data_ptr(),
-        _build.DTYPE_CODES[str(q.dtype).split('.')[-1]], int(mask is not None),
+        lse.data_ptr() if lse is not None else None,
+        _dtype_code(q), int(mask is not None),
         b, b // bkv, sq, sk, h, d, q_scale(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, 'rf_flash_fwd_rope')
     return out
 
 
-def flash_fwd_rope(q, k_rot, v, mask, cosq, sinq):
+def flash_fwd_rope(q, k_rot, v, mask, cosq, sinq, with_lse: bool = False):
     """Attention of q (rotated inside) against pre-rotated K.
 
     q [B, Sq, H, D]; k_rot [B, Sk, H, D]; v [Bkv, Sk, H, D]; mask [B, Sk]
     bool or None; cosq/sinq [B, Sq, D] fp32 (unscaled).  Returns
-    [B, Sq, H, D] in q's dtype."""
+    [B, Sq, H, D] in q's dtype, and with ``with_lse`` also the logsumexp
+    [B, H, Sq] fp32."""
     _check_shapes(q, k_rot, v, mask, cosq, sinq)
-    check_no_grad(q, k_rot, v)
+    check_no_grad(q, k_rot, v, why='flash_fwd_rope is a forward kernel alone; '
+                  'differentiate through flash_attention_rope')
     if use_plain(q):
-        return flash_fwd_rope_plain(q, k_rot, v, mask, cosq, sinq)
-    out = launch_flash_fwd_rope(_build.library(), q, k_rot, v, mask, cosq, sinq)
+        out, lse = flash_fwd_rope_plain(q, k_rot, v, mask, cosq, sinq)
+        return (out, lse) if with_lse else out
+    b, sq, h, _ = q.shape
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    out = launch_flash_fwd_rope(_build.library(), q, k_rot, v, mask, cosq, sinq, lse)
     LAUNCHES['flash_fwd_rope_mask' if mask is not None else 'flash_fwd_rope_nomask'] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +194,8 @@ def rot_kv_broadcast(k, cos, sin):
     if d % 2:
         raise ValueError(f'head dim {d} must be even')
     _check_contiguous(k=k, cos=cos, sin=sin)
-    check_no_grad(k)
+    check_no_grad(k, why='rot_kv_broadcast is a forward kernel alone; '
+                  'differentiate through flash_attention_rope')
     if use_plain(k):
         return rot_kv_broadcast_plain(k, cos, sin)
     if k.dtype not in KERNEL_DTYPES:
@@ -175,19 +207,211 @@ def rot_kv_broadcast(k, cos, sin):
     lib = _build.library()
     rc = lib.rf_rot_kv_broadcast(
         k.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-        _build.DTYPE_CODES[str(k.dtype).split('.')[-1]], b, b // bkv, sk, h, d,
+        _dtype_code(k), b, b // bkv, sk, h, d,
         torch.cuda.current_stream(k.device).cuda_stream)
     _build.check(rc, 'rf_rot_kv_broadcast')
     LAUNCHES['rot_kv_broadcast'] += 1
     return out
 
 
+# ---------------------------------------------------------------------------
+# K8 / K9: the backward
+# ---------------------------------------------------------------------------
+
+def _bwd_plain_terms(q_rot, k_rot, v, mask, lse, delta, do):
+    """q scaled by D^-0.5*log2(e) and rounded to its dtype, P = exp2(s2 -
+    lse*log2(e)) with -1e30 on masked keys, and dS = (dP - delta)*P rounded
+    to the dtype; all fp32."""
+    b, sq, h, d = q_rot.shape
+    dt = q_rot.dtype
+    qs = (q_rot.float() * q_scale(d)).to(dt).float()
+    s2 = torch.einsum('bqhd,bkhd->bhqk', qs, k_rot.float())
+    if mask is not None:
+        s2 = s2 + torch.where(mask, 0.0, NEG_INF).to(torch.float32)[:, None, None, :]
+    p = torch.exp2(s2 - (lse * LOG2E)[..., None])
+    dp = torch.einsum('bqhd,bkhd->bhqk', do.float(), _fan_out(v, b).float())
+    ds = ((dp - delta[..., None]) * p).to(dt).float()
+    return qs, p, ds
+
+
+def _dq_plain(ds, k_rot):
+    d = k_rot.shape[-1]
+    return (torch.einsum('bhqk,bkhd->bqhd', ds, k_rot.float()) * (1.0 / math.sqrt(d))
+            ).to(k_rot.dtype)
+
+
+def _dkv_plain(qs, p, ds, do):
+    dt = do.dtype
+    dv = torch.einsum('bhqk,bqhd->bkhd', p.to(dt).float(), do.float())
+    dk = torch.einsum('bhqk,bqhd->bkhd', ds, qs) * (1.0 / LOG2E)
+    return dk.to(dt), dv.to(dt)
+
+
+def flash_bwd_plain(q_rot, k_rot, v, mask, lse, delta, do):
+    """The backward kernels' function in torch ops, on q and k already
+    rotated: q scaled by D^-0.5*log2(e) and rounded to its dtype, P =
+    exp2(s2 - lse*log2(e)) with -1e30 on masked keys, dS = (dP - delta)*P
+    rounded to the dtype, P rounded before dV = P^T.dO, dK = dS^T.q_scaled /
+    log2(e) and dQ = D^-0.5 * dS.K summed in fp32, each cast to the dtype.
+    K8 and K9 compute this function and differ only in summation order.
+    Returns (dq [B, Sq, H, D], dk [B, Sk, H, D], dv [B, Sk, H, D]): dk and
+    dv at the q batch, per view."""
+    qs, p, ds = _bwd_plain_terms(q_rot, k_rot, v, mask, lse, delta, do)
+    return (_dq_plain(ds, k_rot), *_dkv_plain(qs, p, ds, do))
+
+
+def flash_bwd_dq_plain(q_rot, k_rot, v, mask, lse, delta, do):
+    """dq of :func:`flash_bwd_plain` alone: the function of K9's dQ kernel,
+    which recomputes P and dS."""
+    return _dq_plain(_bwd_plain_terms(q_rot, k_rot, v, mask, lse, delta, do)[2], k_rot)
+
+
+def flash_bwd_dkv_plain(q_rot, k_rot, v, mask, lse, delta, do):
+    """(dk, dv) of :func:`flash_bwd_plain` alone: the function of K9's dK/dV
+    kernel."""
+    return _dkv_plain(*_bwd_plain_terms(q_rot, k_rot, v, mask, lse, delta, do), do)
+
+
+def flash_bwd(q_rot, k_rot, v, mask, lse, delta, do, variant: str = 'fused'):
+    """dq, dk, dv of attention at the rotated q and k (``flash_bwd_plain``'s
+    function): K8 (``'fused'``, dQ by atomics into an fp32 scratch) or K9
+    (``'twokernel'``, a dQ kernel and a dK/dV kernel, deterministic).
+
+    q_rot, do [B, Sq, H, D]; k_rot [B, Sk, H, D]; v [Bkv, Sk, H, D]; mask
+    [B, Sk] bool or None; lse, delta [B, H, Sq] fp32."""
+    if variant not in BWD_VARIANTS:
+        raise ValueError(f'flash backward {variant!r} is not one of {BWD_VARIANTS}')
+    b, sq, h, d = q_rot.shape
+    bkv, sk = v.shape[0], v.shape[1]
+    if bkv == 0 or b % bkv:
+        raise ValueError(f'v batch {bkv} must divide the q batch {b}')
+    for name, t, shape in (('k', k_rot, (b, sk, h, d)), ('v', v, (bkv, sk, h, d)),
+                           ('dout', do, (b, sq, h, d)), ('lse', lse, (b, h, sq)),
+                           ('delta', delta, (b, h, sq))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f'{name} must be {shape}, got {tuple(t.shape)}')
+    if mask is not None and tuple(mask.shape) != (b, sk):
+        raise ValueError(f'mask must be {(b, sk)}, got {tuple(mask.shape)}')
+    _check_contiguous(q=q_rot, k=k_rot, v=v, dout=do, lse=lse, delta=delta, mask=mask)
+    if use_plain(q_rot):
+        return flash_bwd_plain(q_rot, k_rot, v, mask, lse, delta, do)
+    dq, dk, dv = launch_flash_bwd(_build.library(), variant, q_rot, k_rot, v, mask, lse,
+                                  delta, do)
+    if variant == 'fused':
+        LAUNCHES['flash_bwd_mask' if mask is not None else 'flash_bwd_nomask'] += 1
+    else:
+        LAUNCHES['flash_bwd_dq'] += 1
+        LAUNCHES['flash_bwd_dkv'] += 1
+    return dq, dk, dv
+
+
+def launch_flash_bwd(lib, kernels, q_rot, k_rot, v, mask, lse, delta, do):
+    """Launch the backward kernels of the loaded library ``lib`` on tensors
+    already checked by ``flash_bwd``: ``'fused'`` (K8), ``'twokernel'``
+    (both K9 kernels), or one K9 kernel, ``'dq'`` or ``'dkv'``; returns
+    (dq, dk, dv) with None for what was not computed.  Counts nothing."""
+    if kernels not in BWD_VARIANTS + ('dq', 'dkv'):
+        raise ValueError(f'no backward kernels {kernels!r}')
+    b, sq, h, d = q_rot.shape
+    bkv, sk = v.shape[0], v.shape[1]
+    _check_kernel_dtype('flash backward', q_rot)
+    for name, t, shape in (('q', q_rot, (b, sq, h, d)), ('k', k_rot, (b, sk, h, d)),
+                           ('v', v, (bkv, sk, h, d)), ('dout', do, (b, sq, h, d))):
+        check_cuda_tensor(name, t, q_rot.dtype, shape)
+    check_cuda_tensor('lse', lse, torch.float32, (b, h, sq))
+    check_cuda_tensor('delta', delta, torch.float32, (b, h, sq))
+    mask_u8 = _mask_bytes(mask, b, sk)
+    ptrs = (q_rot.data_ptr(), k_rot.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            mask_u8.data_ptr() if mask_u8 is not None else None)
+    shape_args = (_dtype_code(q_rot), int(mask is not None), b, b // bkv, sq, sk, h, d,
+                  q_scale(d), 1.0 / math.sqrt(d))
+    stream = torch.cuda.current_stream(q_rot.device).cuda_stream
+    dq = dk = dv = None
+    if kernels in ('fused', 'twokernel', 'dkv'):
+        dk = torch.empty((b, sk, h, d), dtype=q_rot.dtype, device=q_rot.device)
+        dv = torch.empty_like(dk)
+        dq_acc = (torch.zeros((b, sq, h, d), dtype=torch.float32, device=q_rot.device)
+                  if kernels == 'fused' else None)
+        rc = lib.rf_flash_bwd_kv(*ptrs, dq_acc.data_ptr() if dq_acc is not None else None,
+                                 dk.data_ptr(), dv.data_ptr(), *shape_args, 1.0 / LOG2E,
+                                 stream)
+        _build.check(rc, 'rf_flash_bwd_kv')
+        if dq_acc is not None:
+            dq = dq_acc.to(q_rot.dtype)
+    if kernels in ('twokernel', 'dq'):
+        dq = torch.empty_like(q_rot)
+        rc = lib.rf_flash_bwd_dq(*ptrs, dq.data_ptr(), *shape_args, stream)
+        _build.check(rc, 'rf_flash_bwd_dq')
+    return dq, dk, dv
+
+
+_bwd_variant = 'fused'
+
+
+@contextlib.contextmanager
+def flash_backward(variant: str):
+    """Run the attention backward of graphs recorded inside the block with
+    K8 (``'fused'``, the default) or K9 (``'twokernel'``)."""
+    global _bwd_variant
+    if variant not in BWD_VARIANTS:
+        raise ValueError(f'flash backward {variant!r} is not one of {BWD_VARIANTS}')
+    prev = _bwd_variant
+    _bwd_variant = variant
+    try:
+        yield
+    finally:
+        _bwd_variant = prev
+
+
+def _reduce_kv_grad(dx, bkv):
+    """Transpose of the view fan-out: sum the per-view cotangents per scene."""
+    b = dx.shape[0]
+    if b == bkv:
+        return dx
+    return dx.reshape(bkv, b // bkv, *dx.shape[1:]).sum(dim=1)
+
+
+class _FlashRope(torch.autograd.Function):
+    """flash_attention_rope with the JAX package's custom VJP
+    (``_flash_rope_vjp_fwd`` / ``_flash_rope_vjp_bwd``): the forward keeps
+    the output and logsumexp; the backward recomputes q rotated by the
+    unscaled tables and K rotated at the q batch (K3), runs K8 or K9, rotates
+    dq and dk back with -sin and sums dk and dv over the views.  The tables
+    and the mask get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, cosq, sinq, cosk, sink):
+        out, lse = flash_fwd_rope(q, rot_kv_broadcast(k, cosk, sink), v, mask, cosq, sinq,
+                                  with_lse=True)
+        ctx.save_for_backward(q, k, v, mask, cosq, sinq, cosk, sink, out, lse)
+        ctx.variant = _bwd_variant
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, cosq, sinq, cosk, sink, out, lse = ctx.saved_tensors
+        g = g.contiguous()
+        q_rot = apply_rope(q, cosq[:, :, None, :], sinq[:, :, None, :])
+        k_rot = rot_kv_broadcast(k, cosk, sink)
+        delta = (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+        dq_rot, dk_rot, dv = flash_bwd(q_rot, k_rot, v, mask, lse, delta, g, ctx.variant)
+        dq = apply_rope(dq_rot, cosq[:, :, None, :], -sinq[:, :, None, :])
+        dk = _reduce_kv_grad(apply_rope(dk_rot, cosk[:, :, None, :], -sink[:, :, None, :]),
+                             k.shape[0])
+        return dq, dk, _reduce_kv_grad(dv, v.shape[0]), None, None, None, None, None
+
+
 def flash_attention_rope(q, k, v, mask, cosq, sinq, cosk, sink):
     """RoPE attention: K rotated by K3 at the q batch, then K1 (masked) or
-    K2 (``mask is None``) with the q rotation in its prologue.
+    K2 (``mask is None``) with the q rotation in its prologue.  Where
+    autograd tracks q, k or v, the forward also writes the logsumexp and the
+    backward runs K8 or K9 (:func:`flash_backward`).
 
     q [B, Sq, H, D]; k/v [Bkv, Sk, H, D] with Bkv dividing B; mask [B, Sk]
     bool (True = attend) or None; tables [B, S, D] fp32, per view on both
     sides."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashRope.apply(q, k, v, mask, cosq, sinq, cosk, sink)
     k_rot = rot_kv_broadcast(k, cosk, sink)
     return flash_fwd_rope(q, k_rot, v, mask, cosq, sinq)

@@ -1,9 +1,12 @@
 """Bilinear resize with align_corners=True (kernel K4), the same resize
-written in space-to-depth layout (kernel K5), and their plain PyTorch
-versions.  K4: NHWC ``[B, IH, IW, C] -> [B, OH, OW, C]``; K5:
-``[B, IH, IW, C] -> [B, OH/2, OW/2, 4C]`` with the packing of
-``ops/s2d_conv.py``, the input of the composed DPT tail.  The CUDA source
-of both is ``csrc/resize.cu``; its note says what bounds them on the card."""
+written in space-to-depth layout (kernel K5), K4's adjoint (kernel K4^T),
+their plain PyTorch versions, and the autograd Functions that join them.
+K4: NHWC ``[B, IH, IW, C] -> [B, OH, OW, C]``; K5: ``[B, IH, IW, C] ->
+[B, OH/2, OW/2, 4C]`` with the packing of ``ops/s2d_conv.py``, the input of
+the composed DPT tail; K4^T: ``[B, OH, OW, C] -> [B, IH, IW, C]``, the VJP
+of K4, and after a ``depth_to_space`` of K5, as in the JAX package.  The
+CUDA source of all three is ``csrc/resize.cu``; its note says what bounds
+them on the card."""
 
 from __future__ import annotations
 
@@ -14,9 +17,8 @@ import numpy as np
 import torch
 
 from renderformer_tpu_torch import _build
-from renderformer_tpu_torch.ops import (
-    LAUNCHES, check_cuda_tensor, check_no_grad, use_plain)
-from renderformer_tpu_torch.ops.s2d_conv import space_to_depth
+from renderformer_tpu_torch.ops import LAUNCHES, check_cuda_tensor, use_plain
+from renderformer_tpu_torch.ops.s2d_conv import depth_to_space, space_to_depth
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -39,8 +41,50 @@ def _device_taps(n_in: int, n_out: int, device: torch.device, dtype: torch.dtype
     """:func:`interp_gather`'s tables on ``device``, copied there once (a
     copy from pageable host memory waits for the device to drain)."""
     i0, i1, frac = interp_gather(n_in, n_out)
-    return (torch.from_numpy(i0).to(device), torch.from_numpy(i1).to(device),
-            torch.from_numpy(frac).to(device=device, dtype=dtype))
+    with torch.inference_mode(False):  # cached: usable later under autograd
+        return (torch.from_numpy(i0).to(device), torch.from_numpy(i1).to(device),
+                torch.from_numpy(frac).to(device=device, dtype=dtype))
+
+
+@functools.lru_cache(maxsize=128)
+def interp_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """Dense [n_out, n_in] fp32 matrix of the resize of one axis: row o holds
+    1-frac[o] at i0[o] and frac[o] at i1[o], added in that order."""
+    i0, i1, frac = interp_gather(n_in, n_out)
+    m = np.zeros((n_out, n_in), np.float32)
+    rows = np.arange(n_out)
+    np.add.at(m, (rows, i0), 1.0 - frac)
+    np.add.at(m, (rows, i1), frac)
+    return m
+
+
+@functools.lru_cache(maxsize=128)
+def adjoint_taps(n_in: int, n_out: int):
+    """Per input index i of the forward map n_in -> n_out: the first output
+    index that reads it, their count, and their weights (column i of
+    :func:`interp_matrix` from the first to the last nonzero), as
+    (span [n_in, 2] int32, weights [n_in, taps] fp32) with taps the largest
+    count, zero-padded."""
+    m = interp_matrix(n_in, n_out)
+    span = np.zeros((n_in, 2), np.int32)
+    cols = []
+    for i in range(n_in):
+        nz = np.nonzero(m[:, i])[0]
+        lo, hi = (int(nz[0]), int(nz[-1]) + 1) if len(nz) else (0, 0)
+        span[i] = lo, hi - lo
+        cols.append(m[lo:hi, i])
+    taps = max(1, int(span[:, 1].max()))
+    w = np.zeros((n_in, taps), np.float32)
+    for i, c in enumerate(cols):
+        w[i, :len(c)] = c
+    return span, w
+
+
+@functools.lru_cache(maxsize=128)
+def _device_adjoint_taps(n_in: int, n_out: int, device: torch.device):
+    span, w = adjoint_taps(n_in, n_out)
+    with torch.inference_mode(False):  # cached: usable later under autograd
+        return torch.from_numpy(span).to(device), torch.from_numpy(w).to(device)
 
 
 def resize_axis(x, axis: int, n_out: int):
@@ -69,6 +113,17 @@ def resize_s2d_plain(x, out_hw: Tuple[int, int]):
     return space_to_depth(resize_bilinear_plain(x.float(), out_hw).to(x.dtype))
 
 
+def resize_bilinear_t_plain(g, in_hw: Tuple[int, int]):
+    """K4's adjoint: g [B, OH, OW, C] -> [B, IH, IW, C] with the transposed
+    interpolation matrices, H pass then W pass, in fp32, rounded once to g's
+    dtype."""
+    ih, iw = in_hw
+    mh = torch.from_numpy(interp_matrix(ih, g.shape[1])).to(g.device)
+    mw = torch.from_numpy(interp_matrix(iw, g.shape[2])).to(g.device)
+    t = torch.einsum('oi,bowc->biwc', mh, g.float())
+    return torch.einsum('oj,bioc->bijc', mw, t).to(g.dtype)
+
+
 def _check_input(x, out_hw):
     if x.dim() != 4:
         raise ValueError('x must be [B, H, W, C]')
@@ -77,7 +132,6 @@ def _check_input(x, out_hw):
         raise ValueError(f'bad output size {out_hw}')
     if not x.is_contiguous():
         raise ValueError('x: expected a contiguous tensor')
-    check_no_grad(x)
     return oh, ow
 
 
@@ -95,9 +149,7 @@ def _launch(fn_name, x, out, oh, ow):
     return out
 
 
-def resize_bilinear(x, out_hw: Tuple[int, int]):
-    """[B, IH, IW, C] -> [B, OH, OW, C], align_corners=True."""
-    oh, ow = _check_input(x, out_hw)
+def _resize_fwd(x, oh, ow):
     if use_plain(x):
         return resize_bilinear_plain(x, (oh, ow))
     b, _, _, c = x.shape
@@ -107,12 +159,7 @@ def resize_bilinear(x, out_hw: Tuple[int, int]):
     return out
 
 
-def resize_s2d(x, out_hw: Tuple[int, int]):
-    """[B, IH, IW, C] -> space_to_depth(resize(x)) = [B, OH/2, OW/2, 4C],
-    align_corners=True; OH and OW even."""
-    oh, ow = _check_input(x, out_hw)
-    if oh % 2 or ow % 2:
-        raise ValueError(f'space-to-depth needs an even output size, got {out_hw}')
+def _resize_s2d_fwd(x, oh, ow):
     if use_plain(x):
         return resize_s2d_plain(x, (oh, ow))
     b, _, _, c = x.shape
@@ -120,3 +167,79 @@ def resize_s2d(x, out_hw: Tuple[int, int]):
         (b, oh // 2, ow // 2, 4 * c), dtype=x.dtype, device=x.device), oh, ow)
     LAUNCHES['resize_s2d'] += 1
     return out
+
+
+def resize_bilinear_t(g, in_hw: Tuple[int, int]):
+    """The VJP of :func:`resize_bilinear` from ``in_hw``: g [B, OH, OW, C]
+    -> [B, IH, IW, C] (kernel K4^T on the card)."""
+    ih, iw = _check_input(g, in_hw)
+    if use_plain(g):
+        return resize_bilinear_t_plain(g, (ih, iw))
+    b, oh, ow, c = g.shape
+    if g.dtype not in KERNEL_DTYPES:
+        raise ValueError(f'resize kernel takes {KERNEL_DTYPES}, got {g.dtype}')
+    if (c * g.element_size()) % 16:
+        raise ValueError(f'resize kernel needs C*itemsize % 16 == 0, got C={c}')
+    check_cuda_tensor('g', g, g.dtype, (b, oh, ow, c))
+    span_h, w_h = _device_adjoint_taps(ih, oh, g.device)
+    span_w, w_w = _device_adjoint_taps(iw, ow, g.device)
+    out = torch.empty((b, ih, iw, c), dtype=g.dtype, device=g.device)
+    rc = _build.library().rf_resize_bilinear_t(
+        g.data_ptr(), out.data_ptr(), span_h.data_ptr(), w_h.data_ptr(), w_h.shape[1],
+        span_w.data_ptr(), w_w.data_ptr(), w_w.shape[1],
+        _build.DTYPE_CODES[str(g.dtype).split('.')[-1]], b, ih, iw, oh, ow, c,
+        torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(rc, 'rf_resize_bilinear_t')
+    LAUNCHES['resize_bilinear_t'] += 1
+    return out
+
+
+class _Resize(torch.autograd.Function):
+    """K4 forward, K4^T backward (the JAX package's ``_resize`` VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, oh, ow):
+        ctx.in_hw = (x.shape[1], x.shape[2])
+        return _resize_fwd(x, oh, ow)
+
+    @staticmethod
+    def backward(ctx, g):
+        return resize_bilinear_t(g.contiguous(), ctx.in_hw), None, None
+
+
+class _ResizeS2d(torch.autograd.Function):
+    """K5 forward; backward depth_to_space then K4^T (``_resize_s2d_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, oh, ow):
+        ctx.in_hw = (x.shape[1], x.shape[2])
+        return _resize_s2d_fwd(x, oh, ow)
+
+    @staticmethod
+    def backward(ctx, g):
+        return resize_bilinear_t(depth_to_space(g).contiguous(), ctx.in_hw), None, None
+
+
+def _tracked(x):
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def resize_bilinear(x, out_hw: Tuple[int, int]):
+    """[B, IH, IW, C] -> [B, OH, OW, C], align_corners=True; differentiable
+    (backward K4^T)."""
+    oh, ow = _check_input(x, out_hw)
+    if _tracked(x):
+        return _Resize.apply(x, oh, ow)
+    return _resize_fwd(x, oh, ow)
+
+
+def resize_s2d(x, out_hw: Tuple[int, int]):
+    """[B, IH, IW, C] -> space_to_depth(resize(x)) = [B, OH/2, OW/2, 4C],
+    align_corners=True; OH and OW even; differentiable (backward
+    depth_to_space, then K4^T)."""
+    oh, ow = _check_input(x, out_hw)
+    if oh % 2 or ow % 2:
+        raise ValueError(f'space-to-depth needs an even output size, got {out_hw}')
+    if _tracked(x):
+        return _ResizeS2d.apply(x, oh, ow)
+    return _resize_s2d_fwd(x, oh, ow)

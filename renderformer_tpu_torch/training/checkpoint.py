@@ -1,0 +1,71 @@
+"""Save and restore a train state: parameters, optimizer state, step, and
+``renderformer_meta.json`` with the model config and caller extras.
+
+The counterpart of ``renderformer_tpu/training/checkpoint.py`` (which uses
+orbax) with ``torch.save``: one ``state.pt`` under ``ckpt_dir/tag``.  The
+compute-dtype shadow is not saved; it is rebuilt from the masters.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from renderformer_tpu_torch.config import RenderFormerConfig
+from renderformer_tpu_torch.training.state import TrainState
+
+STATE_FILE = 'state.pt'
+META_FILE = 'renderformer_meta.json'
+
+
+def _cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {n: t.detach().cpu() for n, t in tensors.items()}
+
+
+def save_checkpoint(ckpt_dir: str, tag: str, state: TrainState,
+                    model_config: RenderFormerConfig,
+                    extra: Optional[Dict[str, Any]] = None) -> str:
+    """Save under ``ckpt_dir/tag``, replacing what is there; returns the path."""
+    path = os.path.abspath(os.path.join(ckpt_dir, tag))
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    opt = state.opt_state
+    payload = {'params': _cpu(state.model.state_dict()),
+               'opt_state': {'count': opt['count'], 'mu': _cpu(opt['mu']),
+                             'nu': _cpu(opt['nu'])},
+               'step': state.step}
+    torch.save(payload, os.path.join(path, STATE_FILE))
+    meta = {'model_config': dataclasses.asdict(model_config), 'extra': extra or {}}
+    with open(os.path.join(path, META_FILE), 'w') as f:
+        json.dump(meta, f, indent=2, default=float)
+    return path
+
+
+@torch.no_grad()
+def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, Dict[str, Any]]:
+    """Restore into ``state`` in place (its tensors keep their devices and
+    dtypes); returns it and the meta dict ({} if the file is missing)."""
+    payload = torch.load(os.path.join(path, STATE_FILE), map_location='cpu',
+                         weights_only=True)
+    state.model.load_state_dict(payload['params'])
+    opt = payload['opt_state']
+    for key in ('mu', 'nu'):
+        for n, t in state.opt_state[key].items():
+            t.copy_(opt[key][n])
+    state.opt_state['count'] = int(opt['count'])
+    state.step = int(payload['step'])
+    if state.shadow is not None:
+        for s, m in zip(state.shadow.parameters(), state.model.parameters()):
+            s.copy_(m)
+    meta_path = os.path.join(path, META_FILE)
+    meta = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return state, meta

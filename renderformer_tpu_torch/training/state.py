@@ -1,0 +1,304 @@
+"""Train state and the train step of the port, on one device.
+
+The counterpart of ``renderformer_tpu/training/state.py``: MSE between the
+render and the ground-truth images, AdamW with a warmup-cosine schedule and
+clipping by global norm, written out so that they compute optax's functions
+(``clip_by_global_norm``, ``scale_by_adam``, ``add_decayed_weights``,
+``scale_by_learning_rate`` of ``warmup_cosine_decay_schedule``), and the
+NaN/Inf skip, which leaves the parameters and the optimizer state (its
+count too) as they were while the step counter moves on.
+
+The fp32 master weights stay in the model.  A step casts them to each
+stage's compute dtype inside the autograd graph (``functional_call``), so
+the gradients reach the masters; with ``bf16_shadow_params`` it instead
+differentiates a copy kept in the compute dtypes and casts the gradients.
+Updates run in place on the masters, the optimizer moments and the shadow:
+no second copy of the 205M parameters is made.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import math
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+from torch.func import functional_call
+
+from renderformer_tpu_torch.ops.flash_attention import BWD_VARIANTS, flash_backward
+from renderformer_tpu_torch.pipelines.rendering_pipeline import render_fn
+
+VIEW_PREFIX = 'view_transformer.'
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    learning_rate: float = 5e-6
+    weight_decay: float = 0.01
+    max_grad_norm: float = 1.0
+    num_epochs: int = 3
+    steps_per_epoch: int = 1000
+    warmup_steps: int = 0
+    resolution: int = 256
+    precision: str = 'bfloat16'
+    view_precision: str = ''   # '' -> fp32 view stage under bf16, bf16 under fp32
+    min_lr_scale: float = 0.0  # cosine floor (end value / peak)
+    remat: bool = False        # gradient checkpointing of every transformer block
+    bf16_shadow_params: bool = False  # differentiate a compute-dtype copy
+    seed: int = 0              # dropout seed of the JAX package (dropout is not ported)
+    skip_nonfinite: bool = True
+    debug_nans: bool = False       # not ported
+    deterministic: bool = False    # not ported; 'twokernel' gives a deterministic attention
+    flash_bwd: str = 'fused'   # attention backward: K8 'fused' or K9 'twokernel'
+
+
+def _dtype(name: str) -> torch.dtype:
+    return torch.bfloat16 if name in ('bfloat16', 'bf16') else torch.float32
+
+
+def resolve_dtypes(tc: TrainConfig) -> Tuple[torch.dtype, torch.dtype]:
+    """(stage-1 dtype, view-stage dtype); an empty ``view_precision`` gives
+    the reference's fp32 island under bf16 and bf16 under fp32."""
+    dtype = _dtype(tc.precision)
+    if tc.view_precision:
+        return dtype, _dtype(tc.view_precision)
+    return dtype, (torch.float32 if dtype == torch.bfloat16 else torch.bfloat16)
+
+
+def _f32(x) -> np.float32:
+    return np.float32(x)
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0
+                                 ) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule, in fp32 as JAX evaluates it: a
+    linear ramp init -> peak over ``warmup_steps``, then a cosine from peak
+    to ``end_value`` over the remaining ``decay_steps - warmup_steps``."""
+    if decay_steps - warmup_steps <= 0:
+        raise ValueError('the cosine decay needs decay_steps > warmup_steps, got '
+                         f'{decay_steps} and {warmup_steps}')
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cos_steps = decay_steps - warmup_steps
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            c = _f32(min(max(count, 0), warmup_steps))
+            frac = _f32(1) - c / _f32(warmup_steps)
+            return float(_f32(init_value - peak_value) * frac + _f32(peak_value))
+        c = _f32(min(count - warmup_steps, cos_steps))
+        cosine = _f32(0.5) * (_f32(1) + np.cos(_f32(np.pi) * c / _f32(cos_steps)))
+        return float(_f32(peak_value) * (_f32(1 - alpha) * cosine + _f32(alpha)))
+
+    return schedule
+
+
+class AdamW:
+    """optax.chain(clip_by_global_norm(max_norm), adamw(schedule, weight_decay))
+    on name -> tensor dicts, updating the parameters and the moments in place.
+
+    The state is ``{'count': int, 'mu': {name: fp32}, 'nu': {name: fp32}}``;
+    the learning rate of an update is ``schedule(count)`` before the count
+    moves, as optax's ``scale_by_schedule`` reads it."""
+
+    def __init__(self, schedule: Callable[[int], float], weight_decay: float,
+                 max_grad_norm: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.schedule = schedule
+        self.weight_decay = weight_decay
+        self.max_grad_norm = max_grad_norm
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params: Dict[str, torch.Tensor]) -> Dict:
+        return {'count': 0,
+                'mu': {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
+                'nu': {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], state: Dict,
+               params: Dict[str, torch.Tensor], grad_norm: float) -> None:
+        """One step on ``params`` (in place) from ``grads`` (in the order of
+        ``params``, fp32, consumed) and their global norm."""
+        names = list(params)
+        p = [params[n] for n in names]
+        mu = [state['mu'][n] for n in names]
+        nu = [state['nu'][n] for n in names]
+        if not grad_norm < self.max_grad_norm:
+            # optax: (t / g_norm) * max_norm
+            torch._foreach_div_(grads, grad_norm)
+            torch._foreach_mul_(grads, self.max_grad_norm)
+        count_inc = state['count'] + 1
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
+        del grads
+        bc1 = float(_f32(1) - np.power(_f32(self.b1), _f32(count_inc)))
+        bc2 = float(_f32(1) - np.power(_f32(self.b2), _f32(count_inc)))
+        upd = torch._foreach_div(mu, bc1)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        torch._foreach_div_(upd, den)
+        del den
+        torch._foreach_add_(upd, p, alpha=self.weight_decay)
+        torch._foreach_mul_(upd, -self.schedule(state['count']))
+        torch._foreach_add_(p, upd)
+        state['count'] = count_inc
+
+
+def make_optimizer(tc: TrainConfig) -> AdamW:
+    """AdamW + cosine schedule + global-norm clip, as the JAX package's."""
+    total_steps = max(1, tc.num_epochs * tc.steps_per_epoch)
+    schedule = warmup_cosine_decay_schedule(
+        init_value=0.0 if tc.warmup_steps else tc.learning_rate,
+        peak_value=tc.learning_rate, warmup_steps=tc.warmup_steps,
+        decay_steps=total_steps, end_value=tc.learning_rate * tc.min_lr_scale)
+    return AdamW(schedule, tc.weight_decay, tc.max_grad_norm)
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def stage_dtype(name: str, dtype: torch.dtype, view_dtype: torch.dtype) -> torch.dtype:
+    return view_dtype if name.startswith(VIEW_PREFIX) else dtype
+
+
+def make_shadow(model: nn.Module, tc: TrainConfig) -> nn.Module:
+    """A copy of ``model`` with each stage's parameters in its compute dtype
+    (the JAX package's ``make_shadow_tree``)."""
+    dtype, view_dtype = resolve_dtypes(tc)
+    shadow = copy.deepcopy(model)
+    with torch.no_grad():
+        for n, p in shadow.named_parameters():
+            p.data = p.data.to(stage_dtype(n, dtype, view_dtype))
+    return shadow.requires_grad_(True)
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module             # fp32 master weights
+    opt_state: Dict
+    step: int = 0
+    shadow: Optional[nn.Module] = None   # compute-dtype copy; not checkpointed
+
+    @classmethod
+    def create(cls, model: nn.Module, tx: AdamW, tc: Optional[TrainConfig] = None):
+        model.requires_grad_(True)
+        state = cls(model=model, opt_state=tx.init(dict(model.named_parameters())))
+        if tc is not None and _uses_shadow(tc):
+            state.shadow = make_shadow(model, tc)
+        return state
+
+
+def _uses_shadow(tc: TrainConfig) -> bool:
+    dtype, view_dtype = resolve_dtypes(tc)
+    return tc.bf16_shadow_params and torch.bfloat16 in (dtype, view_dtype)
+
+
+class _RenderStep(nn.Module):
+    """render_fn as a module, so that ``functional_call`` can put the
+    stage casts in place of the model's parameters."""
+
+    def __init__(self, model: nn.Module, resolution: int):
+        super().__init__()
+        self.model = model
+        self.resolution = resolution
+
+    def forward(self, batch):
+        if 'texture' not in batch:
+            raise NotImplementedError('the compact texture form (texture_flat) waits for '
+                                      'the data plane; pass texture [B, N, 13, ps, ps]')
+        return render_fn(self.model, batch['triangles'], batch['texture'], batch['mask'],
+                         batch['vn'], batch['c2w'], batch['fov'],
+                         resolution=self.resolution)
+
+
+def _check_trainable(model: nn.Module, tc: TrainConfig) -> None:
+    if model.config.dropout > 0.0:
+        raise NotImplementedError('dropout is not ported: a config with dropout > 0 would '
+                                  'train a different function from the JAX package')
+    if tc.debug_nans or tc.deterministic:
+        raise NotImplementedError('TrainConfig.debug_nans and .deterministic are not ported')
+    if tc.flash_bwd not in BWD_VARIANTS:
+        raise ValueError(f'flash_bwd {tc.flash_bwd!r} is not one of {BWD_VARIANTS}')
+
+
+def make_loss_fns(model: nn.Module, tc: TrainConfig):
+    """Build ``images(state, batch)``, the render of the batch in the
+    stages' compute dtypes (in-graph casts of the masters, or the shadow),
+    and ``loss_and_grads(state, batch) -> (loss, grads)``: the MSE loss and
+    its fp32 gradients in the order of ``state.model.parameters()``."""
+    _check_trainable(model, tc)
+    dtype, view_dtype = resolve_dtypes(tc)
+    use_shadow = _uses_shadow(tc)
+    step_module = _RenderStep(model, tc.resolution)
+
+    def images(state: TrainState, batch):
+        state.model.remat = tc.remat
+        if use_shadow:
+            if state.shadow is None:
+                state.shadow = make_shadow(state.model, tc)
+            state.shadow.remat = tc.remat
+            return _RenderStep(state.shadow, tc.resolution)(batch)
+        cast = {f'model.{n}': p.to(stage_dtype(n, dtype, view_dtype))
+                for n, p in state.model.named_parameters()}
+        return functional_call(step_module, cast, (batch,))
+
+    def loss_and_grads(state: TrainState, batch):
+        with flash_backward(tc.flash_bwd):
+            imgs = images(state, batch)
+            loss = torch.mean(torch.square(imgs - batch['gt'].to(imgs.dtype)))
+            wrt = list((state.shadow if use_shadow else state.model).parameters())
+            grads = torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
+        return loss.detach(), [g.float() for g in grads]
+
+    return images, loss_and_grads
+
+
+def make_train_step(model: nn.Module, tx: AdamW, tc: TrainConfig):
+    """Build ``train_step(state, batch) -> (state, metrics)`` and
+    ``eval_step(state, batch) -> metrics`` for ``model`` (the module that
+    holds the masters, ``state.model``).
+
+    batch: dict of tensors on the model's device: triangles [B, N, 3, 3],
+    texture [B, N, 13, ps, ps], mask [B, N] bool, vn [B, N, 3, 3], c2w
+    [B, V, 4, 4], fov [B, V, 1], gt [B, V, H, W, 3], optional valid [B].
+    Metrics are Python floats: the step reads the loss and the grad norm
+    once, to decide the NaN skip and the clip."""
+    images, loss_and_grads = make_loss_fns(model, tc)
+    use_shadow = _uses_shadow(tc)
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, float]]:
+        loss, grads = loss_and_grads(state, batch)
+        gnorm = global_norm(grads)
+        loss_f, gnorm_f = torch.stack([loss.float(), gnorm]).tolist()
+        if not tc.skip_nonfinite or (math.isfinite(loss_f) and math.isfinite(gnorm_f)):
+            masters = dict(state.model.named_parameters())
+            tx.update(grads, state.opt_state, masters, gnorm_f)
+            if use_shadow:
+                with torch.no_grad():
+                    for s, m in zip(state.shadow.parameters(), masters.values()):
+                        s.copy_(m)
+        state.step += 1
+        return state, {'loss': loss_f, 'grad_norm': gnorm_f}
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch) -> Dict[str, float]:
+        """Per-sample MSE weighted by the optional ``valid`` mask, as the sum,
+        the count and their ratio."""
+        imgs = images(state, batch)
+        sq = torch.square(imgs - batch['gt'].to(imgs.dtype))
+        per_sample = sq.reshape(sq.shape[0], -1).mean(dim=-1)
+        valid = batch.get('valid')
+        valid = (torch.ones_like(per_sample) if valid is None
+                 else valid.to(per_sample.dtype))
+        loss_sum, n = torch.stack([(per_sample * valid).sum(), valid.sum()]).tolist()
+        return {'loss_sum': loss_sum, 'n': n, 'loss': loss_sum / max(n, 1.0)}
+
+    return train_step, eval_step

@@ -24,7 +24,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 for n in ('nn.swin', 'ops.swin_attention', 'ops.shifted_regroup', 'ops.s2d_conv',
-          'ops.dpt_tail', 'ops.fused_resize', 'ops.flash_attention'):
+          'ops.dpt_tail', 'ops.fused_resize', 'ops.flash_attention', 'training.state',
+          'training.checkpoint', 'training.trainer'):
     assert 'renderformer_tpu_torch.' + n in names, n
 '''
 
@@ -50,6 +51,19 @@ def test_default_device_refuses_missing_cuda(monkeypatch):
         RenderingPipeline.from_config(cfg)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         RenderingPipeline.from_pretrained('v1-base', device='cuda')
+
+
+def test_trainer_refuses_missing_cuda(monkeypatch):
+    from renderformer_tpu_torch import RenderFormerConfig
+    from renderformer_tpu_torch.models.renderformer import RenderFormer
+    from renderformer_tpu_torch.training.trainer import RenderFormerTrainer, TrainerConfig
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    cfg = RenderFormerConfig(latent_dim=72, num_layers=1, num_heads=2,
+                             vertex_pe_num_freqs=4, view_transformer_latent_dim=72,
+                             view_transformer_n_heads=2,
+                             view_transformer_n_layers=4)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        RenderFormerTrainer(RenderFormer(cfg), TrainerConfig(), steps_per_epoch=1)
 
 
 def test_unported_configurations_raise():

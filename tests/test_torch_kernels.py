@@ -1,7 +1,9 @@
 """Kernels K5 (resize into space-to-depth layout), K6 (Swin window
-attention) and K7 (shifted-window regroup) against their plain versions on
-a CUDA card, at small sizes.  They skip without one.  This file imports no
-JAX, so on a machine with a card and no JAX it runs alone:
+attention), K7 (shifted-window regroup), the forward's logsumexp (K1/K2),
+the flash backward (K8, K9) and the transposed resize (K4^T) against their
+plain versions on a CUDA card, at small sizes, and one tiny-config train
+step through them.  They skip without one.  This file imports no JAX, so on
+a machine with a card and no JAX it runs alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -11,7 +13,10 @@ import pytest
 import torch
 
 from renderformer_tpu_torch.ops import LAUNCHES, reference_kernels
-from renderformer_tpu_torch.ops.fused_resize import resize_s2d
+from renderformer_tpu_torch.encodings.rope import make_cos_sin
+from renderformer_tpu_torch.ops.flash_attention import (
+    flash_bwd, flash_fwd_rope, rot_kv_broadcast)
+from renderformer_tpu_torch.ops.fused_resize import resize_bilinear, resize_bilinear_t, resize_s2d
 from renderformer_tpu_torch.ops.shifted_regroup import shifted_regroup
 from renderformer_tpu_torch.ops.swin_attention import region_table, swin_window_attention
 
@@ -78,3 +83,129 @@ def test_swin_kernel_matches_plain(cuda, dtype, shift):
     # fp32: summation order, 2^-16 of max|ref|
     tol = amax * (4 * 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -16)
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def _tables(b, s, dev, seed):
+    pos = torch.from_numpy(np.random.default_rng(seed).normal(size=(b, s, 9)).astype(
+        np.float32) * 0.3).to(dev)
+    c, sn = make_cos_sin(pos, 12, 128)
+    return c[:, :, 0].contiguous(), sn[:, :, 0].contiguous()
+
+
+def _attn_tol(want, dtype, ulps=4):
+    """bf16: q, P (and dS) round to bf16 in both at P values that differ in
+    the last fp32 bits, and each output rounds once: ``ulps`` bf16 ulps of
+    max|want|; fp32: sums in another order (atomics in a run-dependent one),
+    2^-16 of max|want|."""
+    amax = float(want.float().abs().max())
+    return amax * (ulps * 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -16)
+
+
+# b, bkv, sq, sk, h, masked: ragged tiles on both sides, a view fan-out
+BWD_CASES = [(2, 1, 100, 70, 2, True), (1, 1, 64, 64, 1, False), (3, 3, 37, 130, 2, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('case', range(len(BWD_CASES)))
+def test_flash_lse_and_backward_kernels_match_plain(cuda, dtype, case):
+    b, bkv, sq, sk, h, masked = BWD_CASES[case]
+    d = 128
+    q, do = (_randn((b, sq, h, d), dtype, cuda, seed=s) for s in (1, 2))
+    k, v = (_randn((bkv, sk, h, d), dtype, cuda, seed=s) for s in (3, 4))
+    mask = None
+    if masked:
+        mask = torch.from_numpy(np.random.default_rng(5).uniform(size=(b, sk)) > 0.3).to(cuda)
+        mask[:, 0] = True
+    cq, sq_ = _tables(b, sq, cuda, 6)
+    ck, sk_ = _tables(b, sk, cuda, 7)
+    with torch.no_grad():
+        k_rot = rot_kv_broadcast(k, ck, sk_)
+    got, want, launched = _both(lambda: flash_fwd_rope(q, k_rot, v, mask, cq, sq_,
+                                                       with_lse=True))
+    assert launched == {'flash_fwd_rope_mask' if masked else 'flash_fwd_rope_nomask': 1}
+    assert float((got[0].float() - want[0].float()).abs().max()) <= _attn_tol(want[0], dtype)
+    # m*ln2 + ln(l) in fp32: an online against a one-pass maximum and sum
+    torch.testing.assert_close(got[1], want[1], atol=2e-5, rtol=1e-5)
+    out, lse = want
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    for variant, names in (('fused', {'flash_bwd_mask' if masked else 'flash_bwd_nomask'}),
+                           ('twokernel', {'flash_bwd_dq', 'flash_bwd_dkv'})):
+        got, want, launched = _both(
+            lambda: flash_bwd(q, k_rot, v, mask, lse, delta, do, variant))
+        assert launched == {n: 1 for n in names}
+        for name, gt, wt in zip('qkv', got, want):
+            assert gt.dtype == dtype and gt.shape == wt.shape, name
+            err = float((gt.float() - wt.float()).abs().max())
+            assert err <= _attn_tol(wt, dtype, ulps=8), (variant, name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('in_hw,out_hw', [((16, 16), (32, 32)), ((12, 20), (23, 41))])
+def test_resize_transposed_kernel_matches_plain(cuda, dtype, in_hw, out_hw):
+    g = _randn((2, *out_hw, 64), dtype, cuda)
+    got, want, launched = _both(lambda: resize_bilinear_t(g, in_hw))
+    assert launched == {'resize_bilinear_t': 1}
+    # the same nonzero products in fp32, summed in another order, rounded once
+    tol = float(want.float().abs().max()) * (2.0 ** -8 if dtype == torch.bfloat16 else 1e-6)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    # and it is the VJP of K4 and K5
+    x = _randn((2, *in_hw, 64), dtype, cuda).requires_grad_(True)
+    y = resize_bilinear(x, out_hw)
+    gx, = torch.autograd.grad(y, x, g)
+    assert torch.equal(gx, got)
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_the_card(cuda):
+    """Two steps of the tiny config (head dim 128) through the kernels, fused
+    and two-kernel backward, against the plain versions."""
+    from renderformer_tpu_torch import RenderFormerConfig
+    from renderformer_tpu_torch.models.renderformer import RenderFormer
+    from renderformer_tpu_torch.nn.core import init_weights
+    from renderformer_tpu_torch.training import state as ts
+
+    cfg = RenderFormerConfig(latent_dim=256, num_layers=2, num_heads=2, dim_feedforward=256,
+                             num_register_tokens=4, view_transformer_latent_dim=256,
+                             view_transformer_ffn_hidden_dim=256, view_transformer_n_heads=2,
+                             view_transformer_n_layers=4, dpt_features=128,
+                             dpt_out_channels=[32, 64, 128, 128])
+    rng = np.random.default_rng(0)
+    n, res = 40, 64
+    batch = {'triangles': rng.normal(size=(1, n, 3, 3)).astype(np.float32) * 0.3,
+             'texture': rng.uniform(0, 1, (1, n, 13, 32, 32)).astype(np.float32),
+             'mask': np.ones((1, n), bool), 'vn': rng.normal(size=(1, n, 3, 3)).astype(
+                 np.float32),
+             'c2w': np.tile(np.eye(4, dtype=np.float32), (1, 1, 1, 1)),
+             'fov': np.full((1, 1, 1), 40.0, np.float32),
+             'gt': rng.uniform(0, 1, (1, 1, res, res, 3)).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    results = {}
+    for variant in ('fused', 'twokernel', 'plain'):
+        model = init_weights(RenderFormer(cfg), torch.Generator().manual_seed(0)).to(cuda)
+        tc = ts.TrainConfig(resolution=res, learning_rate=1e-4, remat=True,
+                            flash_bwd='fused' if variant == 'plain' else variant)
+        tx = ts.make_optimizer(tc)
+        state = ts.TrainState.create(model, tx, tc)
+        step, _ = ts.make_train_step(model, tx, tc)
+        before = dict(LAUNCHES)
+        if variant == 'plain':
+            with reference_kernels():
+                metrics = [step(state, batch)[1] for _ in range(2)]
+        else:
+            metrics = [step(state, batch)[1] for _ in range(2)]
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        if variant == 'fused':
+            assert launched['flash_bwd_mask'] > 0 and launched['flash_bwd_dq'] == 0
+        if variant == 'twokernel':
+            assert launched['flash_bwd_dq'] > 0 and launched['flash_bwd_mask'] == 0
+        if variant != 'plain':
+            assert launched['resize_bilinear_t'] > 0
+        assert all(np.isfinite(m['loss']) and np.isfinite(m['grad_norm']) for m in metrics)
+        results[variant] = metrics
+    for variant in ('fused', 'twokernel'):
+        for got, want in zip(results[variant], results['plain']):
+            # bf16 stage 1: the kernels and the plain versions round at other points
+            assert got['loss'] == pytest.approx(want['loss'], rel=1e-2)
+            assert got['grad_norm'] == pytest.approx(want['grad_norm'], rel=5e-2)

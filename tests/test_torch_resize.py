@@ -1,6 +1,7 @@
-"""The plain version of kernel K4 (align_corners bilinear resize) and the
-DPT head with the plain output tail, against the JAX package on the CPU.
-The JAX kernel runs in Pallas interpret mode."""
+"""The plain version of kernel K4 (align_corners bilinear resize), its VJP
+(the plain version of K4^T, also behind K5's VJP) and the DPT head with the
+plain output tail, against the JAX package on the CPU.  The JAX kernels run
+in Pallas interpret mode."""
 
 import jax
 import jax.numpy as jnp
@@ -10,11 +11,12 @@ import torch
 
 from renderformer_tpu.nn.conv import resize_bilinear_align_corners as jax_resize
 from renderformer_tpu.nn.dpt import DPTHead as JaxDPTHead
-from renderformer_tpu.ops.fused_resize import fused_resize
+from renderformer_tpu.ops.fused_resize import fused_resize, fused_resize_s2d
 from renderformer_tpu_torch.convert import jax_params_to_state_dict
 from renderformer_tpu_torch.nn.conv import resize_bilinear_align_corners
 from renderformer_tpu_torch.nn.dpt import DPTHead
-from renderformer_tpu_torch.ops.fused_resize import resize_bilinear
+from renderformer_tpu_torch.ops.fused_resize import (
+    adjoint_taps, interp_matrix, resize_bilinear, resize_bilinear_t, resize_s2d)
 
 # the four x2 upsamples of the refinenets at 512^2, with a narrow C
 RATIOS = [(32, 64), (64, 128), (128, 256), (256, 512)]
@@ -82,3 +84,64 @@ def test_dpt_head_plain_tail_matches_jax(monkeypatch, patch):
     assert got.shape == (2, ph * 8, pw * 8, 3)
     # fp32 convs in another summation order
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-5)
+
+
+def _vjp_tol(dtype, want):
+    """fp32: the same nonzero weights summed in another order (the JAX
+    kernel's banded matmuls): 1e-6 of max|want|.  bf16: the JAX kernel rounds
+    its H pass to bf16, the port's sums stay fp32 and round once: 2 bf16
+    ulps of max|want|."""
+    amax = float(np.abs(want).max())
+    return dict(atol=(1e-6 if dtype == 'fp32' else 2 * 2.0 ** -8) * amax, rtol=0)
+
+
+@pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
+@pytest.mark.parametrize('n_in,out_hw', [(16, (32, 32)), (32, (64, 64)), (16, (24, 40))])
+def test_resize_vjp_matches_jax_transposed_kernel(n_in, out_hw, dtype):
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == 'fp32' else (jnp.bfloat16,
+                                                                     torch.bfloat16)
+    rng = np.random.default_rng(n_in)
+    x = rng.normal(size=(2, n_in, n_in + 8, 16)).astype(np.float32)
+    g = rng.normal(size=(2, *out_hw, 16)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: fused_resize(a, out_hw, interpret=True), jnp.asarray(x, jdt))
+    want = np.asarray(vjp(jnp.asarray(g, jdt))[0].astype(jnp.float32))
+    tx = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    got, = torch.autograd.grad(resize_bilinear(tx, out_hw), tx, torch.from_numpy(g).to(tdt))
+    assert got.dtype == tdt and got.shape == tx.shape
+    np.testing.assert_allclose(got.float().numpy(), want, **_vjp_tol(dtype, want))
+
+
+@pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
+def test_resize_s2d_vjp_matches_jax(dtype):
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == 'fp32' else (jnp.bfloat16,
+                                                                     torch.bfloat16)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(1, 16, 16, 128)).astype(np.float32)
+    g = rng.normal(size=(1, 16, 16, 512)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: fused_resize_s2d(a, (32, 32), interpret=True),
+                     jnp.asarray(x, jdt))
+    want = np.asarray(vjp(jnp.asarray(g, jdt))[0].astype(jnp.float32))
+    tx = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    got, = torch.autograd.grad(resize_s2d(tx, (32, 32)), tx, torch.from_numpy(g).to(tdt))
+    np.testing.assert_allclose(got.float().numpy(), want, **_vjp_tol(dtype, want))
+
+
+@pytest.mark.parametrize('n_in,n_out', [(16, 32), (128, 256), (5, 3), (1, 4), (7, 1)])
+def test_adjoint_taps_are_the_matrix_columns(n_in, n_out):
+    """K4^T's per-axis tables hold each column of the interpolation matrix
+    from its first to its last nonzero, and the plain transposed resize is
+    the adjoint of the plain resize: <R x, g> = <x, R^T g>."""
+    m = interp_matrix(n_in, n_out)
+    span, w = adjoint_taps(n_in, n_out)
+    rebuilt = np.zeros_like(m)
+    for i, (lo, cnt) in enumerate(span):
+        rebuilt[lo:lo + cnt, i] = w[i, :cnt]
+        assert not w[i, cnt:].any()
+    np.testing.assert_array_equal(rebuilt, m)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(1, n_in, 3, 8)).astype(np.float64))
+    g = torch.from_numpy(rng.normal(size=(1, n_out, 3, 8)).astype(np.float64))
+    with torch.no_grad():
+        fwd = resize_bilinear(x.float(), (n_out, 3)).double()
+        adj = resize_bilinear_t(g.float(), (n_in, 3)).double()
+    assert abs(float((fwd * g).sum() - (x * adj).sum())) <= 1e-4 * float(x.abs().sum())

@@ -8,7 +8,8 @@ in turns (parent, change, change, parent) at the three attention sites of
 the v1-base 512^2 render, in bf16 and fp32, and checks each against the
 plain version.  Prints the card's nvidia-smi line, then one JSON line per
 site and dtype with [median ms, max error] per turn.  Both versions run in
-one process on one card, so their times compare.
+one process on one card, so their times compare.  A parent from before
+``rf_flash_fwd_rope`` took its ``lse`` pointer is called without it.
 """
 
 import argparse
@@ -47,6 +48,23 @@ def time_ms(fn, iters):
     return statistics.median(times)
 
 
+class NoLseAbi:
+    """A parent library whose ``rf_flash_fwd_rope`` has no ``lse`` pointer
+    (the 8th argument of today's): calls drop it."""
+
+    def __init__(self, lib, signature):
+        sig = list(signature)
+        del sig[7]
+        self._fn = lib.rf_flash_fwd_rope
+        self._fn.argtypes = sig
+        self._fn.restype = ctypes.c_int
+
+    def rf_flash_fwd_rope(self, *args):
+        if args[7] is not None:
+            raise ValueError('the parent library writes no logsumexp')
+        return self._fn(*args[:7], *args[8:])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--parent', required=True,
@@ -71,8 +89,14 @@ def main():
                         os.path.dirname(src), src, '-o', so], check=True,
                        stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
         parent = ctypes.CDLL(so)
-    parent.rf_flash_fwd_rope.argtypes = _build.SIGNATURES['rf_flash_fwd_rope']
-    parent.rf_flash_fwd_rope.restype = ctypes.c_int
+    with open(src) as f:
+        takes_lse = 'void* lse' in f.read()
+    signature = _build.SIGNATURES['rf_flash_fwd_rope']
+    if takes_lse:
+        parent.rf_flash_fwd_rope.argtypes = signature
+        parent.rf_flash_fwd_rope.restype = ctypes.c_int
+    else:
+        parent = NoLseAbi(parent, signature)
     change = _build.library()
     print(subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
