@@ -7,26 +7,31 @@ Phases, each printing its own lines:
   1. card: the nvidia-smi name and power limit, and torch's device name;
   2. build: compiles the kernels from renderformer_tpu_torch/csrc;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     every shape the v1-base and v1.1-swin-large 512^2 renders give it, in
-     bf16 and fp32, with kernel, plain, library and bound times (CUDA
-     events, median);
-  4. render, for each of v1-base and v1.1-swin-large at full width and full
-     depth from a seeded init, with the default composed DPT tail: 1 scene x
-     8 views x 2048 triangles at 512^2 in bf16 (the bench.py workload), with
-     exact launch counts of every kernel (counts set to 0 just before the
-     render, read just after), finite output, and HDR PSNR against the same
-     render through the plain versions (>= 40 dB; an fp32 render at 128^2
-     must reach >= 55 dB);
+     every shape the v1-base, v1.1-swin-large and v1-base nerf 512^2 renders
+     give it, in bf16 and fp32 (the flash forward without RoPE, K10, and the
+     fused RMSNorm, K11, in the renders' bf16), with kernel, plain, library
+     and bound times (CUDA events, median);
+  4. render, for each of v1-base, v1.1-swin-large and v1-base nerf
+     (V1_BASE_NERF, pe_type='nerf', with RuntimeConfig(fused_norm=True)) at
+     full width and full depth from a seeded init, with the default composed
+     DPT tail: 1 scene x 8 views x 2048 triangles at 512^2 in bf16 (the
+     bench.py workload), with exact launch counts of every kernel (counts set
+     to 0 just before the render, read just after), finite output, and HDR
+     PSNR against the same render through the plain versions (>= 40 dB; an
+     fp32 render at 128^2 must reach >= 55 dB);
   5. speed, for each model: rays/s of the bf16 render on inputs already on
      the card, median of timed renders, and a profiler breakdown of one
      render (device time by kernel, and the device's idle share of the
-     median unprofiled render);
+     median unprofiled render); for v1-base also, with no bar, rays/s of the
+     render with fused_norm=True beside the default, timed in turn;
   6. training kernels: the forward with its logsumexp (K1/K2, timed in
      turn with the render's instantiation), K3, the flash backward through
      its wrapper (K8 fused; K9 two-kernel, each of its dQ and dK/dV kernels
      timed alone against the plain version of its part), K4, K5 and the
      transposed resize (K4^T) against their plain versions, at every shape
-     of the v1-base train step, in bf16 and fp32, timed as in phase 3;
+     of the v1-base train step, in bf16 and fp32, and K10 with its logsumexp
+     and K11's forward and backward at the nerf train step's shapes and
+     dtypes, timed as in phase 3;
   7. train: v1-base at full width and depth from a seeded init, the
      train_step_bench.py workload (1 scene x 1 view x 2048 triangles at
      256^2, bf16 stage 1 with an fp32 view stage, remat, AdamW): exact launch
@@ -38,7 +43,10 @@ Phases, each printing its own lines:
      the backward must fall outside them; finite
      loss and grad norm over 3 steps; the median step time of 5 steps after a
      warm-up, trained rays/s, peak memory, and the device's idle share from
-     one profiled step.
+     one profiled step.  Then the same workload for v1-base nerf with
+     fused_norm=True and the fused backward: exact launch counts of one step,
+     the kernel step against the plain step within AGREE_BARS, 3 finite
+     steps, and the same timings.
 Then one JSON line with every kernel's numbers per render of each model
 and per train step, the nvidia-smi line, and the result line.  Any failed
 check exits non-zero before the result line.  Imports nothing of JAX.
@@ -68,11 +76,13 @@ DPT_C = 128             # dpt_features of both models
 SWIN_C, SWIN_H = 1024, 8
 GRID = RES // 8         # the 64 x 64 patch grid
 NW = (GRID // 8) ** 2   # 8 x 8 windows a view
-BASE, SWIN = 'v1-base', 'v1.1-swin-large'
-PATHS = (BASE, SWIN)
-# the train step at 256^2, 1 view, 2048 triangles; fused and two-kernel backward
-TRAIN, TRAIN2 = 'train v1-base', 'train v1-base twokernel'
-TRAIN_PATHS = (TRAIN, TRAIN2)
+BASE, SWIN, NERF = 'v1-base', 'v1.1-swin-large', 'v1-base nerf'
+PATHS = (BASE, SWIN, NERF)
+# the train step at 256^2, 1 view, 2048 triangles: v1-base with the fused and
+# the two-kernel backward, v1-base nerf with the fused backward and K11
+TRAIN, TRAIN2, TRAIN_NERF = 'train v1-base', 'train v1-base twokernel', 'train v1-base nerf'
+ROPE_TRAIN = (TRAIN, TRAIN2)
+TRAIN_PATHS = (TRAIN, TRAIN2, TRAIN_NERF)
 ALL_PATHS = PATHS + TRAIN_PATHS
 TRAIN_RES = 256
 TRAIN_ST = (TRAIN_RES // 8) ** 2   # 1024 ray tokens
@@ -116,36 +126,61 @@ KERNELS = {
     'shifted_regroup': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/shifted_regroup.cu',
         replaces='renderformer_tpu/ops/shifted_regroup.py:68'),
+    'flash_fwd_mask': dict(
+        route='cuda', source='renderformer_tpu_torch/csrc/flash_attention.cu',
+        replaces='renderformer_tpu/ops/flash_attention.py:202'),
+    'flash_fwd_nomask': dict(
+        route='cuda', source='renderformer_tpu_torch/csrc/flash_attention.cu',
+        replaces='renderformer_tpu/ops/flash_attention.py:217'),
+    'rms_norm_fwd': dict(
+        route='cuda', source='renderformer_tpu_torch/csrc/fused_norm.cu',
+        replaces='renderformer_tpu/ops/fused_norm.py:62'),
+    'rms_norm_bwd': dict(
+        route='cuda', source='renderformer_tpu_torch/csrc/fused_norm.cu',
+        replaces='renderformer_tpu/ops/fused_norm.py:73'),
 }
+
+
+def _launches(**nonzero):
+    """A path's launch counts: every kernel of KERNELS, 0 unless given."""
+    return {**dict.fromkeys(KERNELS, 0), **nonzero}
+
+
 # launches in one bf16 512^2 render with the composed DPT tail:
 # v1-base: 12 encoder + 6 decoder masked attentions (K1), 6 ray
 #   self-attentions (K2), a K rotation before each (K3), refinenet4/3/2
 #   upsamples (K4), refinenet1's upsample into s2d layout (K5);
 # swin-large: 12 encoder + 12 decoder masked attentions (K1, K3), window
 #   attention in every decoder layer (K6), the regroup before and after it in
-#   the 6 shifted layers (K7), and the same DPT head.
+#   the 6 shifted layers (K7), and the same DPT head;
+# v1-base nerf: the same attention sites without RoPE (K10 masked 12 + 6,
+#   unmasked 6), the same DPT head, and with fused_norm=True K11 at each of the
+#   102 RMSNorms: 3 stage-1 embeddings, 4 a self-attention block (query, q, k,
+#   FFN), the ray encoder and the 2 position encodings of the view stage, 8 a
+#   decoder block (query, context, cross q and k, self-attention input, q and
+#   k, FFN).
 # One v1-base train step with remat (each of the 24 attention sites runs K3
 # and K1/K2 with the logsumexp in the forward, both again in the backward's
 # recomputation, then K3 and the backward), the three K4 upsamples and K5 in
 # the forward (the DPT head is not recomputed), and K4^T for the VJP of each.
-_NONE = dict.fromkeys(('flash_bwd_mask', 'flash_bwd_nomask', 'flash_bwd_dq', 'flash_bwd_dkv',
-                       'resize_bilinear_t'), 0)
-_TRAIN = {'flash_fwd_rope_mask': 36, 'flash_fwd_rope_nomask': 12, 'rot_kv_broadcast': 72,
-          'resize_bilinear': 3, 'resize_bilinear_t': 4, 'resize_s2d': 1,
-          'swin_window_attention': 0, 'shifted_regroup': 0}
+# The nerf train step runs K10 with the logsumexp twice a site and K8 once,
+# and K11's forward at the 102 norms plus again at the 96 inside the
+# recomputed blocks, and its backward at the 102.
+_TRAIN = dict(flash_fwd_rope_mask=36, flash_fwd_rope_nomask=12, rot_kv_broadcast=72,
+              resize_bilinear=3, resize_bilinear_t=4, resize_s2d=1)
 EXPECTED_LAUNCHES = {
-    BASE: {'flash_fwd_rope_mask': 18, 'flash_fwd_rope_nomask': 6,
-           'rot_kv_broadcast': 24, 'resize_bilinear': 3, 'resize_s2d': 1,
-           'swin_window_attention': 0, 'shifted_regroup': 0, **_NONE},
-    SWIN: {'flash_fwd_rope_mask': 24, 'flash_fwd_rope_nomask': 0,
-           'rot_kv_broadcast': 24, 'resize_bilinear': 3, 'resize_s2d': 1,
-           'swin_window_attention': 12, 'shifted_regroup': 12, **_NONE},
-    TRAIN: {**_TRAIN, 'flash_bwd_mask': 18, 'flash_bwd_nomask': 6, 'flash_bwd_dq': 0,
-            'flash_bwd_dkv': 0},
-    TRAIN2: {**_TRAIN, 'flash_bwd_mask': 0, 'flash_bwd_nomask': 0, 'flash_bwd_dq': 24,
-             'flash_bwd_dkv': 24},
+    BASE: _launches(flash_fwd_rope_mask=18, flash_fwd_rope_nomask=6, rot_kv_broadcast=24,
+                    resize_bilinear=3, resize_s2d=1),
+    SWIN: _launches(flash_fwd_rope_mask=24, rot_kv_broadcast=24, resize_bilinear=3,
+                    resize_s2d=1, swin_window_attention=12, shifted_regroup=12),
+    NERF: _launches(flash_fwd_mask=18, flash_fwd_nomask=6, resize_bilinear=3, resize_s2d=1,
+                    rms_norm_fwd=102),
+    TRAIN: _launches(**_TRAIN, flash_bwd_mask=18, flash_bwd_nomask=6),
+    TRAIN2: _launches(**_TRAIN, flash_bwd_dq=24, flash_bwd_dkv=24),
+    TRAIN_NERF: _launches(flash_fwd_mask=36, flash_fwd_nomask=12, flash_bwd_mask=18,
+                          flash_bwd_nomask=6, resize_bilinear=3, resize_bilinear_t=4,
+                          resize_s2d=1, rms_norm_fwd=198, rms_norm_bwd=102),
 }
-
 
 def fail(msg):
     print(f'FAIL: {msg}', flush=True)
@@ -297,6 +332,96 @@ def k3_tol(ref):
                                              else 2.0 ** -22)
 
 
+NORM_D = 768  # the model width of v1-base, the width of every K11 site
+
+
+def check_flash_fwd(rows, randn, site, b, sq, sk, masked, dtype, per_run, with_lse=False):
+    """K10 at q [b, sq, 6, D] against k, v [b, sk, 6, D] (a padded tail of
+    triangles masked) against its plain version; SDPA with the boolean key
+    mask, or none, is the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from renderformer_tpu_torch.ops import reference_kernels
+    from renderformer_tpu_torch.ops.flash_attention import flash_fwd
+    H = 6
+    it = 2 if dtype == torch.bfloat16 else 4
+    q = randn(b, sq, H, D, dtype=dtype)
+    k, v = randn(b, sk, H, D, dtype=dtype), randn(b, sk, H, D, dtype=dtype)
+    mask = None
+    if masked:
+        mask = torch.ones(b, sk, dtype=torch.bool, device=q.device)
+        mask[:, 16 + NTRI * 3 // 4:] = False
+    with torch.no_grad():
+        out = flash_fwd(q, k, v, mask, with_lse=with_lse)
+        with reference_kernels():
+            ref = flash_fwd(q, k, v, mask, with_lse=with_lse)
+        ref_out = ref[0] if with_lse else ref
+        tol, why = attention_tol(ref_out, dtype, 'P at the running max vs the row max')
+        if with_lse:
+            tol = (tol, 1e-5 * float(ref[1].abs().max()) + 2e-5)
+            why += '; lse m*ln2 + ln(l) in fp32: 1e-5 of max|lse| + 2e-5'
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        am = mask[:, None, None, :] if masked else None
+        record_row(rows, 'flash_fwd_mask' if masked else 'flash_fwd_nomask',
+                   site + ('_lse' if with_lse else ''), dtype, per_run, out, ref, tol, why,
+                   lambda: flash_fwd(q, k, v, mask, with_lse=with_lse),
+                   lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am),
+                   (2 * b * sq + 2 * b * sk) * H * D * it + (b * sk if masked else 0)
+                   + (b * H * sq * 4 if with_lse else 0),
+                   4 * b * H * sq * sk * D,
+                   PEAK_BF16_TENSOR if dtype == torch.bfloat16 else PEAK_FP32)
+    del q, k, v, out, ref, qs, ks, vs
+    torch.cuda.empty_cache()
+
+
+def ulp_tol(ref):
+    """One bf16 ulp of max|ref| (2^-7 of its binade); fp32: 2^-20 of max|ref|."""
+    import torch
+    amax = float(ref.float().abs().max())
+    if ref.dtype == torch.bfloat16:
+        return 2.0 ** (np.floor(np.log2(amax)) - 7)
+    return amax * 2.0 ** -20
+
+
+def check_rms_norm(rows, randn, site, r, dtype, eps, per_fwd, per_bwd):
+    """K11's forward and backward at x [r, 768] against their plain versions;
+    torch.nn.functional.rms_norm and its autograd are the library
+    yardsticks."""
+    import torch
+    import torch.nn.functional as F
+    from renderformer_tpu_torch.ops import reference_kernels
+    from renderformer_tpu_torch.ops.fused_norm import rms_norm_bwd, rms_norm_fwd
+    it = 2 if dtype == torch.bfloat16 else 4
+    x, g = randn(r, NORM_D, dtype=dtype), randn(r, NORM_D, dtype=dtype)
+    scale = 1 + 0.1 * randn(NORM_D)
+    why = ('the same arithmetic, inv from a sum of squares in another order, which can '
+           'round bf16(inv) to its other neighbour: 1 bf16 ulp of max|ref|, fp32 2^-20 of it')
+    with torch.no_grad():
+        y = rms_norm_fwd(x, scale, eps)
+        with reference_kernels():
+            ref = rms_norm_fwd(x, scale, eps)
+        ws = scale.to(dtype)
+        record_row(rows, 'rms_norm_fwd', site, dtype, per_fwd, y, ref, ulp_tol(ref), why,
+                   lambda: rms_norm_fwd(x, scale, eps),
+                   lambda: F.rms_norm(x, (NORM_D,), ws, eps),
+                   2 * r * NORM_D * it + NORM_D * 4, 4 * r * NORM_D, PEAK_FP32)
+        got = rms_norm_bwd(x, scale, g, eps)
+        with reference_kernels():
+            ref = rms_norm_bwd(x, scale, g, eps)
+    xl, wl = x.detach().clone().requires_grad_(True), ws.detach().clone().requires_grad_(True)
+    yl = F.rms_norm(xl, (NORM_D,), wl, eps)
+    with torch.no_grad():
+        record_row(rows, 'rms_norm_bwd', site, dtype, per_bwd, got, ref,
+                   (ulp_tol(ref[0]), 1e-5 * float(ref[1].abs().max())),
+                   why + '; ds: per-block partials summed against one sum over the rows, '
+                   '1e-5 of max|ds|',
+                   lambda: rms_norm_bwd(x, scale, g, eps),
+                   lambda: torch.autograd.grad(yl, (xl, wl), g, retain_graph=True),
+                   3 * r * NORM_D * it + 2 * NORM_D * 4, 10 * r * NORM_D, PEAK_FP32)
+    del x, g, y, ref, got, xl, wl, yl
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -382,7 +507,7 @@ def kernel_checks():
 
         # K4: refinenet4/3/2 upsamples of both DPT heads; K5: refinenet1's
         # upsample into s2d layout, the composed tail's input
-        per_render = {BASE: 1, SWIN: 1} if dtype == torch.bfloat16 else {}
+        per_render = {BASE: 1, SWIN: 1, NERF: 1} if dtype == torch.bfloat16 else {}
         for n_in in (32, 64, 128):
             check_resize(rows, randn(V, n_in, n_in, DPT_C, dtype=dtype), (2 * n_in, 2 * n_in),
                          per_render)
@@ -434,6 +559,17 @@ def kernel_checks():
             del out, ref
         del q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
+
+    # K10 and K11 at the v1-base nerf render's shapes, in its bf16
+    bf = torch.bfloat16
+    for site, b, sq, sk, masked, n in (('nerf_stage1_self', 1, SK, SK, True, 12),
+                                       ('nerf_cross', V, ST, SK, True, 6),
+                                       ('nerf_ray_self', V, ST, ST, False, 6)):
+        check_flash_fwd(rows, randn, site, b, sq, sk, masked, bf, {NERF: n})
+    eps_tiny = float(np.finfo(np.float32).eps)  # torch's RMSNorm default
+    for site, r, eps, n in (('embed_2048', NTRI, eps_tiny, 3), ('stage1_2064', SK, 1e-6, 48),
+                            ('rays_8x4096', V * ST, 1e-6, 38), ('tris_8x2064', V * SK, 1e-6, 13)):
+        check_rms_norm(rows, randn, site, r, bf, eps, {NERF: n}, {})
     return rows
 
 
@@ -454,15 +590,54 @@ def bench_inputs(n_tris=NTRI, n_views=V):
     )
 
 
+def render_pipeline(path):
+    """The seeded pipeline of a render path: the presets as they are, and
+    V1_BASE_NERF with the fused RMSNorm."""
+    from renderformer_tpu_torch import V1_BASE_NERF, RenderingPipeline, RuntimeConfig
+    if path == NERF:
+        return RenderingPipeline.from_config(V1_BASE_NERF, seed=0,
+                                             runtime=RuntimeConfig(fused_norm=True))
+    return RenderingPipeline.from_pretrained(path, seed=0)
+
+
+def time_render(pipe, dargs):
+    """Host seconds of one bf16 render on inputs on the card."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pipe.render(*dargs, resolution=RES, precision='bf16')
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def fused_norm_ab(card, pipe, dargs):
+    """Informational, no bar: rays/s of the v1-base render with
+    fused_norm=True beside the default on the same model, timed in turn."""
+    from renderformer_tpu_torch import RenderingPipeline, RuntimeConfig
+    from renderformer_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    fused = RenderingPipeline(pipe.model, runtime=RuntimeConfig(fused_norm=True))
+    reset_launch_counts()
+    time_render(fused, dargs)  # warm-up, and its K11 launches
+    n_norm = LAUNCHES['rms_norm_fwd']
+    turns = [(time_render(pipe, dargs), time_render(fused, dargs)) for _ in range(5)]
+    default, with_k11 = (statistics.median(x) for x in zip(*turns))
+    rays = V * RES * RES
+    print(f'speed: {BASE} bf16 {RES}^2 fused_norm=True (informational, no bar): '
+          f'{rays / with_k11:.1f} rays/s ({with_k11 * 1e3:.2f} ms, {n_norm} K11 launches) '
+          f'against the default {rays / default:.1f} rays/s ({default * 1e3:.2f} ms), medians '
+          f'of 5 turns {[(round(a * 1e3, 2), round(b * 1e3, 2)) for a, b in turns]} ms, '
+          f'on {card}', flush=True)
+    del fused
+
+
 def render_checks(card, preset):
     """Phases 4 and 5 for one model; returns its launch counts and the
     median render time."""
     import torch
-    from renderformer_tpu_torch import RenderingPipeline
     from renderformer_tpu_torch.ops import LAUNCHES, reference_kernels, reset_launch_counts
 
     t0 = time.time()
-    pipe = RenderingPipeline.from_pretrained(preset, seed=0)
+    pipe = render_pipeline(preset)
     n_params = sum(p.numel() for p in pipe.model.state_dict().values())
     print(f'render: {preset} seeded init, {n_params} parameters, '
           f'{time.time() - t0:.1f} s', flush=True)
@@ -505,13 +680,7 @@ def render_checks(card, preset):
     # phase 5: speed, on inputs already on the card (as bench.py times it)
     dargs = tuple(torch.as_tensor(a, device='cuda') for a in args)
     rays = V * RES * RES
-    times = []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        pipe.render(*dargs, resolution=RES, precision='bf16')
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
+    times = [time_render(pipe, dargs) for _ in range(6)]
     times = times[1:]  # the first render after the fp32 one is a warm-up
     med = statistics.median(times)
     print(f'speed: {preset} bf16 {RES}^2 x{V} views, {NTRI} tris, inputs on the card: '
@@ -538,6 +707,8 @@ def render_checks(card, preset):
           f'idle share {1 - dev_ms / (med * 1e3):.3f} of the {med * 1e3:.2f} ms median '
           f'render ({1 - dev_ms / (wall * 1e3):.3f} of the {wall * 1e3:.2f} ms '
           f'profiled render)', flush=True)
+    if preset == BASE:
+        fused_norm_ab(card, pipe, dargs)
     del pipe, dargs
     torch.cuda.empty_cache()
     return launches
@@ -549,9 +720,11 @@ def render_checks(card, preset):
 
 def train_kernel_checks():
     """The forward's logsumexp (K1/K2), K3, K8, K9's two kernels, K4, K5 and
-    K4^T at the v1-base train step's shapes, in bf16 and fp32; per_run counts
-    the launches at the dtype the step runs there (bf16 stage 1, fp32 view
-    stage) in one step of each backward that launches the kernel."""
+    K4^T at the v1-base train step's shapes, in bf16 and fp32, and K10 with
+    its logsumexp and K11 at the nerf train step's shapes in the dtypes it
+    runs them; per_run counts the launches at the dtype the step runs there
+    (bf16 stage 1, fp32 view stage) in one step of each path that launches
+    the kernel (K8's shapes are the same in the nerf step)."""
     import torch
     import torch.nn.functional as F
     from renderformer_tpu_torch import _build
@@ -584,7 +757,7 @@ def train_kernel_checks():
         it = 2 if dtype == torch.bfloat16 else 4
         flop_rate = PEAK_BF16_TENSOR if dtype == torch.bfloat16 else PEAK_FP32
         for site, sq, sk, masked, step_dtype, n in sites:
-            def per_step(k, paths=TRAIN_PATHS):
+            def per_step(k, paths=ROPE_TRAIN):
                 return {p: k * n for p in paths} if dtype == step_dtype else {}
             q, do = randn(1, sq, H, D, dtype=dtype), randn(1, sq, H, D, dtype=dtype)
             k, v = randn(1, sk, H, D, dtype=dtype), randn(1, sk, H, D, dtype=dtype)
@@ -661,7 +834,7 @@ def train_kernel_checks():
                 # timed one at a time, each against the plain version of its part
                 fused = flash_bwd(*io, 'fused')
                 record_row(rows, 'flash_bwd_mask' if masked else 'flash_bwd_nomask', site, dtype,
-                           per_step(1, (TRAIN,)), fused, ref, tols, why,
+                           per_step(1, (TRAIN, TRAIN_NERF)), fused, ref, tols, why,
                            lambda: flash_bwd(*io, 'fused'), lib_grad(ql, kl, vl),
                            b_in + sq * H * D * it + b_out_kv + b_out_q,
                            10 * H * sq * sk * D, flop_rate)
@@ -714,6 +887,25 @@ def train_kernel_checks():
                            8 * n_out * n_out * DPT_C, PEAK_FP32)
             del g, out, ref, xl, yl
         torch.cuda.empty_cache()
+
+    # the nerf train step: K10 with the logsumexp twice a site (the forward and
+    # the remat recomputation); K11 forward at each norm, again in the
+    # recomputed blocks, and backward once
+    bf, f32 = torch.bfloat16, torch.float32
+    for site, sq, sk, masked, dtype, n in (
+            ('train_nerf_stage1_self', SK, SK, True, bf, 12),
+            ('train_nerf_cross', TRAIN_ST, SK, True, f32, 6),
+            ('train_nerf_ray_self', TRAIN_ST, TRAIN_ST, False, f32, 6)):
+        check_flash_fwd(rows, randn, site, 1, sq, sk, masked, dtype, {TRAIN_NERF: 2 * n},
+                        with_lse=True)
+    eps_tiny = float(np.finfo(np.float32).eps)
+    for site, r, dtype, eps, n_fwd, n_bwd in (
+            ('train_embed_2048', NTRI, bf, eps_tiny, 3, 3),
+            ('train_stage1_2064', SK, bf, 1e-6, 96, 48),
+            ('train_rays_1024', TRAIN_ST, f32, 1e-6, 74, 38),
+            ('train_tris_2064', SK, f32, 1e-6, 25, 13)):
+        check_rms_norm(rows, randn, site, r, dtype, eps, {TRAIN_NERF: n_fwd},
+                       {TRAIN_NERF: n_bwd})
     return rows
 
 
@@ -791,30 +983,111 @@ def planted_fault():
         fa.flash_bwd = real
 
 
-def train_checks(card):
-    """Phase 7; returns the launch counts of one step of each backward."""
+def seeded_train_state(cfg, tc):
+    """A model of ``cfg`` from the seeded init on the card, its optimizer and
+    its train state."""
     import torch
-    from renderformer_tpu_torch.config import PRESETS
     from renderformer_tpu_torch.models.renderformer import RenderFormer
     from renderformer_tpu_torch.nn.core import init_weights
-    from renderformer_tpu_torch.ops import LAUNCHES, reference_kernels, reset_launch_counts
     from renderformer_tpu_torch.training import state as ts
-
-    t0 = time.time()
     with torch.device('meta'):
-        model = RenderFormer(PRESETS[BASE])
+        model = RenderFormer(cfg)
     model = model.to_empty(device='cpu')
     init_weights(model, torch.Generator().manual_seed(0))
     model = model.to('cuda')
-    n_params = sum(p.numel() for p in model.parameters())
+    tx = ts.make_optimizer(tc)
+    return model, tx, ts.TrainState.create(model, tx, tc)
+
+
+def step_launches(path, step, state, batch):
+    """One step of a train path on the main path, counts set to 0 just before
+    it and read just after, against EXPECTED_LAUNCHES."""
+    import torch
+    from renderformer_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    reset_launch_counts()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f'train: {path} launches ' + json.dumps(launches), flush=True)
+    if launches != EXPECTED_LAUNCHES[path]:
+        fail(f'{path} launch counts {launches} != {EXPECTED_LAUNCHES[path]}')
+    return state, m, launches
+
+
+def check_finite(name, losses):
+    print(f'train: {name} 3 steps, loss / grad norm '
+          f'{[(x["loss"], x["grad_norm"]) for x in losses]}', flush=True)
+    if not all(np.isfinite(x['loss']) and np.isfinite(x['grad_norm']) for x in losses):
+        fail(f'train: {name} non-finite loss or grad norm')
+
+
+def step_speed(card, name, step, state, batch, agree):
+    """The median step of TRAIN_STEPS after a warm-up, trained rays/s, peak
+    memory and the device's idle share from one profiled step; printed, with
+    the agreement measures, as one 'train' JSON line."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    times = times[1:]
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'train: {name} step {med * 1e3:.2f} ms median of {len(times)} '
+          f'({[round(x * 1e3, 2) for x in times]} ms), {TRAIN_RES ** 2 / med:.1f} trained '
+          f'rays/s, peak memory {peak:.2f} GiB, on {card}', flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    for e in kernels[:25]:
+        print(f'profile: {name} {e.self_device_time_total / 1e3:9.3f} ms '
+              f'{e.count:5d}x {e.key[:100]}', flush=True)
+    # where the host's time goes: ops by self CPU time
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    for e in host[:15]:
+        print(f'profile: {name} host {e.self_cpu_time_total / 1e3:9.3f} ms '
+              f'{e.count:5d}x {e.key[:100]}', flush=True)
+    print(f'train: {name} device time {dev_ms:.2f} ms a step (profiled), device idle share '
+          f'{1 - dev_ms / (med * 1e3):.3f} of the {med * 1e3:.2f} ms median step '
+          f'({1 - dev_ms / (wall * 1e3):.3f} of the {wall * 1e3:.2f} ms profiled step)',
+          flush=True)
+    print('train ' + json.dumps({'path': name, 'step_ms': med * 1e3,
+                                 'rays_per_s': TRAIN_RES ** 2 / med, 'peak_gib': peak,
+                                 'device_ms': dev_ms, 'idle_share': 1 - dev_ms / (med * 1e3),
+                                 **agree}), flush=True)
+
+
+def train_checks(card):
+    """Phase 7 for v1-base; returns the launch counts of one step of each
+    backward."""
+    import torch
+    from renderformer_tpu_torch.config import PRESETS
+    from renderformer_tpu_torch.ops import reference_kernels
+    from renderformer_tpu_torch.training import state as ts
+
+    t0 = time.time()
     batch = train_batch('cuda')
     tcs = {v: ts.TrainConfig(precision='bfloat16', resolution=TRAIN_RES, steps_per_epoch=100,
                              remat=True, flash_bwd=v) for v in ('fused', 'twokernel')}
+    model, tx, state = seeded_train_state(PRESETS[BASE], tcs['fused'])
+    n_params = sum(p.numel() for p in model.parameters())
     print(f'train: v1-base seeded init, {n_params} parameters; dtypes '
           f'{ts.resolve_dtypes(tcs["fused"])}, remat, {TRAIN_RES}^2, 1 view, {NTRI} tris '
           f'({time.time() - t0:.1f} s)', flush=True)
-    tx = ts.make_optimizer(tcs['fused'])
-    state = ts.TrainState.create(model, tx, tcs['fused'])
 
     # the gradient of the kernel step against the plain-version step, and a
     # planted fault that the same bars must catch
@@ -842,69 +1115,55 @@ def train_checks(card):
     # one step of each backward on the main path, counts set to 0 just before
     launches, losses = {}, []
     for path, v in ((TRAIN, 'fused'), (TRAIN2, 'twokernel')):
-        step = ts.make_train_step(model, tx, tcs[v])[0]
-        reset_launch_counts()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        launches[path] = dict(LAUNCHES)
+        state, m, launches[path] = step_launches(
+            path, ts.make_train_step(model, tx, tcs[v])[0], state, batch)
         losses.append(m)
-        print(f'train: {path} launches ' + json.dumps(launches[path]), flush=True)
-        if launches[path] != EXPECTED_LAUNCHES[path]:
-            fail(f'{path} launch counts {launches[path]} != {EXPECTED_LAUNCHES[path]}')
     step = ts.make_train_step(model, tx, tcs['fused'])[0]
     state, m = step(state, batch)
     losses.append(m)
-    print(f'train: 3 steps, loss / grad norm {[(x["loss"], x["grad_norm"]) for x in losses]}',
-          flush=True)
-    if not all(np.isfinite(x['loss']) and np.isfinite(x['grad_norm']) for x in losses):
-        fail('train: non-finite loss or grad norm')
-
-    # speed: median step of TRAIN_STEPS after a warm-up, on the card's batch
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(TRAIN_STEPS + 1):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-    times = times[1:]
-    med = statistics.median(times)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'train: v1-base step {med * 1e3:.2f} ms median of {len(times)} '
-          f'({[round(x * 1e3, 2) for x in times]} ms), {TRAIN_RES ** 2 / med:.1f} trained '
-          f'rays/s, peak memory {peak:.2f} GiB, on {card}', flush=True)
-
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    for e in kernels[:25]:
-        print(f'profile: train {e.self_device_time_total / 1e3:9.3f} ms '
-              f'{e.count:5d}x {e.key[:100]}', flush=True)
-    # where the host's time goes: ops by self CPU time
-    host = sorted((e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CPU),
-                  key=lambda e: -e.self_cpu_time_total)
-    for e in host[:15]:
-        print(f'profile: train host {e.self_cpu_time_total / 1e3:9.3f} ms '
-              f'{e.count:5d}x {e.key[:100]}', flush=True)
-    print(f'train: device time {dev_ms:.2f} ms a step (profiled), device idle share '
-          f'{1 - dev_ms / (med * 1e3):.3f} of the {med * 1e3:.2f} ms median step '
-          f'({1 - dev_ms / (wall * 1e3):.3f} of the {wall * 1e3:.2f} ms profiled step)',
-          flush=True)
-    print('train ' + json.dumps({'step_ms': med * 1e3, 'rays_per_s': TRAIN_RES ** 2 / med,
-                                 'peak_gib': peak, 'device_ms': dev_ms,
-                                 'idle_share': 1 - dev_ms / (med * 1e3), **agree}), flush=True)
+    check_finite('v1-base', losses)
+    step_speed(card, 'v1-base', step, state, batch, agree)
     del state, model, step
     torch.cuda.empty_cache()
     return launches
+
+
+def train_nerf_checks(card):
+    """Phase 7 for v1-base nerf with the fused RMSNorm and the fused
+    backward; returns the launch counts of one step."""
+    import torch
+    from renderformer_tpu_torch import V1_BASE_NERF
+    from renderformer_tpu_torch.ops import reference_kernels
+    from renderformer_tpu_torch.training import state as ts
+
+    batch = train_batch('cuda')
+    tc = ts.TrainConfig(precision='bfloat16', resolution=TRAIN_RES, steps_per_epoch=100,
+                        remat=True, flash_bwd='fused', fused_norm=True)
+    model, tx, state = seeded_train_state(V1_BASE_NERF, tc)
+    print(f'train: v1-base nerf seeded init, {sum(p.numel() for p in model.parameters())} '
+          f'parameters, fused_norm, fused backward', flush=True)
+    names = [n for n, _ in model.named_parameters()]
+    grads = ts.make_loss_fns(model, tc)[1]
+    with reference_kernels():
+        plain = grads(state, batch)
+    agree = {'nerf_vs_plain': grad_agreement('nerf kernels vs plain', grads(state, batch),
+                                             plain, names)}
+    if not within_bars(agree['nerf_vs_plain']):
+        fail(f'train nerf: {agree["nerf_vs_plain"]} past the bars {AGREE_BARS}')
+    del plain
+    torch.cuda.empty_cache()
+
+    step = ts.make_train_step(model, tx, tc)[0]
+    state, m, launches = step_launches(TRAIN_NERF, step, state, batch)
+    losses = [m]
+    for _ in range(2):
+        state, m = step(state, batch)
+        losses.append(m)
+    check_finite('v1-base nerf', losses)
+    step_speed(card, 'v1-base nerf', step, state, batch, agree)
+    del state, model, step
+    torch.cuda.empty_cache()
+    return {TRAIN_NERF: launches}
 
 
 def _times(weighted):
@@ -968,6 +1227,7 @@ def main():
     launches = {preset: render_checks(card, preset) for preset in PATHS}
     rows += train_kernel_checks()
     launches.update(train_checks(card))
+    launches.update(train_nerf_checks(card))
     for name in KERNELS:
         if not any(launches[p][name] for p in ALL_PATHS):
             fail(f'{name} was launched by no path')

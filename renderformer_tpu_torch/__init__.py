@@ -6,8 +6,8 @@ use; on CPU tensors each kernel's plain PyTorch version runs instead.
 """
 
 from renderformer_tpu_torch.config import (
-    PRESETS, RenderFormerConfig, RuntimeConfig, V1_1_SWIN_LARGE, V1_BASE)
+    PRESETS, RenderFormerConfig, RuntimeConfig, V1_1_SWIN_LARGE, V1_BASE, V1_BASE_NERF)
 from renderformer_tpu_torch.pipelines.rendering_pipeline import RenderingPipeline
 
 __all__ = ['PRESETS', 'RenderFormerConfig', 'RuntimeConfig', 'RenderingPipeline',
-           'V1_BASE', 'V1_1_SWIN_LARGE']
+           'V1_BASE', 'V1_BASE_NERF', 'V1_1_SWIN_LARGE']

@@ -36,6 +36,8 @@ SIGNATURES = {
     # H, D, qscale, stream
     'rf_flash_fwd_rope': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _F, _P],
+    # q, k, v, mask, out, lse, dtype, has_mask, B, Sq, Sk, H, D, qscale, stream
+    'rf_flash_fwd': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, dout, lse, delta, mask, dq_acc, dk, dv, dtype, has_mask, B,
     # reps, Sq, Sk, H, D, qscale, dqscale, dkscale, stream
     'rf_flash_bwd_kv': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -58,6 +60,10 @@ SIGNATURES = {
     'rf_shifted_regroup': [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, regions, out, dtype, has_mask, BW, nW, H, qscale, stream
     'rf_swin_window_attention': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # x, scale, y, dtype, R, D, eps, stream
+    'rf_rms_norm_fwd': [_P, _P, _P, _I, _I, _I, _F, _P],
+    # x, scale, g, dx, ds_part, dtype, R, D, rows_per_block, eps, stream
+    'rf_rms_norm_bwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 DTYPE_CODES = {'bfloat16': 0, 'float32': 1}
 

@@ -116,11 +116,15 @@ class RuntimeConfig:
     regardless.  ``dpt_tail`` evaluates the DPT output tail as
     ``'composed'`` (one composed 5x5 conv in space-to-depth layout, the
     JAX package's default), ``'s2d'`` or ``'plain'``; all three are the
-    same function up to summation order (``nn/dpt.py``)."""
+    same function up to summation order (``nn/dpt.py``).  ``fused_norm``
+    sends every RMSNorm whose shape passes the gate through kernel K11, as
+    ``RFTPU_FUSE_NORM=1`` does in the JAX package; off by default, as
+    there."""
 
     compute_dtype: str = 'bfloat16'
     view_dtype: str = 'bfloat16'
     dpt_tail: str = 'composed'
+    fused_norm: bool = False
 
     def __post_init__(self):
         if self.dpt_tail not in DPT_TAILS:
@@ -141,6 +145,11 @@ V1_1_SWIN_LARGE = RenderFormerConfig(
     view_transformer_use_swin_attn=True,
     dpt_out_channels=[128, 256, 512, 1024],
 )
+
+# the v1-base widths with NeRF positional encodings in place of triangle
+# RoPE (``pe_type`` is one of the reference's ablation knobs); not a preset:
+# no released checkpoint uses it
+V1_BASE_NERF = dataclasses.replace(V1_BASE, pe_type='nerf')
 
 PRESETS = {
     'v1-base': V1_BASE,

@@ -10,7 +10,9 @@ round trip), classified by tensor rank:
   * rank-4 ConvTranspose2d ``[kh, kw, I, O]`` <-> ``[I, O, kh, kw]``
     (only ``resize_layers.0`` / ``resize_layers.1``)
   * rank-3 learned tokens                kept as they are
-  * ``rope_freqs``                       <-> ``rope_emb.freqs``
+  * ``rope_freqs``                       <-> ``rope_emb.freqs`` (neither
+    exists with ``pe_type='nerf'``, whose NeRF projections and norms are
+    plain Linear and norm leaves)
   * DPT ``output_conv2.{conv1, conv2}``  <-> ``output_conv2.{0, 2}``
 
 Both directions take numpy (or CPU torch) arrays and copy no value

@@ -1,29 +1,36 @@
-// Masked and unmasked flash-attention forward with the q-side RoPE rotation
-// fused into the prologue.
+// Masked and unmasked flash-attention forward, with the q-side RoPE rotation
+// fused into the prologue (K1/K2) or without RoPE (K10).
 //
 // Replaces renderformer_tpu/ops/flash_attention.py:_fwd_qrope_kernel (masked)
 // and :_fwd_qrope_kernel_nomask (unmasked), both reached through
-// _flash_fwd_rope.  Semantics are those of the Pallas kernels:
-//   * q is rotated in fp32 with cos/sin multiplied by D^-0.5 * log2(e), then
-//     rounded to the input dtype, so the logits come out in log2 units;
+// _flash_fwd_rope, and :_fwd_kernel / :_fwd_kernel_nomask, reached through
+// _flash_fwd.  Semantics are those of the Pallas kernels:
+//   * RoPE (K1/K2): q is rotated in fp32 with cos/sin multiplied by
+//     D^-0.5 * log2(e), then rounded to the input dtype, so the logits come
+//     out in log2 units; without RoPE (K10) q is multiplied in fp32 by the
+//     scalar D^-0.5 * log2(e) and rounded to its dtype;
 //   * logits accumulate in fp32; a masked key adds -1e30 (not -inf), so a
 //     fully masked row gives uniform weights, not NaN;
 //   * the online softmax runs in the exp2 domain, P is rounded to v's dtype
 //     before P.V, the output accumulates in fp32, is divided by l and cast;
-//   * K arrives already rotated at the full batch B (rot_kv.cu); V is read at
-//     batch b / reps, so the view fan-out never exists in memory;
+//   * K arrives at the full batch B (K1/K2: already rotated, rot_kv.cu); V is
+//     read at batch b / reps, so the view fan-out never exists in memory
+//     (K10 takes K and V at the q batch, reps = 1, as the JAX kernel does);
 //   * a ragged Sk is masked inside the kernel (keys past Sk add -inf and are
-//     zero-filled), with no padded copies;
+//     zero-filled), with no padded copies: the unmasked form gives the same
+//     result on a key count that is not a tile multiple;
 //   * with an lse pointer (the training forward, _fwd_epilogue with_lse) the
 //     epilogue also writes the natural-log logsumexp m2 * ln2 + ln(l) of each
 //     row, fp32, laid out [B, H, Sq]; a template flag, so the render's
 //     instantiation does no extra work.
+// ROPE is a template flag too: K10 is its own instantiation, with no
+// rotation and no cos/sin reads.
 //
 // Bound on this card: at the main-path shapes (Sq = 4096 or 2064, D = 128)
 // the two products are ~4*Sq*Sk*D flops per (b, h) against ~2*(Sq+Sk)*D
 // bytes, far above the H100's ~295 flop/byte ridge, so the tensor cores
 // bound it.  Design: one block of 4 warps per (64-row q tile, head, batch);
-// the rotated q tile goes to registers as mma.sync A fragments once; a loop
+// the (rotated) q tile goes to registers as mma.sync A fragments once; a loop
 // over 64-key tiles streams K and V into two shared-memory buffers with
 // cp.async, so the copy of tile kt+1 overlaps the math on tile kt; each warp
 // owns 16 q rows and runs S = Q K^T and O += P V as bf16 mma.sync m16n8k16
@@ -61,13 +68,12 @@ constexpr size_t smem_bytes() {
 //           {row g+8, cols 2t+8..};
 //   B regs: {k rows 2t..2t+1, col g}, {k rows 2t+8..2t+9, col g};
 //   C:      c0,c1 at row g, cols 2t, 2t+1; c2,c3 at row g+8.
-template <typename T, int D, bool HAS_MASK, bool WITH_LSE>
+template <typename T, int D, bool ROPE, bool HAS_MASK, bool WITH_LSE>
 __global__ void __launch_bounds__(NTHREADS)
-flash_fwd_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                      const float* __restrict__ cosq, const float* __restrict__ sinq,
-                      T* __restrict__ out, float* __restrict__ lse, int reps, int Sq,
-                      int Sk, int H, float qscale) {
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const uint8_t* __restrict__ mask, const float* __restrict__ cosq,
+                 const float* __restrict__ sinq, T* __restrict__ out, float* __restrict__ lse,
+                 int reps, int Sq, int Sk, int H, float qscale) {
   constexpr bool kBF = std::is_same<T, __nv_bfloat16>::value;
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int LD = D + VEC;          // padded shared-memory row stride
@@ -120,22 +126,34 @@ flash_fwd_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
   load_tile(0, 0);  // overlaps the q prologue
 
-  // prologue: rotate the q tile in fp32 with the pre-scaled tables
-  for (int i = tid; i < BQ * HALF; i += NTHREADS) {
-    const int r = i / HALF, d = i % HALF, qi = q0 + r;
-    float o1 = 0.f, o2 = 0.f;
-    if (qi < Sq) {
-      const T* qp = q + ((size_t)b * Sq + qi) * row_stride + (size_t)h * D;
-      const float* cp = cosq + ((size_t)b * Sq + qi) * D;
-      const float* sp = sinq + ((size_t)b * Sq + qi) * D;
-      const float x1 = to_float(qp[d]), x2 = to_float(qp[d + HALF]);
-      const float c1 = __fmul_rn(cp[d], qscale), c2 = __fmul_rn(cp[d + HALF], qscale);
-      const float s1 = __fmul_rn(sp[d], qscale), s2 = __fmul_rn(sp[d + HALF], qscale);
-      o1 = __fadd_rn(__fmul_rn(x1, c1), __fmul_rn(-x2, s1));
-      o2 = __fadd_rn(__fmul_rn(x2, c2), __fmul_rn(x1, s2));
+  if constexpr (ROPE) {
+    // prologue: rotate the q tile in fp32 with the pre-scaled tables
+    for (int i = tid; i < BQ * HALF; i += NTHREADS) {
+      const int r = i / HALF, d = i % HALF, qi = q0 + r;
+      float o1 = 0.f, o2 = 0.f;
+      if (qi < Sq) {
+        const T* qp = q + ((size_t)b * Sq + qi) * row_stride + (size_t)h * D;
+        const float* cp = cosq + ((size_t)b * Sq + qi) * D;
+        const float* sp = sinq + ((size_t)b * Sq + qi) * D;
+        const float x1 = to_float(qp[d]), x2 = to_float(qp[d + HALF]);
+        const float c1 = __fmul_rn(cp[d], qscale), c2 = __fmul_rn(cp[d + HALF], qscale);
+        const float s1 = __fmul_rn(sp[d], qscale), s2 = __fmul_rn(sp[d + HALF], qscale);
+        o1 = __fadd_rn(__fmul_rn(x1, c1), __fmul_rn(-x2, s1));
+        o2 = __fadd_rn(__fmul_rn(x2, c2), __fmul_rn(x1, s2));
+      }
+      Qs[r * LD + d] = from_float<T>(o1);
+      Qs[r * LD + d + HALF] = from_float<T>(o2);
     }
-    Qs[r * LD + d] = from_float<T>(o1);
-    Qs[r * LD + d + HALF] = from_float<T>(o2);
+  } else {
+    // prologue: q times D^-0.5 * log2(e) in fp32, rounded to its dtype
+    for (int i = tid; i < BQ * D; i += NTHREADS) {
+      const int r = i / D, d = i % D, qi = q0 + r;
+      float o = 0.f;
+      if (qi < Sq)
+        o = __fmul_rn(to_float(q[((size_t)b * Sq + qi) * row_stride + (size_t)h * D + d]),
+                      qscale);
+      Qs[r * LD + d] = from_float<T>(o);
+    }
   }
   __syncthreads();
 
@@ -306,12 +324,12 @@ flash_fwd_rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool HAS_MASK, bool WITH_LSE>
+template <typename T, int D, bool ROPE, bool HAS_MASK, bool WITH_LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask,
                    const void* cosq, const void* sinq, void* out, void* lse, int B,
                    int reps, int Sq, int Sk, int H, float qscale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
-  auto kern = flash_fwd_rope_kernel<T, D, HAS_MASK, WITH_LSE>;
+  auto kern = flash_fwd_kernel<T, D, ROPE, HAS_MASK, WITH_LSE>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -324,36 +342,54 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ROPE>
 cudaError_t launch_variant(int has_mask, const void* q, const void* k, const void* v,
                            const void* mask, const void* cosq, const void* sinq, void* out,
                            void* lse, int B, int reps, int Sq, int Sk, int H, float qscale,
                            cudaStream_t stream) {
 #define RF_LAUNCH(M, L) \
-  launch<T, D, M, L>(q, k, v, mask, cosq, sinq, out, lse, B, reps, Sq, Sk, H, qscale, stream)
+  launch<T, D, ROPE, M, L>(q, k, v, mask, cosq, sinq, out, lse, B, reps, Sq, Sk, H, qscale, \
+                           stream)
   if (has_mask) return lse ? RF_LAUNCH(true, true) : RF_LAUNCH(true, false);
   return lse ? RF_LAUNCH(false, true) : RF_LAUNCH(false, false);
 #undef RF_LAUNCH
 }
 
+template <bool ROPE>
+int launch_dtype(int dtype, int has_mask, const void* q, const void* k, const void* v,
+                 const void* mask, const void* cosq, const void* sinq, void* out, void* lse,
+                 int B, int reps, int Sq, int Sk, int H, int D, float qscale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || reps <= 0) return cudaErrorInvalidValue;
+  if (D != 128) return cudaErrorInvalidValue;  // the head dim of the released models
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16)
+    return launch_variant<__nv_bfloat16, 128, ROPE>(has_mask, q, k, v, mask, cosq, sinq, out,
+                                                    lse, B, reps, Sq, Sk, H, qscale, s);
+  if (dtype == kF32)
+    return launch_variant<float, 128, ROPE>(has_mask, q, k, v, mask, cosq, sinq, out, lse, B,
+                                            reps, Sq, Sk, H, qscale, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// q [B,Sq,H,D], k (rotated) [B,Sk,H,D], v [B/reps,Sk,H,D], mask [B,Sk] uint8
-// (ignored unless has_mask), cos/sin [B,Sq,D] fp32, out [B,Sq,H,D], lse [B,H,Sq]
-// fp32 or null (no logsumexp written).
+// K1/K2: q [B,Sq,H,D], k (rotated) [B,Sk,H,D], v [B/reps,Sk,H,D], mask [B,Sk]
+// uint8 (ignored unless has_mask), cos/sin [B,Sq,D] fp32, out [B,Sq,H,D], lse
+// [B,H,Sq] fp32 or null (no logsumexp written).
 extern "C" int rf_flash_fwd_rope(const void* q, const void* k, const void* v,
                                  const void* mask, const void* cosq, const void* sinq,
                                  void* out, void* lse, int dtype, int has_mask, int B,
                                  int reps, int Sq, int Sk, int H, int D, float qscale,
                                  void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || reps <= 0) return cudaErrorInvalidValue;
-  if (D != 128) return cudaErrorInvalidValue;  // the head dim of the released models
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    return launch_variant<__nv_bfloat16, 128>(has_mask, q, k, v, mask, cosq, sinq, out, lse,
-                                              B, reps, Sq, Sk, H, qscale, s);
-  if (dtype == kF32)
-    return launch_variant<float, 128>(has_mask, q, k, v, mask, cosq, sinq, out, lse, B,
-                                      reps, Sq, Sk, H, qscale, s);
-  return cudaErrorInvalidValue;
+  return launch_dtype<true>(dtype, has_mask, q, k, v, mask, cosq, sinq, out, lse, B, reps, Sq,
+                            Sk, H, D, qscale, stream);
+}
+
+// K10: q [B,Sq,H,D], k and v [B,Sk,H,D], mask [B,Sk] uint8 (ignored unless
+// has_mask), out [B,Sq,H,D], lse [B,H,Sq] fp32 or null.
+extern "C" int rf_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
+                            void* out, void* lse, int dtype, int has_mask, int B, int Sq,
+                            int Sk, int H, int D, float qscale, void* stream) {
+  return launch_dtype<false>(dtype, has_mask, q, k, v, mask, nullptr, nullptr, out, lse, B, 1,
+                             Sq, Sk, H, D, qscale, stream);
 }

@@ -2,14 +2,17 @@
 the dispatch into the view-dependent decoder (stage 2).
 
 Register tokens take the mask-weighted scene centroid, computed in fp32,
-as their RoPE position.  Stage-1 tokens are not copied per view: the
-decoder's K/V projections read them once per scene, and masks and
-camera-space positions stay per view.
+as their RoPE position.  Stage-1 tokens are not copied per view: with
+triangle RoPE (``pe_type='rope'``) the decoder's K/V projections read them
+once per scene, and masks and camera-space positions stay per view.  With
+``pe_type='nerf'`` a NeRF encoding of the vertex positions is added to the
+triangle embeddings, and the view stage fans the tokens out per view,
+since their camera-space encoding differs between views.
 
-The port renders the released architecture family: triangle RoPE
-(``pe_type='rope'``), patch-layout rays (``vdir_num_freqs=0``), the DPT
-head, and full or Swin window self-attention in the view stage.  Other
-configurations raise.
+The port renders the released architecture family and its NeRF-position
+ablation: triangle RoPE or NeRF positions, patch-layout rays
+(``vdir_num_freqs=0``), the DPT head, and full or Swin window
+self-attention in the view stage.  Other configurations raise.
 """
 
 from __future__ import annotations
@@ -21,12 +24,12 @@ from renderformer_tpu_torch.config import RenderFormerConfig
 from renderformer_tpu_torch.encodings.nerf import nerf_encode, nerf_out_dim
 from renderformer_tpu_torch.models.view_transformer import ViewTransformer
 from renderformer_tpu_torch.nn.attention import TransformerEncoder
-from renderformer_tpu_torch.nn.core import make_norm
+from renderformer_tpu_torch.nn.core import RMSNorm, make_norm
 
 
 def check_supported(cfg: RenderFormerConfig) -> None:
     unsupported = {
-        "pe_type != 'rope'": cfg.pe_type != 'rope',
+        "pe_type not in ('rope', 'nerf')": cfg.pe_type not in ('rope', 'nerf'),
         'vdir_num_freqs != 0': cfg.vdir_num_freqs != 0,
         'use_dpt_decoder=False': not cfg.use_dpt_decoder,
     }
@@ -51,6 +54,11 @@ class RenderFormer(nn.Module):
             self.vn_encoding_proj = nn.Linear(
                 nerf_out_dim(9, cfg.vn_pe_num_freqs, include_input=True), d, bias=True)
             self.vn_encoder_norm = make_norm(cfg.vn_encoder_norm_type, d)
+        if cfg.pe_type == 'nerf':
+            self.tri_encoding_proj = nn.Linear(
+                nerf_out_dim(9, cfg.vertex_pe_num_freqs, include_input=True), d, bias=True)
+            # the JAX package builds this norm with the vn encoder's type
+            self.tri_encoding_norm = make_norm(cfg.vn_encoder_norm_type, d)
         self.transformer = TransformerEncoder(
             num_layers=cfg.num_layers, num_heads=cfg.num_heads, hidden_dim=d,
             ffn_hidden_dim=cfg.dim_feedforward, rope_dim=cfg.rope_dim, bias=cfg.bias,
@@ -69,6 +77,18 @@ class RenderFormer(nn.Module):
     def remat(self, on: bool) -> None:
         self.transformer.remat = bool(on)
         self.view_transformer.transformer.remat = bool(on)
+
+    @property
+    def fused_norm(self) -> bool:
+        """Whether the RMSNorms take kernel K11 where its gate passes (the
+        JAX package's ``RFTPU_FUSE_NORM``)."""
+        return any(m.fused for m in self.modules() if isinstance(m, RMSNorm))
+
+    @fused_norm.setter
+    def fused_norm(self, on: bool) -> None:
+        for m in self.modules():
+            if isinstance(m, RMSNorm):
+                m.fused = bool(on)
 
     def process_tri_vpos(self, tri_vpos, valid_mask):
         """Prepend the mask-weighted scene centroid (tiled x3) as the RoPE
@@ -97,6 +117,10 @@ class RenderFormer(nn.Module):
             vn_pe = nerf_encode(vns.float(), cfg.vn_pe_num_freqs,
                                 include_input=True).to(dtype)
             tri_emb = tri_emb + self.vn_encoder_norm(self.vn_encoding_proj(vn_pe))
+        if cfg.pe_type == 'nerf':
+            pe = nerf_encode(tri_vpos.float(), cfg.vertex_pe_num_freqs,
+                             include_input=True).to(dtype)
+            tri_emb = tri_emb + self.tri_encoding_norm(self.tri_encoding_proj(pe))
         reg = self.reg_tokens.to(dtype).expand(b, -1, -1)
         seq = torch.cat([reg, tri_emb], dim=1)
         rope_pos, mask = self.process_tri_vpos(tri_vpos, valid_mask)

@@ -2,7 +2,11 @@
 
 Patch-layout ray tokens -> cross/self-attention decoder (full or Swin
 window self-attention) over the stage-1 triangle tokens -> DPT head ->
-ELU(alpha=1e-3).  The view stage runs in the dtype of its weights.
+ELU(alpha=1e-3).  The view stage runs in the dtype of its weights.  With
+``pe_type='nerf'`` the ray tokens and the triangle tokens each get a NeRF
+encoding of their camera-space position; the triangle tokens are fanned
+out per view first, so the cross-attention K/V projections run once per
+view.
 """
 
 from __future__ import annotations
@@ -11,9 +15,11 @@ import torch
 import torch.nn as nn
 
 from renderformer_tpu_torch.config import RenderFormerConfig
+from renderformer_tpu_torch.encodings.nerf import nerf_encode, nerf_out_dim
 from renderformer_tpu_torch.nn.attention import TransformerDecoder
 from renderformer_tpu_torch.nn.core import elu, make_norm
 from renderformer_tpu_torch.nn.dpt import DPTHead
+from renderformer_tpu_torch.ops.flash_attention import fan_out
 
 
 class ViewTransformer(nn.Module):
@@ -25,6 +31,10 @@ class ViewTransformer(nn.Module):
         self.ray_map_patch_token = nn.Parameter(torch.zeros(1, 1, d))
         self.ray_map_encoder = nn.Linear(3 * cfg.patch_size * cfg.patch_size, d, bias=True)
         self.ray_map_encoder_norm = make_norm(cfg.norm_type, d)
+        if cfg.pe_type == 'nerf':
+            self.pe_token_proj = nn.Linear(
+                nerf_out_dim(9, cfg.vertex_pe_num_freqs, include_input=True), d, bias=True)
+            self.token_pos_pe_norm = make_norm(cfg.norm_type, d)
         self.transformer = TransformerDecoder(
             num_layers=cfg.view_transformer_n_layers,
             num_heads=cfg.view_transformer_n_heads,
@@ -45,6 +55,12 @@ class ViewTransformer(nn.Module):
                                out_channels=tuple(cfg.dpt_out_channels),
                                out_dim=cfg.out_dim)
 
+    def pos_pe(self, pos, dtype):
+        """The NeRF encoding of positions [B, S, 9] (fp32), projected and
+        normed in ``dtype``."""
+        pe = nerf_encode(pos, self.config.vertex_pe_num_freqs, include_input=True)
+        return self.token_pos_pe_norm(self.pe_token_proj(pe.to(dtype)))
+
     def forward(self, camera_o, ray_map, tri_tokens, tri_pos, valid_mask):
         """camera_o [B, 3]; ray_map [B, T, 3*p*p] patch-layout directions;
         tri_tokens [Bkv, N, D] with Bkv dividing B (views share their
@@ -59,8 +75,11 @@ class ViewTransformer(nn.Module):
             raise ValueError(f'ray tokens {n_tok} do not form a square grid')
         enc = self.ray_map_encoder(ray_map.to(dtype))
         ray_tokens = self.ray_map_patch_token.to(dtype) + self.ray_map_encoder_norm(enc)
-        # RoPE position of a ray token: the camera origin tiled x3
+        # position of a ray token: the camera origin tiled x3
         ray_pos = camera_o[:, None, :].repeat(1, n_tok, 3)
+        if cfg.pe_type == 'nerf':
+            ray_tokens = ray_tokens + self.pos_pe(ray_pos, dtype)
+            tri_tokens = fan_out(tri_tokens, ray_map.shape[0]) + self.pos_pe(tri_pos, dtype)
         _, taps = self.transformer(
             ray_tokens, tri_tokens.to(dtype), valid_mask, tri_pos, ray_pos,
             out_layers=tuple(cfg.dpt_tap_layers()), grid=(patch_h, patch_w))

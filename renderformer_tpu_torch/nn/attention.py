@@ -1,16 +1,23 @@
-"""Attention stack: MHA with RoPE, Swin window attention, pre-norm
-blocks, encoder and decoder.
+"""Attention stack: MHA with or without RoPE, Swin window attention,
+pre-norm blocks, encoder and decoder.
 
 Layouts follow the JAX package: activations ``[B, S, C]``, per-head
 ``[B, S, H, Dh]`` with the head axis after the sequence, key masks
-``[B, Sk]`` bool with True = attend.  Every full attention site carries
-RoPE and goes through :func:`renderformer_tpu_torch.ops.flash_attention.
-flash_attention_rope` (kernels K3 then K1/K2 on the card).  Cross
-attention takes K/V at a batch ``Bkv`` dividing the query batch: the K/V
-projections and the k-norm run once per scene and the kernels read the
-scene's rows for each of its views.  Swin self-attention has no RoPE: it
-attends inside 8x8 windows (kernel K6), and its shifted layers regroup
-the window-ordered stream around it (kernel K7).
+``[B, Sk]`` bool with True = attend.  A full attention site with RoPE goes
+through :func:`renderformer_tpu_torch.ops.flash_attention.
+flash_attention_rope` (kernels K3 then K1/K2 on the card); one without
+(``pe_type='nerf'``, encoder and decoder built with ``rope_dim=None``)
+fans K/V out to the query batch and goes through ``flash_attention``
+(kernel K10), the JAX package's ``attend`` path.  The JAX ``attend`` sends
+a query shorter than 256 tokens to XLA attention, because its TPU kernel
+pads to 128-row blocks; the port launches K10 at every such site, as it
+launches K1/K2 at every RoPE site: the function is the same, and the tests
+hold it against the JAX ``impl='xla'`` path.  Cross attention with RoPE
+takes K/V at a batch ``Bkv`` dividing the query batch: the K/V projections
+and the k-norm run once per scene and the kernels read the scene's rows for
+each of its views.  Swin self-attention has no RoPE: it attends inside 8x8
+windows (kernel K6), and its shifted layers regroup the window-ordered
+stream around it (kernel K7).
 
 With ``remat`` set on the encoder or decoder, each block runs under
 ``torch.utils.checkpoint`` (non-reentrant) where autograd records it, as
@@ -33,7 +40,8 @@ from renderformer_tpu_torch.encodings.rope import (
     freqs_to_cos_sin, rope_frequencies, triangle_freqs)
 from renderformer_tpu_torch.nn.core import ATTN_EPS, RopeFreqs, gelu, make_norm, silu
 from renderformer_tpu_torch.nn.swin import seq_from_window_order, seq_to_window_order
-from renderformer_tpu_torch.ops.flash_attention import flash_attention_rope
+from renderformer_tpu_torch.ops.flash_attention import (
+    fan_out, flash_attention, flash_attention_rope)
 from renderformer_tpu_torch.ops.shifted_regroup import shifted_regroup
 from renderformer_tpu_torch.ops.swin_attention import region_table, swin_window_attention
 
@@ -89,7 +97,7 @@ def _split_in_proj(x, in_proj: nn.Linear, d: int):
 
 class MultiHeadAttention(nn.Module):
     """Self-attention (``kv_dim=None``, packed ``in_proj``) or cross-attention,
-    with optional qk-norm, RoPE on q and k."""
+    with optional qk-norm, and RoPE on q and k unless the tables are None."""
 
     def __init__(self, query_dim: int, num_heads: int, kv_dim: Optional[int] = None,
                  bias: bool = False, qk_norm: bool = False, norm_type: str = 'rms_norm'):
@@ -113,8 +121,8 @@ class MultiHeadAttention(nn.Module):
     def forward(self, q, k, v, mask, rope_cos, rope_sin, rope_ctx_cos=None,
                 rope_ctx_sin=None):
         """q [B, Sq, Dq]; k/v [Bkv, Sk, Dkv] with Bkv dividing B; mask [B, Sk]
-        bool or None; q-side tables [B, Sq, Dh]; k-side tables [B, Sk, Dh]
-        (default: the q-side ones)."""
+        bool or None; q-side tables [B, Sq, Dh], or None for no RoPE; k-side
+        tables [B, Sk, Dh] (default: the q-side ones)."""
         bs, sq = q.shape[0], q.shape[1]
         bs_kv, sk = k.shape[0], k.shape[1]
         out_dtype = q.dtype
@@ -129,6 +137,10 @@ class MultiHeadAttention(nn.Module):
         q = q.reshape(bs, sq, h, -1)
         k = k.reshape(bs_kv, sk, h, -1)
         v = v.reshape(bs_kv, sk, h, -1)
+        if rope_cos is None:
+            out = flash_attention(q.to(v.dtype), fan_out(k.to(v.dtype), bs),
+                                  fan_out(v, bs), mask)
+            return self.out_proj(out.reshape(bs, sq, -1)).to(out_dtype)
         if rope_ctx_cos is None:
             rope_ctx_cos, rope_ctx_sin = rope_cos, rope_sin
         out = flash_attention_rope(q.to(v.dtype), k.to(v.dtype), v, mask,
@@ -255,7 +267,10 @@ def _run_block(remat: bool, layer: nn.Module, *args):
 
 
 def _resolved_rope_dim(rope_dim, rope_type, head_dim):
-    """'triangle_mixed' overrides rope_dim with head_dim."""
+    """'triangle_mixed' overrides rope_dim with head_dim; None (no RoPE)
+    stays None."""
+    if rope_dim is None:
+        return None
     if rope_type == 'triangle_mixed':
         return head_dim
     if rope_dim // 2 * 9 > head_dim:
@@ -264,10 +279,11 @@ def _resolved_rope_dim(rope_dim, rope_type, head_dim):
 
 
 class TransformerEncoder(nn.Module):
-    """Self-attention blocks sharing one set of triangle-RoPE tables."""
+    """Self-attention blocks sharing one set of triangle-RoPE tables, or none
+    with ``rope_dim=None``."""
 
     def __init__(self, num_layers: int, num_heads: int, hidden_dim: int,
-                 ffn_hidden_dim: int, rope_dim: int, bias: bool = False,
+                 ffn_hidden_dim: int, rope_dim: Optional[int], bias: bool = False,
                  activation: str = 'swiglu', norm_type: str = 'rms_norm',
                  rope_type: str = 'triangle', rope_double_max_freq: bool = False,
                  qk_norm: bool = False):
@@ -278,11 +294,14 @@ class TransformerEncoder(nn.Module):
                            activation=activation, norm_type=norm_type, qk_norm=qk_norm)
             for _ in range(num_layers)])
         rd = _resolved_rope_dim(rope_dim, rope_type, self.head_dim)
-        self.rope_emb = RopeFreqs(rope_frequencies(rd, rope_double_max_freq))
+        self.rope_emb = (None if rd is None
+                         else RopeFreqs(rope_frequencies(rd, rope_double_max_freq)))
         self.remat = False
 
     def forward(self, x, mask, triangle_pos):
-        cos, sin = rope_tables(triangle_pos, self.rope_emb.freqs, self.head_dim)
+        cos = sin = None
+        if self.rope_emb is not None:
+            cos, sin = rope_tables(triangle_pos, self.rope_emb.freqs, self.head_dim)
         for layer in self.layers:
             x = _run_block(self.remat, layer, x, None, mask, cos, sin)
         return x
@@ -300,7 +319,7 @@ class TransformerDecoder(nn.Module):
     order."""
 
     def __init__(self, num_layers: int, num_heads: int, hidden_dim: int,
-                 ffn_hidden_dim: int, ctx_dim: int, rope_dim: int,
+                 ffn_hidden_dim: int, ctx_dim: int, rope_dim: Optional[int],
                  include_self_attn: bool = True, bias: bool = False,
                  activation: str = 'swiglu', norm_type: str = 'rms_norm',
                  qk_norm: bool = False, rope_type: str = 'triangle',
@@ -318,23 +337,28 @@ class TransformerDecoder(nn.Module):
                            shift_size=0 if idx % 2 == 0 else shift_size)
             for idx in range(num_layers)])
         rd = _resolved_rope_dim(rope_dim, rope_type, self.head_dim)
-        self.rope_emb = RopeFreqs(rope_frequencies(rd, rope_double_max_freq))
+        self.rope_emb = (None if rd is None
+                         else RopeFreqs(rope_frequencies(rd, rope_double_max_freq)))
         self.remat = False
 
     def forward(self, x, ctx, mask, triangle_pos, ray_pos,
                 out_layers: Sequence[int] = (), grid=None):
-        """``grid`` = (patch_h, patch_w) of the ray tokens, for Swin."""
-        freqs = self.rope_emb.freqs
-        cos, sin = rope_tables(ray_pos, freqs, self.head_dim)
-        ctx_cos, ctx_sin = rope_tables(triangle_pos, freqs, self.head_dim)
+        """``grid`` = (patch_h, patch_w) of the ray tokens, for Swin.  Without
+        RoPE the positions are not read."""
+        cos = sin = ctx_cos = ctx_sin = None
+        if self.rope_emb is not None:
+            freqs = self.rope_emb.freqs
+            cos, sin = rope_tables(ray_pos, freqs, self.head_dim)
+            ctx_cos, ctx_sin = rope_tables(triangle_pos, freqs, self.head_dim)
         windowed = self.use_swin_attn
         if windowed:
             if grid is None:
                 raise ValueError('a Swin decoder needs the token grid')
             ph, pw, ws = grid[0], grid[1], self.window_size
             x = seq_to_window_order(x, ph, pw, ws)
-            cos = seq_to_window_order(cos, ph, pw, ws)
-            sin = seq_to_window_order(sin, ph, pw, ws)
+            if cos is not None:
+                cos = seq_to_window_order(cos, ph, pw, ws)
+                sin = seq_to_window_order(sin, ph, pw, ws)
         outs = []
         for idx, layer in enumerate(self.layers):
             x = _run_block(self.remat, layer, x, ctx, mask, cos, sin, ctx_cos, ctx_sin, grid)

@@ -6,6 +6,11 @@ Numerics match the JAX package:
   * norm statistics are fp32 whatever the compute dtype, and on a
     low-precision input the rescale runs in that dtype, in the order
     ``x * inv.to(dt) * scale.to(dt)``.
+
+``RMSNorm.fused`` (off by default, the JAX package's ``RFTPU_FUSE_NORM``)
+sends a norm whose shape passes ``fused_rms_norm_supported`` through kernel
+K11 (``ops/fused_norm.py``); otherwise the norm is the torch ops below, the
+counterpart of the JAX package's jnp ``rms_norm``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from renderformer_tpu_torch.ops.fused_norm import fused_rms_norm, fused_rms_norm_supported
+
 TORCH_DEFAULT_RMS_EPS = float(np.finfo(np.float32).eps)
 TORCH_DEFAULT_LN_EPS = 1e-5
 ATTN_EPS = 1e-6
@@ -29,8 +36,11 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
+        self.fused = False
 
     def forward(self, x):
+        if self.fused and fused_rms_norm_supported(x, self.weight):
+            return fused_rms_norm(x, self.weight, self.eps)
         x32 = x.float()
         ss = torch.sum(x32 * x32, dim=-1, keepdim=True)
         inv = torch.rsqrt(ss / x.shape[-1] + self.eps)

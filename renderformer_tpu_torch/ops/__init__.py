@@ -17,6 +17,8 @@ import torch
 LAUNCHES = {
     'flash_fwd_rope_mask': 0,
     'flash_fwd_rope_nomask': 0,
+    'flash_fwd_mask': 0,
+    'flash_fwd_nomask': 0,
     'rot_kv_broadcast': 0,
     'flash_bwd_mask': 0,
     'flash_bwd_nomask': 0,
@@ -27,6 +29,8 @@ LAUNCHES = {
     'resize_s2d': 0,
     'swin_window_attention': 0,
     'shifted_regroup': 0,
+    'rms_norm_fwd': 0,
+    'rms_norm_bwd': 0,
 }
 
 _plain_on_cuda = False
@@ -68,7 +72,8 @@ def check_no_grad(*tensors, why: str = SWIN_NO_GRAD) -> None:
     """Refuse inputs that autograd tracks, for a wrapper whose result would
     be cut off from the graph: window attention (K6) and the shifted regroup
     (K7), which have no backward yet, and the raw forward kernels that
-    ``flash_attention_rope`` differentiates.  ``why`` is the error message."""
+    ``flash_attention_rope``, ``flash_attention`` and ``fused_rms_norm``
+    differentiate.  ``why`` is the error message."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(why)

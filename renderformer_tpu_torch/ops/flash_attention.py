@@ -1,15 +1,16 @@
-"""RoPE flash attention: the forward (kernels K1/K2, with the logsumexp
-for training), the K broadcast-rotate (kernel K3), the backward (kernel K8
-fused, or the two kernels of K9), their plain PyTorch versions, and the
-autograd Function that joins them.
+"""Flash attention: the RoPE forward (kernels K1/K2, with the logsumexp for
+training), the K broadcast-rotate (kernel K3), the forward without RoPE
+(kernel K10, masked and unmasked, with an optional logsumexp), the backward
+(kernel K8 fused, or the two kernels of K9), their plain PyTorch versions,
+and the autograd Functions that join them.
 
 Layouts are the JAX package's: q ``[B, Sq, H, D]``, k/v ``[Bkv, Sk, H, D]``
 with ``Bkv`` dividing ``B`` (view-major fan-out: batch ``b`` reads scene
-``b // reps``), key mask ``[B, Sk]`` bool (True = attend), head-shared
-RoPE tables ``[B, S, D]`` fp32.  The logsumexp and delta = rowsum(dO * O)
-are fp32 ``[B, H, Sq]``.  The CUDA sources are ``csrc/flash_attention.cu``,
-``csrc/rot_kv.cu`` and ``csrc/flash_bwd.cu``; their notes say what bounds
-each kernel on the card.
+``b // reps``; K10 takes k and v at the q batch), key mask ``[B, Sk]`` bool
+(True = attend), head-shared RoPE tables ``[B, S, D]`` fp32.  The logsumexp
+and delta = rowsum(dO * O) are fp32 ``[B, H, Sq]``.  The CUDA sources are
+``csrc/flash_attention.cu`` (K1/K2 and K10), ``csrc/rot_kv.cu`` and
+``csrc/flash_bwd.cu``; their notes say what bounds each kernel on the card.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def q_scale(d: int) -> float:
     return 1.0 / math.sqrt(d) * LOG2E
 
 
-def _fan_out(x: torch.Tensor, b: int) -> torch.Tensor:
+def fan_out(x: torch.Tensor, b: int) -> torch.Tensor:
     """[Bkv, ...] -> [b, ...], view-major (batch i reads x[i // reps])."""
     reps = b // x.shape[0]
     if reps == 1:
@@ -78,26 +79,41 @@ def _check_contiguous(**tensors):
 # K1/K2: flash forward with the q rotation fused
 # ---------------------------------------------------------------------------
 
-def flash_fwd_rope_plain(q, k_rot, v, mask, cosq, sinq):
-    """The kernels' function in torch ops: q rotated in fp32 with tables
-    pre-scaled by D^-0.5*log2(e) and rounded to q's dtype, fp32 logits, a
-    -1e30 bias on masked keys, an exp2 softmax, P rounded to v's dtype
-    before P.V in fp32, the sum divided by l and cast back.  Returns (out,
-    lse) with the natural-log logsumexp m*ln2 + ln(l) [B, H, Sq] fp32."""
-    b, sq, h, d = q.shape
-    s = q_scale(d)
-    qr = apply_rope(q, (cosq.float() * s)[:, :, None, :], (sinq.float() * s)[:, :, None, :])
-    logits = torch.einsum('bqhd,bkhd->bhqk', qr.float(), k_rot.float())
+def _softmax_pv_plain(qs, k, v, mask):
+    """The forward kernels' loop in torch ops, on q already scaled by
+    D^-0.5*log2(e) and rounded to its dtype: fp32 logits against k at the q
+    batch, a -1e30 bias on masked keys, an exp2 softmax, P rounded to v's
+    dtype before P.V in fp32 (v fanned out to the q batch), the sum divided
+    by l and cast to q's dtype.  Returns (out, lse) with the natural-log
+    logsumexp m*ln2 + ln(l) [B, H, Sq] fp32."""
+    logits = torch.einsum('bqhd,bkhd->bhqk', qs.float(), k.float())
     if mask is not None:
         bias = torch.where(mask, 0.0, NEG_INF).to(torch.float32)
         logits = logits + bias[:, None, None, :]
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp2(logits - m)
     l = p.sum(dim=-1, keepdim=True)
-    vb = _fan_out(v, b)
+    vb = fan_out(v, qs.shape[0])
     acc = torch.einsum('bhqk,bkhd->bqhd', p.to(v.dtype).float(), vb.float())
     lse = (m * LN2 + torch.log(l))[..., 0]
-    return (acc / l.permute(0, 2, 1, 3)).to(q.dtype), lse
+    return (acc / l.permute(0, 2, 1, 3)).to(qs.dtype), lse
+
+
+def flash_fwd_rope_plain(q, k_rot, v, mask, cosq, sinq):
+    """K1/K2's function in torch ops: q rotated in fp32 with tables
+    pre-scaled by D^-0.5*log2(e) and rounded to q's dtype, then
+    :func:`_softmax_pv_plain`.  Returns (out, lse)."""
+    s = q_scale(q.shape[-1])
+    qr = apply_rope(q, (cosq.float() * s)[:, :, None, :], (sinq.float() * s)[:, :, None, :])
+    return _softmax_pv_plain(qr, k_rot, v, mask)
+
+
+def flash_fwd_plain(q, k, v, mask):
+    """K10's function in torch ops: q multiplied in fp32 by D^-0.5*log2(e)
+    and rounded to its dtype, then :func:`_softmax_pv_plain`.  Returns
+    (out, lse)."""
+    qs = (q.float() * q_scale(q.shape[-1])).to(q.dtype)
+    return _softmax_pv_plain(qs, k, v, mask)
 
 
 def _dtype_code(t):
@@ -171,13 +187,54 @@ def flash_fwd_rope(q, k_rot, v, mask, cosq, sinq, with_lse: bool = False):
 
 
 # ---------------------------------------------------------------------------
+# K10: flash forward without RoPE
+# ---------------------------------------------------------------------------
+
+def flash_fwd(q, k, v, mask, with_lse: bool = False):
+    """Attention of q against k and v at the q batch, without RoPE.
+
+    q [B, Sq, H, D]; k, v [B, Sk, H, D]; mask [B, Sk] bool or None.  Returns
+    [B, Sq, H, D] in q's dtype, and with ``with_lse`` also the logsumexp
+    [B, H, Sq] fp32."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError('q, k and v must be [B, S, H, D]')
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    for name, t in (('k', k), ('v', v)):
+        if tuple(t.shape) != (b, sk, h, d):
+            raise ValueError(f'{name} must be {(b, sk, h, d)}, got {tuple(t.shape)}')
+    if mask is not None and tuple(mask.shape) != (b, sk):
+        raise ValueError(f'mask must be {(b, sk)}, got {tuple(mask.shape)}')
+    _check_contiguous(q=q, k=k, v=v, mask=mask)
+    check_no_grad(q, k, v, why='flash_fwd is a forward kernel alone; '
+                  'differentiate through flash_attention')
+    if use_plain(q):
+        out, lse = flash_fwd_plain(q, k, v, mask)
+        return (out, lse) if with_lse else out
+    _check_kernel_dtype('flash', q)
+    for name, t in (('q', q), ('k', k), ('v', v)):
+        check_cuda_tensor(name, t, q.dtype, tuple(t.shape))
+    mask_u8 = _mask_bytes(mask, b, sk)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    rc = _build.library().rf_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        mask_u8.data_ptr() if mask_u8 is not None else None, out.data_ptr(),
+        lse.data_ptr() if lse is not None else None, _dtype_code(q), int(mask is not None),
+        b, sq, sk, h, d, q_scale(d), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, 'rf_flash_fwd')
+    LAUNCHES['flash_fwd_mask' if mask is not None else 'flash_fwd_nomask'] += 1
+    return (out, lse) if with_lse else out
+
+
+# ---------------------------------------------------------------------------
 # K3: K broadcast-rotate
 # ---------------------------------------------------------------------------
 
 def rot_kv_broadcast_plain(k, cos, sin):
     """out[b] = (k32*cos[b] + rotate_half(k32)*sin[b]).to(k.dtype) with
     k32 = k[b // reps] in fp32."""
-    return apply_rope(_fan_out(k, cos.shape[0]), cos[:, :, None, :], sin[:, :, None, :])
+    return apply_rope(fan_out(k, cos.shape[0]), cos[:, :, None, :], sin[:, :, None, :])
 
 
 def rot_kv_broadcast(k, cos, sin):
@@ -229,7 +286,7 @@ def _bwd_plain_terms(q_rot, k_rot, v, mask, lse, delta, do):
     if mask is not None:
         s2 = s2 + torch.where(mask, 0.0, NEG_INF).to(torch.float32)[:, None, None, :]
     p = torch.exp2(s2 - (lse * LOG2E)[..., None])
-    dp = torch.einsum('bqhd,bkhd->bhqk', do.float(), _fan_out(v, b).float())
+    dp = torch.einsum('bqhd,bkhd->bhqk', do.float(), fan_out(v, b).float())
     ds = ((dp - delta[..., None]) * p).to(dt).float()
     return qs, p, ds
 
@@ -254,7 +311,7 @@ def flash_bwd_plain(q_rot, k_rot, v, mask, lse, delta, do):
     rounded to the dtype, P rounded before dV = P^T.dO, dK = dS^T.q_scaled /
     log2(e) and dQ = D^-0.5 * dS.K summed in fp32, each cast to the dtype.
     K8 and K9 compute this function and differ only in summation order.
-    Returns (dq [B, Sq, H, D], dk [B, Sk, H, D], dv [B, Sk, H, D]): dk and
+    Without RoPE (K10's backward) q and k are taken as given.  Returns (dq [B, Sq, H, D], dk [B, Sk, H, D], dv [B, Sk, H, D]): dk and
     dv at the q batch, per view."""
     qs, p, ds = _bwd_plain_terms(q_rot, k_rot, v, mask, lse, delta, do)
     return (_dq_plain(ds, k_rot), *_dkv_plain(qs, p, ds, do))
@@ -415,3 +472,38 @@ def flash_attention_rope(q, k, v, mask, cosq, sinq, cosk, sink):
         return _FlashRope.apply(q, k, v, mask, cosq, sinq, cosk, sink)
     k_rot = rot_kv_broadcast(k, cosk, sink)
     return flash_fwd_rope(q, k_rot, v, mask, cosq, sinq)
+
+
+class _Flash(torch.autograd.Function):
+    """flash_attention with the JAX package's custom VJP (``_flash_vjp_fwd``
+    / ``_flash_vjp_bwd``): the forward runs K10 with the logsumexp and keeps
+    it with the output; the backward computes delta = rowsum(dO*O) and runs
+    K8 or K9 (:func:`flash_backward`) on q and k as given.  The mask gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        out, lse = flash_fwd(q, k, v, mask, with_lse=True)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        ctx.variant = _bwd_variant
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, out, lse = ctx.saved_tensors
+        g = g.contiguous()
+        delta = (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+        dq, dk, dv = flash_bwd(q, k, v, mask, lse, delta, g, ctx.variant)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, mask):
+    """Attention without RoPE through K10 (masked, or unmasked with ``mask
+    is None``); where autograd tracks q, k or v, the forward also writes the
+    logsumexp and the backward runs K8 or K9 (:func:`flash_backward`).
+
+    q [B, Sq, H, D]; k/v [B, Sk, H, D] at the q batch; mask [B, Sk] bool
+    (True = attend) or None."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(q, k, v, mask)
+    return flash_fwd(q, k, v, mask)

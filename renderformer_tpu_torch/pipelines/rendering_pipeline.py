@@ -132,8 +132,15 @@ class RenderingPipeline:
                 if m is self.model:
                     m = copy.deepcopy(m)
                 m.view_transformer = cast_params(self.model.view_transformer, view_dtype)
+            m.fused_norm = self.runtime.fused_norm
             self._cast[key] = m
-        return self._cast[key]
+        m = self._cast[key]
+        if m is self.model:
+            # the fp32 master is no copy: other pipelines may share it and
+            # set its norms otherwise (a walk over every module, so the
+            # pipeline's own copies are set once, above)
+            m.fused_norm = self.runtime.fused_norm
+        return m
 
     def render(self, triangles, texture, mask, vn, c2w, fov, resolution: int = 512,
                precision: Optional[str] = None, view_precision: Optional[str] = None,

@@ -53,6 +53,7 @@ class TrainConfig:
     debug_nans: bool = False       # not ported
     deterministic: bool = False    # not ported; 'twokernel' gives a deterministic attention
     flash_bwd: str = 'fused'   # attention backward: K8 'fused' or K9 'twokernel'
+    fused_norm: bool = False   # RMSNorms through K11 (forward and backward) where the gate passes
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -241,10 +242,12 @@ def make_loss_fns(model: nn.Module, tc: TrainConfig):
 
     def images(state: TrainState, batch):
         state.model.remat = tc.remat
+        state.model.fused_norm = tc.fused_norm
         if use_shadow:
             if state.shadow is None:
                 state.shadow = make_shadow(state.model, tc)
             state.shadow.remat = tc.remat
+            state.shadow.fused_norm = tc.fused_norm
             return _RenderStep(state.shadow, tc.resolution)(batch)
         cast = {f'model.{n}': p.to(stage_dtype(n, dtype, view_dtype))
                 for n, p in state.model.named_parameters()}

@@ -24,7 +24,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 for n in ('nn.swin', 'ops.swin_attention', 'ops.shifted_regroup', 'ops.s2d_conv',
-          'ops.dpt_tail', 'ops.fused_resize', 'ops.flash_attention', 'training.state',
+          'ops.dpt_tail', 'ops.fused_resize', 'ops.flash_attention', 'ops.fused_norm',
+          'training.state',
           'training.checkpoint', 'training.trainer'):
     assert 'renderformer_tpu_torch.' + n in names, n
 '''
@@ -69,7 +70,7 @@ def test_trainer_refuses_missing_cuda(monkeypatch):
 def test_unported_configurations_raise():
     from renderformer_tpu_torch import RenderFormerConfig
     from renderformer_tpu_torch.models.renderformer import RenderFormer
-    for kw in ({'pe_type': 'nerf'}, {'use_dpt_decoder': False}, {'vdir_num_freqs': 2}):
+    for kw in ({'pe_type': 'learned'}, {'use_dpt_decoder': False}, {'vdir_num_freqs': 2}):
         with pytest.raises(NotImplementedError):
             RenderFormer(RenderFormerConfig(**kw))
 

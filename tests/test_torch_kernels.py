@@ -1,8 +1,9 @@
 """Kernels K5 (resize into space-to-depth layout), K6 (Swin window
 attention), K7 (shifted-window regroup), the forward's logsumexp (K1/K2),
-the flash backward (K8, K9) and the transposed resize (K4^T) against their
-plain versions on a CUDA card, at small sizes, and one tiny-config train
-step through them.  They skip without one.  This file imports no JAX, so on
+the flash backward (K8, K9), the transposed resize (K4^T), the flash
+forward without RoPE (K10) and the fused RMSNorm (K11) against their plain
+versions on a CUDA card, at small sizes, and one tiny-config train step
+through them.  They skip without one.  This file imports no JAX, so on
 a machine with a card and no JAX it runs alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -15,7 +16,8 @@ import torch
 from renderformer_tpu_torch.ops import LAUNCHES, reference_kernels
 from renderformer_tpu_torch.encodings.rope import make_cos_sin
 from renderformer_tpu_torch.ops.flash_attention import (
-    flash_bwd, flash_fwd_rope, rot_kv_broadcast)
+    flash_bwd, flash_fwd, flash_fwd_rope, rot_kv_broadcast)
+from renderformer_tpu_torch.ops.fused_norm import rms_norm_bwd, rms_norm_fwd
 from renderformer_tpu_torch.ops.fused_resize import resize_bilinear, resize_bilinear_t, resize_s2d
 from renderformer_tpu_torch.ops.shifted_regroup import shifted_regroup
 from renderformer_tpu_torch.ops.swin_attention import region_table, swin_window_attention
@@ -138,6 +140,61 @@ def test_flash_lse_and_backward_kernels_match_plain(cuda, dtype, case):
             assert gt.dtype == dtype and gt.shape == wt.shape, name
             err = float((gt.float() - wt.float()).abs().max())
             assert err <= _attn_tol(wt, dtype, ulps=8), (variant, name, err)
+
+
+# b, sq, sk, h, masked: ragged q and key tiles, a key count that is no tile
+# multiple in the unmasked form
+K10_CASES = [(2, 100, 70, 2, True), (1, 64, 64, 1, False), (3, 37, 130, 2, False),
+             (1, 40, 2064, 1, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('with_lse', [False, True])
+@pytest.mark.parametrize('case', range(len(K10_CASES)))
+def test_flash_fwd_kernel_matches_plain(cuda, dtype, with_lse, case):
+    b, sq, sk, h, masked = K10_CASES[case]
+    q = _randn((b, sq, h, 128), dtype, cuda, seed=1)
+    k, v = (_randn((b, sk, h, 128), dtype, cuda, seed=s) for s in (2, 3))
+    mask = None
+    if masked:
+        mask = torch.from_numpy(np.random.default_rng(4).uniform(size=(b, sk)) > 0.3).to(cuda)
+        mask[:, 0] = True
+    got, want, launched = _both(lambda: flash_fwd(q, k, v, mask, with_lse=with_lse))
+    assert launched == {'flash_fwd_mask' if masked else 'flash_fwd_nomask': 1}
+    out, ref = (got[0], want[0]) if with_lse else (got, want)
+    assert float((out.float() - ref.float()).abs().max()) <= _attn_tol(ref, dtype)
+    if with_lse:
+        # m*ln2 + ln(l) in fp32: an online against a one-pass maximum and sum
+        torch.testing.assert_close(got[1], want[1], atol=2e-5, rtol=1e-5)
+
+
+def _ulp_tol(want, dtype):
+    """One bf16 ulp of max|want| (2^-7 of its binade); fp32 2^-20 of it."""
+    amax = float(want.float().abs().max())
+    if dtype == torch.bfloat16:
+        return 2.0 ** (np.floor(np.log2(amax)) - 7)
+    return amax * 2.0 ** -20
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('rows,d', [(771, 128), (2064, 768), (256, 1024)])
+def test_rms_norm_kernels_match_plain(cuda, dtype, rows, d):
+    x = _randn((rows, d), dtype, cuda, seed=1) * 3
+    scale = _randn((d,), torch.float32, cuda, seed=2)
+    g = _randn((rows, d), dtype, cuda, seed=3)
+    got, want, launched = _both(lambda: rms_norm_fwd(x, scale, 1e-6))
+    assert launched == {'rms_norm_fwd': 1}
+    # the same arithmetic; inv from sums in another order can round bf16(inv)
+    # to the other neighbour
+    assert float((got.float() - want.float()).abs().max()) <= _ulp_tol(want, dtype)
+    got, want, launched = _both(lambda: rms_norm_bwd(x, scale, g, 1e-6))
+    assert launched == {'rms_norm_bwd': 1}
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    assert float((got[0].float() - want[0].float()).abs().max()) <= _ulp_tol(want[0], dtype)
+    # ds: per-block partials summed, against one sum over the rows
+    assert float((got[1] - want[1]).abs().max()) <= 1e-5 * float(want[1].abs().max())
 
 
 @pytest.mark.cuda
