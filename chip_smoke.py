@@ -5,12 +5,18 @@
 
 Phases, each printing its own lines:
   1. card: the nvidia-smi name and power limit, and torch's device name;
-  2. build: compiles the kernels from renderformer_tpu_torch/csrc;
+  2. build: compiles the kernels from renderformer_tpu_torch/csrc, and
+     counts the wgmma (HGMMA) and TMA load (UTMALDG) instructions that
+     cuobjdump finds in the bf16 flash forward's kernels (K1/K2, K10), which
+     must both be non-zero;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      every shape the v1-base, v1.1-swin-large and v1-base nerf 512^2 renders
      give it, in bf16 and fp32 (the flash forward without RoPE, K10, and the
      fused RMSNorm, K11, in the renders' bf16), with kernel, plain, library
-     and bound times (CUDA events, median);
+     and bound times (CUDA events, median), the tile plan of the bf16 flash
+     forward at each site, and the flash forward (K1/K2 and K10, with and
+     without the logsumexp) at its tile edges: Sq and Sk of 129 and 257, a
+     batch row whose mask is all zero, a view fan-out;
   4. render, for each of v1-base, v1.1-swin-large and v1-base nerf
      (V1_BASE_NERF, pe_type='nerf', with RuntimeConfig(fused_norm=True)) at
      full width and full depth from a seeded init, with the default composed
@@ -31,7 +37,8 @@ Phases, each printing its own lines:
      transposed resize (K4^T) against their plain versions, at every shape
      of the v1-base train step, in bf16 and fp32, and K10 with its logsumexp
      and K11's forward and backward at the nerf train step's shapes and
-     dtypes, timed as in phase 3;
+     dtypes, timed as in phase 3, and the flash forward's tile edges of
+     phase 3 with the logsumexp;
   7. train: v1-base at full width and depth from a seeded init, the
      train_step_bench.py workload (1 scene x 1 view x 2048 triangles at
      256^2, bf16 stage 1 with an fp32 view stage, remat, AdamW): exact launch
@@ -55,6 +62,7 @@ check exits non-zero before the result line.  Imports nothing of JAX.
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -91,10 +99,10 @@ LSE_BURST = 20                     # launches per timing of the logsumexp A/B
 
 KERNELS = {
     'flash_fwd_rope_mask': dict(
-        route='cuda', source='renderformer_tpu_torch/csrc/flash_attention.cu',
+        route='cuda', source='renderformer_tpu_torch/csrc/flash_fwd_sm90.cu',
         replaces='renderformer_tpu/ops/flash_attention.py:876'),
     'flash_fwd_rope_nomask': dict(
-        route='cuda', source='renderformer_tpu_torch/csrc/flash_attention.cu',
+        route='cuda', source='renderformer_tpu_torch/csrc/flash_fwd_sm90.cu',
         replaces='renderformer_tpu/ops/flash_attention.py:888'),
     'rot_kv_broadcast': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/rot_kv.cu',
@@ -127,10 +135,10 @@ KERNELS = {
         route='cuda', source='renderformer_tpu_torch/csrc/shifted_regroup.cu',
         replaces='renderformer_tpu/ops/shifted_regroup.py:68'),
     'flash_fwd_mask': dict(
-        route='cuda', source='renderformer_tpu_torch/csrc/flash_attention.cu',
+        route='cuda', source='renderformer_tpu_torch/csrc/flash_fwd_sm90.cu',
         replaces='renderformer_tpu/ops/flash_attention.py:202'),
     'flash_fwd_nomask': dict(
-        route='cuda', source='renderformer_tpu_torch/csrc/flash_attention.cu',
+        route='cuda', source='renderformer_tpu_torch/csrc/flash_fwd_sm90.cu',
         replaces='renderformer_tpu/ops/flash_attention.py:217'),
     'rms_norm_fwd': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/fused_norm.cu',
@@ -334,6 +342,101 @@ def k3_tol(ref):
 
 NORM_D = 768  # the model width of v1-base, the width of every K11 site
 
+# the bf16 flash forward (csrc/flash_fwd_sm90.cu) at its tile edges: name,
+# B, Bkv, Sq, Sk, H, masked; a masked case with B > 1 zeroes batch row 1's
+# mask.  Sq and Sk are not multiples of 64 or 128; the last case is the
+# swin-large cross-attention's head count and fan-out at a small length.
+FLASH_EDGES = [
+    ('edge_129x257_reps2', 2, 1, 129, 257, 2, True),
+    ('edge_257x129', 1, 1, 257, 129, 2, False),
+    ('edge_129x129_zero_row', 3, 3, 129, 129, 1, True),
+    ('edge_257x257_h8_reps8', 8, 1, 257, 257, 8, True),
+]
+SASS_KERNEL = 'flash_fwd_sm90_kernel'
+
+
+def sass_check(lib_path):
+    """Phase 2: HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
+    of the bf16 flash forward's kernels of the built library, by cuobjdump;
+    fails unless every one has both."""
+    cuobjdump = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    res = subprocess.run([cuobjdump, '-sass', lib_path], capture_output=True, text=True,
+                         timeout=300)
+    if res.returncode:
+        fail(f'cuobjdump: {res.stderr.strip()[:500]}')
+    counts, cur = {}, None
+    for line in res.stdout.splitlines():
+        if 'Function :' in line:
+            name = line.split('Function :', 1)[1].strip()
+            cur = name if SASS_KERNEL in name else None
+            if cur:
+                counts[cur] = dict(HGMMA=0, UTMALDG=0)
+        elif cur:
+            for op in ('HGMMA', 'UTMALDG'):
+                counts[cur][op] += op in line
+    short = {n[n.index(SASS_KERNEL) + len(SASS_KERNEL):][:40]: c for n, c in counts.items()}
+    print(f'build: sass of {len(counts)} bf16 flash forward kernels ({SASS_KERNEL}): HGMMA '
+          f'{sum(c["HGMMA"] for c in counts.values())}, UTMALDG '
+          f'{sum(c["UTMALDG"] for c in counts.values())}; ' + json.dumps(short), flush=True)
+    if not counts or any(not c['HGMMA'] or not c['UTMALDG'] for c in counts.values()):
+        fail(f'the bf16 flash forward kernels lack wgmma or TMA loads: {short}')
+
+
+def print_plan(kernel, site, b, sq, h):
+    """The tile plan the bf16 flash forward takes at a main-path site."""
+    import torch
+    from renderformer_tpu_torch.ops.flash_attention import flash_fwd_rows
+    rows = flash_fwd_rows(torch.bfloat16, b, sq, h)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f'plan: {kernel} {site} bf16 B {b} x H {h} x Sq {sq}: {rows} q rows a block, '
+          f'{-(-sq // rows) * h * b} blocks on {sms} SMs', flush=True)
+
+
+def check_flash_edges(rows, randn, tables, with_lse):
+    """K1/K2 (on K rotated by K3) and K10 in bf16 at FLASH_EDGES against
+    their plain versions; the logsumexp of a row whose keys are all masked
+    (m = -1e30) is left out of the logsumexp comparison, its output (uniform
+    over the keys) is not."""
+    import torch
+    from renderformer_tpu_torch.ops import reference_kernels
+    from renderformer_tpu_torch.ops.flash_attention import (
+        fan_out, flash_fwd, flash_fwd_rope, rot_kv_broadcast)
+    bf = torch.bfloat16
+    for name, b, bkv, sq, sk, h, masked in FLASH_EDGES:
+        q = randn(b, sq, h, D, dtype=bf)
+        k, v = randn(bkv, sk, h, D, dtype=bf), randn(bkv, sk, h, D, dtype=bf)
+        cq, sq_t = tables(b, sq)
+        ck, sk_t = tables(b, sk)
+        mask, keep = None, list(range(b))
+        if masked:
+            mask = randn(b, sk) > -0.5
+            mask[:, 0] = True
+            if b > 1:
+                mask[1] = False
+                keep.remove(1)
+        kb, vb = fan_out(k, b).contiguous(), fan_out(v, b).contiguous()
+        with torch.no_grad():
+            k_rot = rot_kv_broadcast(k, ck, sk_t)
+            for kname, fn in (
+                    ('flash_fwd_rope_mask' if masked else 'flash_fwd_rope_nomask',
+                     lambda: flash_fwd_rope(q, k_rot, v, mask, cq, sq_t, with_lse=with_lse)),
+                    ('flash_fwd_mask' if masked else 'flash_fwd_nomask',
+                     lambda: flash_fwd(q, kb, vb, mask, with_lse=with_lse))):
+                out = fn()
+                with reference_kernels():
+                    ref = fn()
+                tol, why = attention_tol(ref[0] if with_lse else ref, bf,
+                                         'P at the running max vs the row max')
+                if with_lse:
+                    out, ref = (out[0], out[1][keep]), (ref[0], ref[1][keep])
+                    tol = (tol, 1e-5 * float(ref[1].abs().max()) + 2e-5)
+                    why += '; lse m*ln2 + ln(l) in fp32: 1e-5 of max|lse| + 2e-5'
+                record_row(rows, kname, name + ('_lse' if with_lse else ''), bf, {}, out, ref,
+                           tol, why, fn, None,
+                           (2 * b * sq + 2 * b * sk) * h * D * 2 + (b * sk if masked else 0),
+                           4 * b * h * sq * sk * D, PEAK_BF16_TENSOR)
+        del q, k, v, kb, vb, k_rot, out, ref
+
 
 def check_flash_fwd(rows, randn, site, b, sq, sk, masked, dtype, per_run, with_lse=False):
     """K10 at q [b, sq, 6, D] against k, v [b, sk, 6, D] (a padded tail of
@@ -466,6 +569,8 @@ def kernel_checks():
         it = 2 if dtype == torch.bfloat16 else 4
         flop_rate = PEAK_BF16_TENSOR if dtype == torch.bfloat16 else PEAK_FP32
         for site, b, bkv, sq, sk, H, masked, n in flash_sites:
+            if dtype == torch.bfloat16:
+                print_plan('flash_fwd_rope', site, b, sq, H)
             q = randn(b, sq, H, D, dtype=dtype)
             k = randn(bkv, sk, H, D, dtype=dtype)
             v = randn(bkv, sk, H, D, dtype=dtype)
@@ -565,7 +670,9 @@ def kernel_checks():
     for site, b, sq, sk, masked, n in (('nerf_stage1_self', 1, SK, SK, True, 12),
                                        ('nerf_cross', V, ST, SK, True, 6),
                                        ('nerf_ray_self', V, ST, ST, False, 6)):
+        print_plan('flash_fwd', site, b, sq, 6)
         check_flash_fwd(rows, randn, site, b, sq, sk, masked, bf, {NERF: n})
+    check_flash_edges(rows, randn, tables, with_lse=False)
     eps_tiny = float(np.finfo(np.float32).eps)  # torch's RMSNorm default
     for site, r, eps, n in (('embed_2048', NTRI, eps_tiny, 3), ('stage1_2064', SK, 1e-6, 48),
                             ('rays_8x4096', V * ST, 1e-6, 38), ('tris_8x2064', V * SK, 1e-6, 13)):
@@ -757,6 +864,9 @@ def train_kernel_checks():
         it = 2 if dtype == torch.bfloat16 else 4
         flop_rate = PEAK_BF16_TENSOR if dtype == torch.bfloat16 else PEAK_FP32
         for site, sq, sk, masked, step_dtype, n in sites:
+            if dtype == step_dtype == torch.bfloat16:
+                print_plan('flash_fwd_rope', site, 1, sq, H)
+
             def per_step(k, paths=ROPE_TRAIN):
                 return {p: k * n for p in paths} if dtype == step_dtype else {}
             q, do = randn(1, sq, H, D, dtype=dtype), randn(1, sq, H, D, dtype=dtype)
@@ -896,8 +1006,11 @@ def train_kernel_checks():
             ('train_nerf_stage1_self', SK, SK, True, bf, 12),
             ('train_nerf_cross', TRAIN_ST, SK, True, f32, 6),
             ('train_nerf_ray_self', TRAIN_ST, TRAIN_ST, False, f32, 6)):
+        if dtype == bf:
+            print_plan('flash_fwd', site, 1, sq, 6)
         check_flash_fwd(rows, randn, site, 1, sq, sk, masked, dtype, {TRAIN_NERF: 2 * n},
                         with_lse=True)
+    check_flash_edges(rows, randn, tables, with_lse=True)
     eps_tiny = float(np.finfo(np.float32).eps)
     for site, r, dtype, eps, n_fwd, n_bwd in (
             ('train_embed_2048', NTRI, bf, eps_tiny, 3, 3),
@@ -1222,6 +1335,7 @@ def main():
     path = _build.build(verbose=True)
     _build.library()
     print(f'build: {path} in {time.time() - t:.1f} s', flush=True)
+    sass_check(path)
 
     rows = kernel_checks()
     launches = {preset: render_checks(card, preset) for preset in PATHS}

@@ -38,6 +38,8 @@ SIGNATURES = {
                           _I, _I, _I, _F, _P],
     # q, k, v, mask, out, lse, dtype, has_mask, B, Sq, Sk, H, D, qscale, stream
     'rf_flash_fwd': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # dtype, B, Sq, H -> rows of q a block of the flash forward takes
+    'rf_flash_fwd_rows': [_I, _I, _I, _I],
     # q, k, v, dout, lse, delta, mask, dq_acc, dk, dv, dtype, has_mask, B,
     # reps, Sq, Sk, H, D, qscale, dqscale, dkscale, stream
     'rf_flash_bwd_kv': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -1,5 +1,7 @@
 // Masked and unmasked flash-attention forward, with the q-side RoPE rotation
-// fused into the prologue (K1/K2) or without RoPE (K10).
+// fused into the prologue (K1/K2) or without RoPE (K10): the C entry points
+// of both dtypes and the fp32 kernel.  bf16 goes to the Hopper kernel of
+// flash_fwd_sm90.cu (TMA, warp-specialised wgmma).
 //
 // Replaces renderformer_tpu/ops/flash_attention.py:_fwd_qrope_kernel (masked)
 // and :_fwd_qrope_kernel_nomask (unmasked), both reached through
@@ -26,23 +28,18 @@
 // ROPE is a template flag too: K10 is its own instantiation, with no
 // rotation and no cos/sin reads.
 //
-// Bound on this card: at the main-path shapes (Sq = 4096 or 2064, D = 128)
-// the two products are ~4*Sq*Sk*D flops per (b, h) against ~2*(Sq+Sk)*D
-// bytes, far above the H100's ~295 flop/byte ridge, so the tensor cores
-// bound it.  Design: one block of 4 warps per (64-row q tile, head, batch);
-// the (rotated) q tile goes to registers as mma.sync A fragments once; a loop
-// over 64-key tiles streams K and V into two shared-memory buffers with
-// cp.async, so the copy of tile kt+1 overlaps the math on tile kt; each warp
-// owns 16 q rows and runs S = Q K^T and O += P V as bf16 mma.sync m16n8k16
-// with fp32 accumulators, B fragments fetched by ldmatrix (.trans for V);
-// the C layout of S is reused as P's A layout, so the online softmax never
-// leaves registers.  The fp32 instantiation (precision='fp32') keeps the same
-// register layout but multiplies with scalar fp32 FMAs, so its products are
-// exact fp32 like the plain version's.  No TMA, wgmma or warp specialisation
-// yet: mma.sync reaches a fraction of the wgmma rate.
-#include <type_traits>
-
+// The fp32 kernel (precision='fp32', the train step's view stage): at the
+// main-path shapes (Sq = 4096 or 1024, D = 128) the two products are
+// ~4*Sq*Sk*D flops per (b, h), far above the ridge, but exact fp32 has no
+// tensor-core path, so the fp32 FMA rate bounds it.  Design: one block of 4
+// warps per (64-row q tile, head, batch); a loop over 64-key tiles streams K
+// and V into two shared-memory buffers with cp.async, so the copy of tile
+// kt+1 overlaps the math on tile kt; each warp owns 16 q rows in the C
+// fragment layout of mma.m16n8k16 and multiplies with scalar fp32 FMAs, so
+// its products are exact fp32 like the plain version's; the online softmax
+// never leaves registers.
 #include "common.cuh"
+#include "flash_fwd_sm90.cuh"
 
 using namespace rf;
 
@@ -54,40 +51,36 @@ constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr float NEG_BIG = -1e30f;
 
-// q tile, two K and two V tile buffers, two key-bias rows, and (fp32 only)
-// the P tile
-template <typename T, int D>
+// q tile, two K and two V tile buffers, two key-bias rows and the P tile
+template <int D>
 constexpr size_t smem_bytes() {
-  constexpr int LD = D + 16 / (int)sizeof(T);
-  return (size_t)(BQ + 4 * BK) * LD * sizeof(T) + 2 * BK * sizeof(float) +
-         (std::is_same<T, float>::value ? (size_t)BQ * (BK + 4) * sizeof(float) : 0);
+  constexpr int LD = D + 16 / (int)sizeof(float);
+  return (size_t)(BQ + 4 * BK) * LD * sizeof(float) + 2 * BK * sizeof(float) +
+         (size_t)BQ * (BK + 4) * sizeof(float);
 }
 
-// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A regs: {row g, cols 2t..2t+1}, {row g+8, cols 2t..}, {row g, cols 2t+8..},
-//           {row g+8, cols 2t+8..};
-//   B regs: {k rows 2t..2t+1, col g}, {k rows 2t+8..2t+9, col g};
-//   C:      c0,c1 at row g, cols 2t, 2t+1; c2,c3 at row g+8.
-template <typename T, int D, bool ROPE, bool HAS_MASK, bool WITH_LSE>
+// C fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4): c0,c1 at
+// row g, cols 2t, 2t+1; c2,c3 at row g+8.
+template <int D, bool ROPE, bool HAS_MASK, bool WITH_LSE>
 __global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v,
                  const uint8_t* __restrict__ mask, const float* __restrict__ cosq,
-                 const float* __restrict__ sinq, T* __restrict__ out, float* __restrict__ lse,
+                 const float* __restrict__ sinq, float* __restrict__ out, float* __restrict__ lse,
                  int reps, int Sq, int Sk, int H, float qscale) {
-  constexpr bool kBF = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int LD = D + VEC;          // padded shared-memory row stride
-  constexpr int DT = D / 8;            // n8 tiles over the head dim
-  constexpr int NT = BK / 8;           // n8 tiles over a key tile
+  constexpr int VEC = 16 / sizeof(float);  // elements per 16-byte load
+  constexpr int LD = D + VEC;               // padded shared-memory row stride
+  constexpr int DT = D / 8;                 // n8 tiles over the head dim
+  constexpr int NT = BK / 8;                // n8 tiles over a key tile
   constexpr int HALF = D / 2;
   constexpr int LDP = BK + 4;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + BQ * LD;       // [2][BK][LD]
-  T* Vs = Ks + 2 * BK * LD;   // [2][BK][LD]
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Ks = Qs + BQ * LD;       // [2][BK][LD]
+  float* Vs = Ks + 2 * BK * LD;   // [2][BK][LD]
   float* bias = reinterpret_cast<float*>(Vs + 2 * BK * LD);  // [2][BK]
-  float* Ps = bias + 2 * BK;  // fp32 instantiation only
+  float* Ps = bias + 2 * BK;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3;
@@ -101,8 +94,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   // write its key bias
   auto load_tile = [&](int kt, int buf) {
     const int k0 = kt * BK;
-    T* Kb = Ks + buf * BK * LD;
-    T* Vb = Vs + buf * BK * LD;
+    float* Kb = Ks + buf * BK * LD;
+    float* Vb = Vs + buf * BK * LD;
     for (int i = tid; i < BK * (D / VEC); i += NTHREADS) {
       const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC, kj = k0 + r;
       const bool ok = kj < Sk;
@@ -132,42 +125,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int r = i / HALF, d = i % HALF, qi = q0 + r;
       float o1 = 0.f, o2 = 0.f;
       if (qi < Sq) {
-        const T* qp = q + ((size_t)b * Sq + qi) * row_stride + (size_t)h * D;
+        const float* qp = q + ((size_t)b * Sq + qi) * row_stride + (size_t)h * D;
         const float* cp = cosq + ((size_t)b * Sq + qi) * D;
         const float* sp = sinq + ((size_t)b * Sq + qi) * D;
-        const float x1 = to_float(qp[d]), x2 = to_float(qp[d + HALF]);
+        const float x1 = qp[d], x2 = qp[d + HALF];
         const float c1 = __fmul_rn(cp[d], qscale), c2 = __fmul_rn(cp[d + HALF], qscale);
         const float s1 = __fmul_rn(sp[d], qscale), s2 = __fmul_rn(sp[d + HALF], qscale);
         o1 = __fadd_rn(__fmul_rn(x1, c1), __fmul_rn(-x2, s1));
         o2 = __fadd_rn(__fmul_rn(x2, c2), __fmul_rn(x1, s2));
       }
-      Qs[r * LD + d] = from_float<T>(o1);
-      Qs[r * LD + d + HALF] = from_float<T>(o2);
+      Qs[r * LD + d] = o1;
+      Qs[r * LD + d + HALF] = o2;
     }
   } else {
-    // prologue: q times D^-0.5 * log2(e) in fp32, rounded to its dtype
+    // prologue: q times D^-0.5 * log2(e) in fp32
     for (int i = tid; i < BQ * D; i += NTHREADS) {
       const int r = i / D, d = i % D, qi = q0 + r;
       float o = 0.f;
       if (qi < Sq)
-        o = __fmul_rn(to_float(q[((size_t)b * Sq + qi) * row_stride + (size_t)h * D + d]),
-                      qscale);
-      Qs[r * LD + d] = from_float<T>(o);
+        o = __fmul_rn(q[((size_t)b * Sq + qi) * row_stride + (size_t)h * D + d], qscale);
+      Qs[r * LD + d] = o;
     }
   }
   __syncthreads();
-
-  uint32_t qa[kBF ? D / 16 : 1][4];
-  if constexpr (kBF) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int c0 = kk * 16 + 2 * t4;
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(&Qs[r0 * LD + c0]);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(&Qs[(r0 + 8) * LD + c0]);
-      qa[kk][2] = *reinterpret_cast<const uint32_t*>(&Qs[r0 * LD + c0 + 8]);
-      qa[kk][3] = *reinterpret_cast<const uint32_t*>(&Qs[(r0 + 8) * LD + c0 + 8]);
-    }
-  }
 
   float o[DT][4];
 #pragma unroll
@@ -186,8 +166,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       cp_async_wait<0>();
     }
     __syncthreads();  // tile kt has landed for every thread
-    const T* Kb = Ks + buf * BK * LD;
-    const T* Vb = Vs + buf * BK * LD;
+    const float* Kb = Ks + buf * BK * LD;
+    const float* Vb = Vs + buf * BK * LD;
     const float* kbias = bias + buf * BK;
 
     // S = Q K^T, log2 units
@@ -196,32 +176,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    if constexpr (kBF) {
-      const int lm = lane >> 3, lr = lane & 7;
+    for (int d = 0; d < D; ++d) {
+      const float qa0 = Qs[r0 * LD + d];
+      const float qa1 = Qs[(r0 + 8) * LD + d];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int j = 0; j < NT; ++j) {
 #pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          // B fragments of key tiles j, j+1: matrices (j, k lo), (j, k hi),
-          // (j+1, k lo), (j+1, k hi) of the row-major K tile
-          uint32_t kb[4];
-          ldmatrix_x4(kb, &Kb[((j + (lm >> 1)) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8]);
-          mma_bf16(s[j], qa[kk], kb[0], kb[1]);
-          mma_bf16(s[j + 1], qa[kk], kb[2], kb[3]);
-        }
-      }
-    } else {
-      for (int d = 0; d < D; ++d) {
-        const float qa0 = to_float(Qs[r0 * LD + d]);
-        const float qa1 = to_float(Qs[(r0 + 8) * LD + d]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float kv = to_float(Kb[(j * 8 + 2 * t4 + e) * LD + d]);
-            s[j][e] = fmaf(qa0, kv, s[j][e]);
-            s[j][2 + e] = fmaf(qa1, kv, s[j][2 + e]);
-          }
+        for (int e = 0; e < 2; ++e) {
+          const float kv = Kb[(j * 8 + 2 * t4 + e) * LD + d];
+          s[j][e] = fmaf(qa0, kv, s[j][e]);
+          s[j][2 + e] = fmaf(qa1, kv, s[j][2 + e]);
         }
       }
     }
@@ -258,46 +222,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e >> 1];
 
     // O += P V
-    if constexpr (kBF) {
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        const int lm = lane >> 3, lr = lane & 7;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int dt = 0; dt < DT; dt += 2) {
-          // B fragments of head-dim tiles dt, dt+1 from the row-major V tile,
-          // transposed by ldmatrix: matrices (k lo, dt), (k hi, dt),
-          // (k lo, dt+1), (k hi, dt+1)
-          uint32_t vb[4];
-          ldmatrix_x4_trans(vb, &Vb[(kk * 16 + (lm & 1) * 8 + lr) * LD + (dt + (lm >> 1)) * 8]);
-          mma_bf16(o[dt], pa, vb[0], vb[1]);
-          mma_bf16(o[dt + 1], pa, vb[2], vb[3]);
+      for (int e = 0; e < 4; ++e)
+        Ps[(r0 + (e >> 1) * 8) * LDP + j * 8 + 2 * t4 + (e & 1)] = s[j][e];
+    __syncwarp();
+    for (int kj = 0; kj < BK; ++kj) {
+      const float p0 = Ps[r0 * LDP + kj], p1 = Ps[(r0 + 8) * LDP + kj];
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float vv = Vb[kj * LD + dt * 8 + 2 * t4 + e];
+          o[dt][e] = fmaf(p0, vv, o[dt][e]);
+          o[dt][2 + e] = fmaf(p1, vv, o[dt][2 + e]);
         }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          Ps[(r0 + (e >> 1) * 8) * LDP + j * 8 + 2 * t4 + (e & 1)] = s[j][e];
-      __syncwarp();
-      for (int kj = 0; kj < BK; ++kj) {
-        const float p0 = Ps[r0 * LDP + kj], p1 = Ps[(r0 + 8) * LDP + kj];
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float vv = to_float(Vb[kj * LD + dt * 8 + 2 * t4 + e]);
-            o[dt][e] = fmaf(p0, vv, o[dt][e]);
-            o[dt][2 + e] = fmaf(p1, vv, o[dt][2 + e]);
-          }
-      }
-      __syncwarp();
     }
+    __syncwarp();
     __syncthreads();  // buffer buf is free for tile kt + 2
   }
 
@@ -311,12 +253,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int hh = 0; hh < 2; ++hh) {
     const int qi = q0 + r0 + hh * 8;
     if (qi < Sq) {
-      T* op = out + ((size_t)b * Sq + qi) * row_stride + (size_t)h * D;
+      float* op = out + ((size_t)b * Sq + qi) * row_stride + (size_t)h * D;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {
         const int c = dt * 8 + 2 * t4;
-        op[c] = from_float<T>(o[dt][2 * hh] / l_r[hh]);
-        op[c + 1] = from_float<T>(o[dt][2 * hh + 1] / l_r[hh]);
+        op[c] = o[dt][2 * hh] / l_r[hh];
+        op[c + 1] = o[dt][2 * hh + 1] / l_r[hh];
       }
       if (WITH_LSE && t4 == 0)
         lse[((size_t)b * H + h) * Sq + qi] = m_r[hh] * 0.6931471805599453f + logf(l_r[hh]);
@@ -324,31 +266,31 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int D, bool ROPE, bool HAS_MASK, bool WITH_LSE>
+template <int D, bool ROPE, bool HAS_MASK, bool WITH_LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask,
                    const void* cosq, const void* sinq, void* out, void* lse, int B,
                    int reps, int Sq, int Sk, int H, float qscale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, D>();
-  auto kern = flash_fwd_kernel<T, D, ROPE, HAS_MASK, WITH_LSE>;
+  constexpr size_t smem = smem_bytes<D>();
+  auto kern = flash_fwd_kernel<D, ROPE, HAS_MASK, WITH_LSE>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const uint8_t*>(mask), static_cast<const float*>(cosq),
-      static_cast<const float*>(sinq), static_cast<T*>(out), static_cast<float*>(lse),
+      static_cast<const float*>(sinq), static_cast<float*>(out), static_cast<float*>(lse),
       reps, Sq, Sk, H, qscale);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool ROPE>
+template <int D, bool ROPE>
 cudaError_t launch_variant(int has_mask, const void* q, const void* k, const void* v,
                            const void* mask, const void* cosq, const void* sinq, void* out,
                            void* lse, int B, int reps, int Sq, int Sk, int H, float qscale,
                            cudaStream_t stream) {
 #define RF_LAUNCH(M, L) \
-  launch<T, D, ROPE, M, L>(q, k, v, mask, cosq, sinq, out, lse, B, reps, Sq, Sk, H, qscale, \
+  launch<D, ROPE, M, L>(q, k, v, mask, cosq, sinq, out, lse, B, reps, Sq, Sk, H, qscale, \
                            stream)
   if (has_mask) return lse ? RF_LAUNCH(true, true) : RF_LAUNCH(true, false);
   return lse ? RF_LAUNCH(false, true) : RF_LAUNCH(false, false);
@@ -363,11 +305,11 @@ int launch_dtype(int dtype, int has_mask, const void* q, const void* k, const vo
   if (D != 128) return cudaErrorInvalidValue;  // the head dim of the released models
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return launch_variant<__nv_bfloat16, 128, ROPE>(has_mask, q, k, v, mask, cosq, sinq, out,
-                                                    lse, B, reps, Sq, Sk, H, qscale, s);
+    return flash_fwd_sm90(ROPE, has_mask, q, k, v, mask, cosq, sinq, out, lse, B, reps, Sq, Sk,
+                          H, qscale, s);
   if (dtype == kF32)
-    return launch_variant<float, 128, ROPE>(has_mask, q, k, v, mask, cosq, sinq, out, lse, B,
-                                            reps, Sq, Sk, H, qscale, s);
+    return launch_variant<128, ROPE>(has_mask, q, k, v, mask, cosq, sinq, out, lse, B, reps, Sq,
+                                     Sk, H, qscale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -392,4 +334,10 @@ extern "C" int rf_flash_fwd(const void* q, const void* k, const void* v, const v
                             int Sk, int H, int D, float qscale, void* stream) {
   return launch_dtype<false>(dtype, has_mask, q, k, v, mask, nullptr, nullptr, out, lse, B, 1,
                              Sq, Sk, H, D, qscale, stream);
+}
+
+// Rows of q one block of the flash forward takes at this grid: the bf16
+// kernel's tile plan, the fp32 kernel's 64.
+extern "C" int rf_flash_fwd_rows(int dtype, int B, int Sq, int H) {
+  return dtype == kBF16 ? flash_fwd_sm90_rows(B, Sq, H) : BQ;
 }

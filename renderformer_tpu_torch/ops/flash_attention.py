@@ -9,8 +9,10 @@ with ``Bkv`` dividing ``B`` (view-major fan-out: batch ``b`` reads scene
 ``b // reps``; K10 takes k and v at the q batch), key mask ``[B, Sk]`` bool
 (True = attend), head-shared RoPE tables ``[B, S, D]`` fp32.  The logsumexp
 and delta = rowsum(dO * O) are fp32 ``[B, H, Sq]``.  The CUDA sources are
-``csrc/flash_attention.cu`` (K1/K2 and K10), ``csrc/rot_kv.cu`` and
-``csrc/flash_bwd.cu``; their notes say what bounds each kernel on the card.
+``csrc/flash_attention.cu`` (K1/K2 and K10: the entry points and the fp32
+kernel), ``csrc/flash_fwd_sm90.cu`` (their bf16 kernel for Hopper),
+``csrc/rot_kv.cu`` and ``csrc/flash_bwd.cu``; their notes say what bounds
+each kernel on the card.
 """
 
 from __future__ import annotations
@@ -120,6 +122,14 @@ def _dtype_code(t):
     return _build.DTYPE_CODES[str(t.dtype).split('.')[-1]]
 
 
+def flash_fwd_rows(dtype, b: int, sq: int, h: int) -> int:
+    """Rows of q that one block of the CUDA flash forward (K1/K2, K10) takes
+    at this grid on the current card: the bf16 kernel's tile plan (128, or
+    64 where two blocks an SM fill the card in fewer waves), fp32's 64."""
+    return _build.library().rf_flash_fwd_rows(_build.DTYPE_CODES[str(dtype).split('.')[-1]],
+                                              b, sq, h)
+
+
 def _check_kernel_dtype(what, t):
     if t.dtype not in KERNEL_DTYPES:
         raise ValueError(f'{what} kernel takes {KERNEL_DTYPES}, got {t.dtype}')
@@ -211,20 +221,32 @@ def flash_fwd(q, k, v, mask, with_lse: bool = False):
     if use_plain(q):
         out, lse = flash_fwd_plain(q, k, v, mask)
         return (out, lse) if with_lse else out
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    out = launch_flash_fwd(_build.library(), q, k, v, mask, lse)
+    LAUNCHES['flash_fwd_mask' if mask is not None else 'flash_fwd_nomask'] += 1
+    return (out, lse) if with_lse else out
+
+
+def launch_flash_fwd(lib, q, k, v, mask, lse=None):
+    """Launch ``rf_flash_fwd`` of the loaded kernel library ``lib`` on CUDA
+    tensors already checked by ``flash_fwd``, writing the logsumexp into
+    ``lse`` [B, H, Sq] fp32 when given; counts nothing."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
     _check_kernel_dtype('flash', q)
     for name, t in (('q', q), ('k', k), ('v', v)):
         check_cuda_tensor(name, t, q.dtype, tuple(t.shape))
+    if lse is not None:
+        check_cuda_tensor('lse', lse, torch.float32, (b, h, sq))
     mask_u8 = _mask_bytes(mask, b, sk)
     out = torch.empty_like(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
-    rc = _build.library().rf_flash_fwd(
+    rc = lib.rf_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         mask_u8.data_ptr() if mask_u8 is not None else None, out.data_ptr(),
         lse.data_ptr() if lse is not None else None, _dtype_code(q), int(mask is not None),
         b, sq, sk, h, d, q_scale(d), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, 'rf_flash_fwd')
-    LAUNCHES['flash_fwd_mask' if mask is not None else 'flash_fwd_nomask'] += 1
-    return (out, lse) if with_lse else out
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -169,6 +169,51 @@ def test_flash_fwd_kernel_matches_plain(cuda, dtype, with_lse, case):
         torch.testing.assert_close(got[1], want[1], atol=2e-5, rtol=1e-5)
 
 
+# the bf16 Hopper forward's tile edges: b, bkv, sq, sk, h, masked; a masked
+# case with b > 1 zeroes batch row 1's mask; h 8 at 2064 rows takes the
+# 64-row plan on a 132-SM card, the rest the 128-row plan
+TILE_CASES = [(2, 1, 129, 257, 2, True), (1, 1, 257, 129, 2, False), (3, 3, 1, 63, 1, True),
+              (1, 1, 2064, 2064, 8, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rope', [True, False])
+@pytest.mark.parametrize('with_lse', [False, True])
+@pytest.mark.parametrize('case', range(len(TILE_CASES)))
+def test_flash_fwd_bf16_tile_edges_match_plain(cuda, rope, with_lse, case):
+    b, bkv, sq, sk, h, masked = TILE_CASES[case]
+    dtype = torch.bfloat16
+    q = _randn((b, sq, h, 128), dtype, cuda, seed=1)
+    k, v = (_randn((bkv, sk, h, 128), dtype, cuda, seed=s) for s in (2, 3))
+    mask, keep = None, list(range(b))
+    if masked:
+        mask = torch.from_numpy(np.random.default_rng(4).uniform(size=(b, sk)) > 0.3).to(cuda)
+        mask[:, 0] = True
+        if b > 1:
+            mask[1] = False
+            keep.remove(1)
+    if rope:
+        cq, sq_ = _tables(b, sq, cuda, 6)
+        ck, sk_ = _tables(b, sk, cuda, 7)
+        with torch.no_grad():
+            k_rot = rot_kv_broadcast(k, ck, sk_)
+        fn = lambda: flash_fwd_rope(q, k_rot, v, mask, cq, sq_, with_lse=with_lse)  # noqa: E731
+        name = 'flash_fwd_rope_mask' if masked else 'flash_fwd_rope_nomask'
+    else:
+        kb, vb = (x.repeat_interleave(b // bkv, dim=0) for x in (k, v))
+        fn = lambda: flash_fwd(q, kb, vb, mask, with_lse=with_lse)  # noqa: E731
+        name = 'flash_fwd_mask' if masked else 'flash_fwd_nomask'
+    got, want, launched = _both(fn)
+    assert launched == {name: 1}
+    out, ref = (got[0], want[0]) if with_lse else (got, want)
+    # a fully masked row is uniform over its keys in both
+    assert float((out.float() - ref.float()).abs().max()) <= _attn_tol(ref, dtype)
+    if with_lse:
+        # m*ln2 + ln(l) in fp32; a fully masked row's -1e30*ln2 + ln(Sk) to 1e-6
+        torch.testing.assert_close(got[1][keep], want[1][keep], atol=2e-5, rtol=1e-5)
+        torch.testing.assert_close(got[1], want[1], atol=0, rtol=1e-6)
+
+
 def _ulp_tol(want, dtype):
     """One bf16 ulp of max|want| (2^-7 of its binade); fp32 2^-20 of it."""
     amax = float(want.float().abs().max())

@@ -1,135 +1,197 @@
-"""A/B timing of the port's flash-attention kernel (K1/K2) on one GPU.
+"""A/B timing of the port's flash-attention forward (K1/K2 and K10) on one GPU.
 
-    python3 tools/torch_flash_ab.py --parent OLD/flash_attention.cu
+    python3 tools/torch_flash_ab.py --parent OLD_DIR [--burst 20] [--fp32]
 
-Builds ``OLD/flash_attention.cu`` (with the ``common.cuh`` beside it) into
-a library of its own, then times the parent and the working tree's kernel
-in turns (parent, change, change, parent) at the three attention sites of
-the v1-base 512^2 render, in bf16 and fp32, and checks each against the
-plain version.  Prints the card's nvidia-smi line, then one JSON line per
-site and dtype with [median ms, max error] per turn.  Both versions run in
-one process on one card, so their times compare.  A parent from before
-``rf_flash_fwd_rope`` took its ``lse`` pointer is called without it.
+Builds every ``*.cu`` in ``OLD_DIR`` (a parent's ``flash_attention.cu``,
+with its ``common.cuh`` and any other source it includes, beside it) into a
+library of its own, then times the parent and the working tree's kernels in
+turns (parent, change, change, parent) at the attention sites of the
+v1-base, v1.1-swin-large and v1-base nerf 512^2 renders, in bf16 (and fp32
+with ``--fp32``), each checked against the plain version.  A turn is the
+median over ``--iters`` timings of ``--burst`` launches between two CUDA
+events, divided by the burst, so that the kernel's time is read without the
+host's enqueue.  SDPA on the same inputs and the tensor-core bound are
+printed beside each site.  Then the host's cost of one wrapper call
+(checks, tensor maps, launch) is timed in turns at a tiny shape, where the
+card waits for the host.  Prints the card's nvidia-smi line, then one JSON
+line a site and dtype.  Both versions run in one process on one card, so
+their times compare.
 """
 
 import argparse
 import ctypes
+import glob
 import json
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-SITES = [  # name, B, Bkv, Sq, Sk, masked
-    ('stage1_self', 1, 1, 2064, 2064, True),
-    ('cross', 8, 1, 4096, 2064, True),
-    ('ray_self', 8, 8, 4096, 4096, False),
+PEAK_BF16_TENSOR = 989e12  # H100 SXM dense bf16 tensor-core flop/s
+PEAK_FP32 = 67e12          # H100 SXM fp32 flop/s outside the tensor cores
+
+SITES = [  # name, kernel, B, Bkv, Sq, Sk, H, masked
+    ('stage1_self', 'rope', 1, 1, 2064, 2064, 6, True),
+    ('cross', 'rope', 8, 1, 4096, 2064, 6, True),
+    ('ray_self', 'rope', 8, 8, 4096, 4096, 6, False),
+    ('stage1_self_h8', 'rope', 1, 1, 2064, 2064, 8, True),
+    ('cross_h8', 'rope', 8, 1, 4096, 2064, 8, True),
+    ('nerf_stage1_self', 'k10', 1, 1, 2064, 2064, 6, True),
+    ('nerf_cross', 'k10', 8, 8, 4096, 2064, 6, True),
+    ('nerf_ray_self', 'k10', 8, 8, 4096, 4096, 6, False),
 ]
 
 
-def time_ms(fn, iters):
-    """Median milliseconds of fn() by CUDA events, after two warm-up calls."""
+def time_ms(fn, iters, burst):
+    """Median milliseconds a call of fn() by CUDA events around bursts of
+    ``burst`` calls, after a warm-up burst."""
     import torch
-    fn()
-    fn()
+    for _ in range(burst):
+        fn()
+    torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(burst):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / burst)
     return statistics.median(times)
 
 
-class NoLseAbi:
-    """A parent library whose ``rf_flash_fwd_rope`` has no ``lse`` pointer
-    (the 8th argument of today's): calls drop it."""
+def host_us(fn, calls=200):
+    """Host microseconds a call of fn(), the card never the bottleneck."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
 
-    def __init__(self, lib, signature):
-        sig = list(signature)
-        del sig[7]
-        self._fn = lib.rf_flash_fwd_rope
-        self._fn.argtypes = sig
-        self._fn.restype = ctypes.c_int
 
-    def rf_flash_fwd_rope(self, *args):
-        if args[7] is not None:
-            raise ValueError('the parent library writes no logsumexp')
-        return self._fn(*args[:7], *args[8:])
+def build_parent(src_dir, out_dir):
+    from renderformer_tpu_torch import _build
+    so = os.path.join(out_dir, 'libparent.so')
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, '-shared', '-I', src_dir,
+                    *sorted(glob.glob(os.path.join(src_dir, '*.cu'))), '-o', so], check=True,
+                   stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+    lib = ctypes.CDLL(so)
+    for name in ('rf_flash_fwd_rope', 'rf_flash_fwd'):
+        fn = getattr(lib, name)
+        fn.argtypes = _build.SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--parent', required=True,
-                    help='flash_attention.cu of the parent version')
-    ap.add_argument('--iters', type=int, default=20)
+                    help="directory holding the parent's flash_attention.cu and common.cuh")
+    ap.add_argument('--iters', type=int, default=10)
+    ap.add_argument('--burst', type=int, default=20)
+    ap.add_argument('--fp32', action='store_true', help='also time the fp32 kernel')
+    ap.add_argument('--sites', help='comma-separated site names (default: all)')
     args = ap.parse_args()
+    sites = [x for x in SITES if not args.sites or x[0] in args.sites.split(',')]
 
     import torch
+    import torch.nn.functional as F
     from renderformer_tpu_torch import _build
-    from renderformer_tpu_torch.encodings.rope import make_cos_sin
+    from renderformer_tpu_torch.encodings.rope import apply_rope, make_cos_sin
     from renderformer_tpu_torch.ops import reference_kernels
     from renderformer_tpu_torch.ops.flash_attention import (
-        flash_fwd_rope, launch_flash_fwd_rope)
+        fan_out, flash_fwd, flash_fwd_rope, flash_fwd_rows, launch_flash_fwd,
+        launch_flash_fwd_rope)
 
     if not torch.cuda.is_available():
         sys.exit('needs a CUDA device')
-    src = os.path.abspath(args.parent)
     os.makedirs(_build.BUILD_ROOT, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
-        so = os.path.join(tmp, 'libparent.so')
-        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, '-shared', '-I',
-                        os.path.dirname(src), src, '-o', so], check=True,
-                       stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
-        parent = ctypes.CDLL(so)
-    with open(src) as f:
-        takes_lse = 'void* lse' in f.read()
-    signature = _build.SIGNATURES['rf_flash_fwd_rope']
-    if takes_lse:
-        parent.rf_flash_fwd_rope.argtypes = signature
-        parent.rf_flash_fwd_rope.restype = ctypes.c_int
-    else:
-        parent = NoLseAbi(parent, signature)
     change = _build.library()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
+        parent = build_parent(os.path.abspath(args.parent), tmp)
     print(subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
 
     dev = 'cuda'
     g = torch.Generator(device=dev).manual_seed(0)
-    for dt in (torch.bfloat16, torch.float32):
-        for site, b, bkv, sq, sk, masked in SITES:
-            q = torch.randn(b, sq, 6, 128, generator=g, device=dev).to(dt)
-            k = torch.randn(b, sk, 6, 128, generator=g, device=dev).to(dt)
-            v = torch.randn(bkv, sk, 6, 128, generator=g, device=dev).to(dt)
-            pos = torch.randn(b, sq, 9, generator=g, device=dev) * 0.3
-            c, s = make_cos_sin(pos, 12, 128)
-            c, s = c[:, :, 0].contiguous(), s[:, :, 0].contiguous()
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def tables(b, s):
+        c, sn = make_cos_sin(torch.randn(b, s, 9, generator=g, device=dev) * 0.3, 12, 128)
+        return c[:, :, 0].contiguous(), sn[:, :, 0].contiguous()
+
+    def site_fns(kind, q, k, v, mask, c, s):
+        """(launch on a library, plain version) of one site."""
+        if kind == 'rope':
+            return (lambda lib: launch_flash_fwd_rope(lib, q, k, v, mask, c, s),
+                    lambda: flash_fwd_rope(q, k, v, mask, c, s))
+        return (lambda lib: launch_flash_fwd(lib, q, k, v, mask),
+                lambda: flash_fwd(q, k, v, mask))
+
+    dtypes = (torch.bfloat16, torch.float32) if args.fp32 else (torch.bfloat16,)
+    for dt in dtypes:
+        for site, kind, b, bkv, sq, sk, h, masked in sites:
+            q = randn(b, sq, h, 128, dtype=dt)
+            k = randn(b, sk, h, 128, dtype=dt)
+            v = randn(bkv, sk, h, 128, dtype=dt)
+            c, s = tables(b, sq)
             mask = None
             if masked:
                 mask = torch.ones(b, sk, dtype=torch.bool, device=dev)
-                mask[:, 1552:] = False
-
+                mask[:, 1552:] = False  # a padded tail of triangles
+            launch, plain = site_fns(kind, q, k, v, mask, c, s)
             res = {}
             with torch.inference_mode():
                 with reference_kernels():
-                    ref = flash_fwd_rope(q, k, v, mask, c, s)
+                    ref = plain()
                 for name, lib in (('parent', parent), ('change', change),
                                   ('change', change), ('parent', parent)):
-                    def fn(lib=lib):
-                        return launch_flash_fwd_rope(lib, q, k, v, mask, c, s)
-                    err = float((fn().float() - ref.float()).abs().max())
+                    err = float((launch(lib).float() - ref.float()).abs().max())
                     res.setdefault(name, []).append(
-                        (round(time_ms(fn, args.iters), 4), err))
-            print(json.dumps({'site': site, 'dtype': str(dt).split('.')[-1], **res}),
+                        (round(time_ms(lambda: launch(lib), args.iters, args.burst), 4), err))
+                # the library yardstick: SDPA on q as the kernel reads it (rotated
+                # for K1/K2), with its own 1/sqrt(D)
+                qr = q if kind == 'k10' else apply_rope(q, c[:, :, None, :], s[:, :, None, :])
+                qs = qr.transpose(1, 2).contiguous()
+                ks = k.transpose(1, 2).contiguous()
+                vs = fan_out(v, b).transpose(1, 2).contiguous()
+                am = mask[:, None, None, :] if masked else None
+                sdpa = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am),
+                               args.iters, args.burst)
+            flops = 4 * b * h * sq * sk * 128
+            bound = flops / (PEAK_BF16_TENSOR if dt == torch.bfloat16 else PEAK_FP32) * 1e3
+            print(json.dumps({'site': site, 'kernel': kind, 'dtype': str(dt).split('.')[-1],
+                              'rows': flash_fwd_rows(dt, b, sq, h), **res,
+                              'sdpa_ms': round(sdpa, 4), 'bound_ms': round(bound, 4)}),
                   flush=True)
+            del q, k, v, qr, qs, ks, vs, ref
+            torch.cuda.empty_cache()
+
+    # the wrapper's host cost at a tiny shape: checks, tensor maps, launch
+    q, k, v = (randn(1, 64, 1, 128, dtype=torch.bfloat16) for _ in range(3))
+    c, s = tables(1, 64)
+    with torch.inference_mode():
+        for kind in ('rope', 'k10'):
+            launch, _ = site_fns(kind, q, k, v, None, c, s)
+            res = {}
+            for name, lib in (('parent', parent), ('change', change),
+                              ('change', change), ('parent', parent)):
+                res.setdefault(name, []).append(round(host_us(lambda: launch(lib)), 2))
+            print(json.dumps({'host_us_a_call': kind, **res}), flush=True)
 
 
 if __name__ == '__main__':
