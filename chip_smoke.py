@@ -73,6 +73,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_TENSOR = 989e12   # H100 SXM dense bf16 tensor-core flop/s
 PEAK_FP32 = 67e12           # H100 SXM fp32 flop/s outside the tensor cores
+PEAK_TF32 = 494.7e12        # H100 SXM dense TF32 tensor-core flop/s
+SPLIT_TF32 = PEAK_TF32 / 3  # fp32 products as split TF32: three TF32 products each
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3 bytes/s
 
 # the renders at 512^2, 8 views, 2048 triangles
@@ -228,6 +230,26 @@ def bound_ms(nbytes, flops, flop_rate):
     return max(tb, tf), ('bytes' if tb >= tf else 'operations')
 
 
+def graph_burst_ms(fn, n=LSE_BURST, iters=10):
+    """Device milliseconds a call of fn() takes: replays of a CUDA graph of n
+    calls between two CUDA events, divided by n, so that no host work sits
+    between the launches."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms = time_ms(graph.replay, iters=iters) / n
+    del graph
+    return ms
+
+
 def psnr(ref, x):
     mse = float(((ref - x) ** 2).mean())
     peak = float(ref.max() - ref.min())
@@ -255,10 +277,17 @@ def record_row(rows, kernel, site, dtype, per_run, out, ref, tol, why, fn, lib_f
     row = dict(kernel=kernel, site=site, dtype=str(dtype).split('.')[-1], per_run=per_run,
                max_abs_err=max(errs), errs=errs, tol=list(tols), tol_reason=why, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    if flop_rate == SPLIT_TF32:
+        # the fp32 flash forward: its bound as split TF32 on the tensor cores,
+        # and beside it the bound of the same flops as scalar fp32 FMAs
+        row['bound_simt_ms'] = bound_ms(nbytes, flops, PEAK_FP32)[0]
+    row['bound_share'] = bms / ms
     print('kernel ' + json.dumps(row), flush=True)
     for e, t in zip(errs, tols):
         if not np.isfinite(e) or e > t:
             fail(f'{kernel} {site} {row["dtype"]}: max err {e} > {t}')
+    if bms > ms:
+        fail(f'{kernel} {site} {row["dtype"]}: {ms} ms beats its bound {bms} ms ({by})')
     rows.append(row)
 
 
@@ -342,10 +371,12 @@ def k3_tol(ref):
 
 NORM_D = 768  # the model width of v1-base, the width of every K11 site
 
-# the bf16 flash forward (csrc/flash_fwd_sm90.cu) at its tile edges: name,
-# B, Bkv, Sq, Sk, H, masked; a masked case with B > 1 zeroes batch row 1's
-# mask.  Sq and Sk are not multiples of 64 or 128; the last case is the
-# swin-large cross-attention's head count and fan-out at a small length.
+# the flash forward at its tile edges, bf16 (csrc/flash_fwd_sm90.cu) and fp32
+# (csrc/flash_attention.cu, 64-row q tiles, 32-key tiles, keys split across
+# a cluster where the grid is small): name, B, Bkv, Sq, Sk, H, masked; a
+# masked case with B > 1 zeroes batch row 1's mask.  Sq and Sk are not
+# multiples of 32, 64 or 128; the last case is the swin-large
+# cross-attention's head count and fan-out at a small length.
 FLASH_EDGES = [
     ('edge_129x257_reps2', 2, 1, 129, 257, 2, True),
     ('edge_257x129', 1, 1, 257, 129, 2, False),
@@ -353,58 +384,82 @@ FLASH_EDGES = [
     ('edge_257x257_h8_reps8', 8, 1, 257, 257, 8, True),
 ]
 SASS_KERNEL = 'flash_fwd_sm90_kernel'
+SASS_F32_KERNEL = 'flash_fwd_f32_kernel'
+
+
+def flash_rate(dtype):
+    """The flop rate of the flash forward's bound: bf16 tensor cores, or
+    split TF32 for fp32."""
+    import torch
+    return PEAK_BF16_TENSOR if dtype == torch.bfloat16 else SPLIT_TF32
+
+
+def sass_counts(sass, kernel, ops):
+    """{instantiation of ``kernel``: {op: lines of its SASS holding every
+    word of op}} from cuobjdump's output."""
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            name = line.split('Function :', 1)[1].strip()
+            cur = name[name.index(kernel) + len(kernel):][:40] if kernel in name else None
+            if cur:
+                counts[cur] = dict.fromkeys(ops, 0)
+        elif cur:
+            for op in ops:
+                counts[cur][op] += all(w in line for w in op.split())
+    return counts
 
 
 def sass_check(lib_path):
     """Phase 2: HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
-    of the bf16 flash forward's kernels of the built library, by cuobjdump;
-    fails unless every one has both."""
+    of the bf16 flash forward's kernels, and TF32 HMMA (mma.sync on the
+    tensor cores) in each of the fp32 flash forward's, by cuobjdump; fails
+    unless every one has them."""
     cuobjdump = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     res = subprocess.run([cuobjdump, '-sass', lib_path], capture_output=True, text=True,
                          timeout=300)
     if res.returncode:
         fail(f'cuobjdump: {res.stderr.strip()[:500]}')
-    counts, cur = {}, None
-    for line in res.stdout.splitlines():
-        if 'Function :' in line:
-            name = line.split('Function :', 1)[1].strip()
-            cur = name if SASS_KERNEL in name else None
-            if cur:
-                counts[cur] = dict(HGMMA=0, UTMALDG=0)
-        elif cur:
-            for op in ('HGMMA', 'UTMALDG'):
-                counts[cur][op] += op in line
-    short = {n[n.index(SASS_KERNEL) + len(SASS_KERNEL):][:40]: c for n, c in counts.items()}
-    print(f'build: sass of {len(counts)} bf16 flash forward kernels ({SASS_KERNEL}): HGMMA '
-          f'{sum(c["HGMMA"] for c in counts.values())}, UTMALDG '
-          f'{sum(c["UTMALDG"] for c in counts.values())}; ' + json.dumps(short), flush=True)
-    if not counts or any(not c['HGMMA'] or not c['UTMALDG'] for c in counts.values()):
-        fail(f'the bf16 flash forward kernels lack wgmma or TMA loads: {short}')
+    # each instantiation must hold the ops of ``need``; local-memory loads
+    # and stores (spills) of the fp32 kernel are counted beside them
+    for kernel, what, need, seen in ((SASS_KERNEL, 'bf16', ('HGMMA', 'UTMALDG'), ()),
+                                     (SASS_F32_KERNEL, 'fp32', ('HMMA TF32',), ('LDL', 'STL'))):
+        counts = sass_counts(res.stdout, kernel, need + seen)
+        print(f'build: sass of {len(counts)} {what} flash forward kernels ({kernel}): '
+              + ', '.join(f'{op} {sum(c[op] for c in counts.values())}' for op in need + seen)
+              + '; ' + json.dumps(counts), flush=True)
+        if not counts or any(not c[op] for c in counts.values() for op in need):
+            fail(f'the {what} flash forward kernels lack {need}: {counts}')
 
 
-def print_plan(kernel, site, b, sq, h):
-    """The tile plan the bf16 flash forward takes at a main-path site."""
+def print_plan(kernel, site, b, sq, h, dtype=None, sk=None):
+    """The tile plan the flash forward takes at a main-path site: the bf16
+    kernel's q rows a block; the fp32 kernel's 64 rows and key split (blocks
+    of a cluster that share a q tile's keys)."""
     import torch
-    from renderformer_tpu_torch.ops.flash_attention import flash_fwd_rows
-    rows = flash_fwd_rows(torch.bfloat16, b, sq, h)
+    from renderformer_tpu_torch.ops.flash_attention import flash_fwd_rows, flash_fwd_splits
+    dtype = dtype or torch.bfloat16
+    rows = flash_fwd_rows(dtype, b, sq, h)
+    splits = flash_fwd_splits(dtype, b, sq, sk or sq, h)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f'plan: {kernel} {site} bf16 B {b} x H {h} x Sq {sq}: {rows} q rows a block, '
-          f'{-(-sq // rows) * h * b} blocks on {sms} SMs', flush=True)
+    print(f'plan: {kernel} {site} {str(dtype).split(".")[-1]} B {b} x H {h} x Sq {sq}: {rows} '
+          f'q rows a block, keys split {splits} ways, {-(-sq // rows) * h * b * splits} '
+          f'blocks on {sms} SMs', flush=True)
 
 
-def check_flash_edges(rows, randn, tables, with_lse):
-    """K1/K2 (on K rotated by K3) and K10 in bf16 at FLASH_EDGES against
-    their plain versions; the logsumexp of a row whose keys are all masked
-    (m = -1e30) is left out of the logsumexp comparison, its output (uniform
-    over the keys) is not."""
+def check_flash_edges(rows, randn, tables, with_lse, dtype):
+    """K1/K2 (on K rotated by K3) and K10 in ``dtype`` (bf16 or fp32)
+    at FLASH_EDGES against their plain versions; the logsumexp of a row
+    whose keys are all masked (m = -1e30) is left out of the logsumexp
+    comparison, its output (uniform over the keys) is not."""
     import torch
     from renderformer_tpu_torch.ops import reference_kernels
     from renderformer_tpu_torch.ops.flash_attention import (
         fan_out, flash_fwd, flash_fwd_rope, rot_kv_broadcast)
-    bf = torch.bfloat16
+    it = 2 if dtype == torch.bfloat16 else 4
     for name, b, bkv, sq, sk, h, masked in FLASH_EDGES:
-        q = randn(b, sq, h, D, dtype=bf)
-        k, v = randn(bkv, sk, h, D, dtype=bf), randn(bkv, sk, h, D, dtype=bf)
+        q = randn(b, sq, h, D, dtype=dtype)
+        k, v = randn(bkv, sk, h, D, dtype=dtype), randn(bkv, sk, h, D, dtype=dtype)
         cq, sq_t = tables(b, sq)
         ck, sk_t = tables(b, sk)
         mask, keep = None, list(range(b))
@@ -425,16 +480,16 @@ def check_flash_edges(rows, randn, tables, with_lse):
                 out = fn()
                 with reference_kernels():
                     ref = fn()
-                tol, why = attention_tol(ref[0] if with_lse else ref, bf,
+                tol, why = attention_tol(ref[0] if with_lse else ref, dtype,
                                          'P at the running max vs the row max')
                 if with_lse:
                     out, ref = (out[0], out[1][keep]), (ref[0], ref[1][keep])
                     tol = (tol, 1e-5 * float(ref[1].abs().max()) + 2e-5)
                     why += '; lse m*ln2 + ln(l) in fp32: 1e-5 of max|lse| + 2e-5'
-                record_row(rows, kname, name + ('_lse' if with_lse else ''), bf, {}, out, ref,
+                record_row(rows, kname, name + ('_lse' if with_lse else ''), dtype, {}, out, ref,
                            tol, why, fn, None,
-                           (2 * b * sq + 2 * b * sk) * h * D * 2 + (b * sk if masked else 0),
-                           4 * b * h * sq * sk * D, PEAK_BF16_TENSOR)
+                           (2 * b * sq + 2 * b * sk) * h * D * it + (b * sk if masked else 0),
+                           4 * b * h * sq * sk * D, flash_rate(dtype))
         del q, k, v, kb, vb, k_rot, out, ref
 
 
@@ -471,8 +526,7 @@ def check_flash_fwd(rows, randn, site, b, sq, sk, masked, dtype, per_run, with_l
                    lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am),
                    (2 * b * sq + 2 * b * sk) * H * D * it + (b * sk if masked else 0)
                    + (b * H * sq * 4 if with_lse else 0),
-                   4 * b * H * sq * sk * D,
-                   PEAK_BF16_TENSOR if dtype == torch.bfloat16 else PEAK_FP32)
+                   4 * b * H * sq * sk * D, flash_rate(dtype))
     del q, k, v, out, ref, qs, ks, vs
     torch.cuda.empty_cache()
 
@@ -499,18 +553,28 @@ def check_rms_norm(rows, randn, site, r, dtype, eps, per_fwd, per_bwd):
     scale = 1 + 0.1 * randn(NORM_D)
     why = ('the same arithmetic, inv from a sum of squares in another order, which can '
            'round bf16(inv) to its other neighbour: 1 bf16 ulp of max|ref|, fp32 2^-20 of it')
+    ws = scale.to(dtype)  # the paths hand K11 the scale in x's dtype
     with torch.no_grad():
-        y = rms_norm_fwd(x, scale, eps)
+        y = rms_norm_fwd(x, ws, eps)
         with reference_kernels():
-            ref = rms_norm_fwd(x, scale, eps)
-        ws = scale.to(dtype)
+            ref = rms_norm_fwd(x, ws, eps)
         record_row(rows, 'rms_norm_fwd', site, dtype, per_fwd, y, ref, ulp_tol(ref), why,
-                   lambda: rms_norm_fwd(x, scale, eps),
+                   lambda: rms_norm_fwd(x, ws, eps),
                    lambda: F.rms_norm(x, (NORM_D,), ws, eps),
-                   2 * r * NORM_D * it + NORM_D * 4, 4 * r * NORM_D, PEAK_FP32)
-        got = rms_norm_bwd(x, scale, g, eps)
+                   2 * r * NORM_D * it + NORM_D * ws.element_size(), 4 * r * NORM_D,
+                   PEAK_FP32)
+        # host and device apart: the single call above holds the host's work
+        # where the card waits for it; a graph of LSE_BURST calls does not
+        row = rows[-1]
+        row['burst_ms'] = graph_burst_ms(lambda: rms_norm_fwd(x, ws, eps))
+        row['library_burst_ms'] = graph_burst_ms(lambda: F.rms_norm(x, (NORM_D,), ws, eps))
+        print(f'norm: rms_norm_fwd {site} {row["dtype"]} scale {row["dtype"]}: single call '
+              f'{row["ms"]:.4f} ms against F.rms_norm {row["library_ms"]:.4f}; device (graph of '
+              f'{LSE_BURST}) {row["burst_ms"]:.4f} ms a call against {row["library_burst_ms"]:.4f}'
+              f' (bound {row["bound_ms"]:.4f})', flush=True)
+        got = rms_norm_bwd(x, ws, g, eps)
         with reference_kernels():
-            ref = rms_norm_bwd(x, scale, g, eps)
+            ref = rms_norm_bwd(x, ws, g, eps)
     xl, wl = x.detach().clone().requires_grad_(True), ws.detach().clone().requires_grad_(True)
     yl = F.rms_norm(xl, (NORM_D,), wl, eps)
     with torch.no_grad():
@@ -518,9 +582,10 @@ def check_rms_norm(rows, randn, site, r, dtype, eps, per_fwd, per_bwd):
                    (ulp_tol(ref[0]), 1e-5 * float(ref[1].abs().max())),
                    why + '; ds: per-block partials summed against one sum over the rows, '
                    '1e-5 of max|ds|',
-                   lambda: rms_norm_bwd(x, scale, g, eps),
+                   lambda: rms_norm_bwd(x, ws, g, eps),
                    lambda: torch.autograd.grad(yl, (xl, wl), g, retain_graph=True),
-                   3 * r * NORM_D * it + 2 * NORM_D * 4, 10 * r * NORM_D, PEAK_FP32)
+                   3 * r * NORM_D * it + NORM_D * (ws.element_size() + 4), 10 * r * NORM_D,
+                   PEAK_FP32)
     del x, g, y, ref, got, xl, wl, yl
     torch.cuda.empty_cache()
 
@@ -569,8 +634,7 @@ def kernel_checks():
         it = 2 if dtype == torch.bfloat16 else 4
         flop_rate = PEAK_BF16_TENSOR if dtype == torch.bfloat16 else PEAK_FP32
         for site, b, bkv, sq, sk, H, masked, n in flash_sites:
-            if dtype == torch.bfloat16:
-                print_plan('flash_fwd_rope', site, b, sq, H)
+            print_plan('flash_fwd_rope', site, b, sq, H, dtype, sk)
             q = randn(b, sq, H, D, dtype=dtype)
             k = randn(bkv, sk, H, D, dtype=dtype)
             v = randn(bkv, sk, H, D, dtype=dtype)
@@ -606,7 +670,7 @@ def kernel_checks():
                        lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am),
                        (b * sq * H * D * 2 + b * sk * H * D + bkv * sk * H * D) * it
                        + (b * sk if masked else 0) + 2 * b * sq * D * 4,
-                       4 * b * H * sq * sk * D, flop_rate)
+                       4 * b * H * sq * sk * D, flash_rate(dtype))
             del q, k, v, k_rot, out, ref, qr, qs, ks, vs
             torch.cuda.empty_cache()
 
@@ -672,7 +736,8 @@ def kernel_checks():
                                        ('nerf_ray_self', V, ST, ST, False, 6)):
         print_plan('flash_fwd', site, b, sq, 6)
         check_flash_fwd(rows, randn, site, b, sq, sk, masked, bf, {NERF: n})
-    check_flash_edges(rows, randn, tables, with_lse=False)
+    for dtype in (bf, torch.float32):
+        check_flash_edges(rows, randn, tables, False, dtype)
     eps_tiny = float(np.finfo(np.float32).eps)  # torch's RMSNorm default
     for site, r, eps, n in (('embed_2048', NTRI, eps_tiny, 3), ('stage1_2064', SK, 1e-6, 48),
                             ('rays_8x4096', V * ST, 1e-6, 38), ('tris_8x2064', V * SK, 1e-6, 13)):
@@ -864,8 +929,8 @@ def train_kernel_checks():
         it = 2 if dtype == torch.bfloat16 else 4
         flop_rate = PEAK_BF16_TENSOR if dtype == torch.bfloat16 else PEAK_FP32
         for site, sq, sk, masked, step_dtype, n in sites:
-            if dtype == step_dtype == torch.bfloat16:
-                print_plan('flash_fwd_rope', site, 1, sq, H)
+            if dtype == step_dtype:
+                print_plan('flash_fwd_rope', site, 1, sq, H, dtype, sk)
 
             def per_step(k, paths=ROPE_TRAIN):
                 return {p: k * n for p in paths} if dtype == step_dtype else {}
@@ -903,7 +968,7 @@ def train_kernel_checks():
                            why + '; lse m*ln2 + ln(l) in fp32: 1e-5 of max|lse| + 2e-5',
                            lambda: flash_fwd_rope(q, k_rot, v, mask, cq, sq_t, with_lse=True),
                            lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am),
-                           fwd_bytes, 4 * H * sq * sk * D, flop_rate)
+                           fwd_bytes, 4 * H * sq * sk * D, flash_rate(dtype))
                 # what the logsumexp costs: against the render's instantiation on
                 # the same inputs, the two timed in turn three times, each as
                 # bursts of LSE_BURST launches into buffers made beforehand, so
@@ -1006,11 +1071,11 @@ def train_kernel_checks():
             ('train_nerf_stage1_self', SK, SK, True, bf, 12),
             ('train_nerf_cross', TRAIN_ST, SK, True, f32, 6),
             ('train_nerf_ray_self', TRAIN_ST, TRAIN_ST, False, f32, 6)):
-        if dtype == bf:
-            print_plan('flash_fwd', site, 1, sq, 6)
+        print_plan('flash_fwd', site, 1, sq, 6, dtype, sk)
         check_flash_fwd(rows, randn, site, 1, sq, sk, masked, dtype, {TRAIN_NERF: 2 * n},
                         with_lse=True)
-    check_flash_edges(rows, randn, tables, with_lse=True)
+    for dtype in (bf, f32):
+        check_flash_edges(rows, randn, tables, True, dtype)
     eps_tiny = float(np.finfo(np.float32).eps)
     for site, r, dtype, eps, n_fwd, n_bwd in (
             ('train_embed_2048', NTRI, bf, eps_tiny, 3, 3),

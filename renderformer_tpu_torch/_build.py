@@ -40,6 +40,8 @@ SIGNATURES = {
     'rf_flash_fwd': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # dtype, B, Sq, H -> rows of q a block of the flash forward takes
     'rf_flash_fwd_rows': [_I, _I, _I, _I],
+    # dtype, B, Sq, Sk, H -> blocks that split a q tile's keys (fp32 kernel)
+    'rf_flash_fwd_splits': [_I, _I, _I, _I, _I],
     # q, k, v, dout, lse, delta, mask, dq_acc, dk, dv, dtype, has_mask, B,
     # reps, Sq, Sk, H, D, qscale, dqscale, dkscale, stream
     'rf_flash_bwd_kv': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -62,10 +64,11 @@ SIGNATURES = {
     'rf_shifted_regroup': [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, regions, out, dtype, has_mask, BW, nW, H, qscale, stream
     'rf_swin_window_attention': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # x, scale, y, dtype, R, D, eps, stream
-    'rf_rms_norm_fwd': [_P, _P, _P, _I, _I, _I, _F, _P],
-    # x, scale, g, dx, ds_part, dtype, R, D, rows_per_block, eps, stream
-    'rf_rms_norm_bwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x, scale, y, dtype, scale dtype, R, D, eps, stream
+    'rf_rms_norm_fwd': [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x, scale, g, dx, ds_part, dtype, scale dtype, R, D, rows_per_block, eps,
+    # stream
+    'rf_rms_norm_bwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 DTYPE_CODES = {'bfloat16': 0, 'float32': 1}
 

@@ -36,6 +36,43 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---- split TF32 ("3xTF32"): fp32 products on the tensor cores ----
+//
+// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits) to nearest, ties
+// away from zero, which is cvt.rna's result for every finite x, in two
+// integer ops (half a TF32 ulp added to the magnitude bits, the low 13 bits
+// cleared; cvt.rna itself compiles to some ten instructions); lo = x - hi is
+// exact in fp32 and is truncated to TF32, so |x - hi - lo| < 2^-21 |x|.
+// a*b is taken as a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, the small products
+// first, each product of two TF32 values exact in fp32; a_lo*b_lo (below
+// 2^-22 |a*b|) is dropped.
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi))) & 0xFFFFE000u;
+}
+
+// D(16x8, fp32) += A(16x8, tf32, row-major) * B(8x8, tf32, col-major).
+// Fragments (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+// a3 (g+8, t+4); b0 (k t, n g), b1 (k t+4, n g); C as mma.m16n8k16.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += A*B in split TF32, A as (hi, lo) fragments, B as (hi, lo) pairs
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
 // 16-byte global -> shared copy that bypasses registers; src_bytes = 0 fills
 // the 16 bytes with zeros (rows past the end of a ragged tile)
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {

@@ -56,11 +56,11 @@ def reference_kernels():
 
 def use_plain(t: torch.Tensor) -> bool:
     """Whether a wrapper given ``t`` runs its plain version."""
-    if t.device.type == 'cpu':
+    if t.is_cuda:
+        return _plain_on_cuda
+    if t.is_cpu:
         return True
-    if t.device.type != 'cuda':
-        raise ValueError(f'no kernel for device {t.device}')
-    return _plain_on_cuda
+    raise ValueError(f'no kernel for device {t.device}')
 
 
 SWIN_NO_GRAD = ('Swin training is not ported yet: window attention and the shifted '

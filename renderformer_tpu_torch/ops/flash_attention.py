@@ -10,9 +10,9 @@ with ``Bkv`` dividing ``B`` (view-major fan-out: batch ``b`` reads scene
 (True = attend), head-shared RoPE tables ``[B, S, D]`` fp32.  The logsumexp
 and delta = rowsum(dO * O) are fp32 ``[B, H, Sq]``.  The CUDA sources are
 ``csrc/flash_attention.cu`` (K1/K2 and K10: the entry points and the fp32
-kernel), ``csrc/flash_fwd_sm90.cu`` (their bf16 kernel for Hopper),
-``csrc/rot_kv.cu`` and ``csrc/flash_bwd.cu``; their notes say what bounds
-each kernel on the card.
+kernel, split TF32 on the tensor cores), ``csrc/flash_fwd_sm90.cu`` (their
+bf16 kernel for Hopper), ``csrc/rot_kv.cu`` and ``csrc/flash_bwd.cu``; their
+notes say what bounds each kernel on the card.
 """
 
 from __future__ import annotations
@@ -128,6 +128,15 @@ def flash_fwd_rows(dtype, b: int, sq: int, h: int) -> int:
     64 where two blocks an SM fill the card in fewer waves), fp32's 64."""
     return _build.library().rf_flash_fwd_rows(_build.DTYPE_CODES[str(dtype).split('.')[-1]],
                                               b, sq, h)
+
+
+def flash_fwd_splits(dtype, b: int, sq: int, sk: int, h: int) -> int:
+    """Blocks (one thread block cluster) that share the keys of a q tile of
+    the CUDA flash forward at this grid on the current card: the fp32
+    kernel's key split (1, 2, 4 or 8), merged through the cluster's shared
+    memory; 1 in bf16."""
+    return _build.library().rf_flash_fwd_splits(
+        _build.DTYPE_CODES[str(dtype).split('.')[-1]], b, sq, sk, h)
 
 
 def _check_kernel_dtype(what, t):

@@ -2,10 +2,12 @@
 axis with fp32 statistics, their plain PyTorch versions, the shape gate of
 the JAX package, and the autograd Function that joins them.
 
-The kernels take x ``[R, D]`` in bf16 or fp32 and the scale ``[D]`` in fp32
-(the wrappers cast it, as the JAX package does); :func:`fused_rms_norm`
-flattens the leading axes.  The forward's rescale is ``x*inv*s`` in fp32 and
-``x * bf16(inv)`` then ``* bf16(s)``, each rounded to bf16, on a bf16 input.
+The kernels take x ``[R, D]`` in bf16 or fp32 and the scale ``[D]`` in
+bf16 or fp32 as it is given (a bf16 scale widens to fp32 exactly inside the
+kernel, so the result is the JAX package's, which casts it first);
+:func:`fused_rms_norm` flattens the leading axes.  The forward's rescale is
+``x*inv*s`` in fp32 and ``x * bf16(inv)`` then ``* bf16(s)``, each rounded
+to bf16, on a bf16 input.
 The backward recomputes inv from x and writes dx and per-block fp32
 partials of the scale's gradient, which the wrapper sums with one
 ``torch.sum``.  The CUDA source is ``csrc/fused_norm.cu``; its note says
@@ -17,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from renderformer_tpu_torch import _build
-from renderformer_tpu_torch.ops import LAUNCHES, check_cuda_tensor, check_no_grad, use_plain
+from renderformer_tpu_torch.ops import LAUNCHES, use_plain
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 BLOCK_WARPS = 8    # warps a block in csrc/fused_norm.cu, one row each at a time
@@ -59,29 +61,50 @@ def rms_norm_bwd_plain(x, scale, g, eps: float):
     return dx.to(x.dtype), (gf * (xf * inv)).sum(dim=0)
 
 
-def _check_2d(scale, **tensors):
-    x = next(iter(tensors.values()))
-    if x.dim() != 2:
-        raise ValueError(f'x must be [R, D], got {tuple(x.shape)}')
-    r, d = x.shape
-    if tuple(scale.shape) != (d,):
-        raise ValueError(f'scale must be {(d,)}, got {tuple(scale.shape)}')
-    for name, t in tensors.items():
-        if tuple(t.shape) != (r, d):
-            raise ValueError(f'{name} must be {(r, d)}, got {tuple(t.shape)}')
+def _check_2d(x, scale, *others):
+    """x [R, D] and each (name, tensor) of ``others`` alike, contiguous;
+    scale [D]."""
+    if x.dim() != 2 or scale.dim() != 1 or scale.shape[0] != x.shape[1]:
+        raise ValueError(f'x must be [R, D] and scale [D], got {tuple(x.shape)} and '
+                         f'{tuple(scale.shape)}')
+    if not x.is_contiguous():
+        raise ValueError('x: expected a contiguous tensor')
+    for name, t in others:
+        if t.shape != x.shape:
+            raise ValueError(f'{name} must be {tuple(x.shape)}, got {tuple(t.shape)}')
         if not t.is_contiguous():
             raise ValueError(f'{name}: expected a contiguous tensor')
 
 
-def _kernel_args(x, scale, **tensors):
-    """Check CUDA operands of a kernel; returns (scale in fp32, dtype code)."""
-    if x.dtype not in KERNEL_DTYPES:
-        raise ValueError(f'RMSNorm kernel takes {KERNEL_DTYPES}, got {x.dtype}')
-    for name, t in (('x', x), *tensors.items()):
-        check_cuda_tensor(name, t, x.dtype, tuple(x.shape))
-    s = scale.float().contiguous()
-    check_cuda_tensor('scale', s, torch.float32, (x.shape[1],))
-    return s, _build.DTYPE_CODES[str(x.dtype).split('.')[-1]]
+_CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
+_lib = None
+
+
+def _library():
+    """The kernel library, looked up once."""
+    global _lib
+    if _lib is None:
+        _lib = _build.library()
+    return _lib
+
+
+def _kernel_args(x, scale, *others):
+    """Check the operands of a kernel on the card (x [R, D] there, and each
+    (name, tensor) of ``others`` in x's dtype, checked by ``_check_2d``);
+    returns (x's dtype code, the scale's, the raw current stream)."""
+    code, scode = _CODES.get(x.dtype), _CODES.get(scale.dtype)
+    if code is None or scode is None:
+        raise ValueError(f'RMSNorm kernel takes {KERNEL_DTYPES}, got x {x.dtype} and scale '
+                         f'{scale.dtype}')
+    dev = x.get_device()
+    for name, t in (('x', x), ('scale', scale), *others):
+        if t.get_device() != dev or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f'{name}: expected a contiguous, 16-byte aligned tensor on '
+                             f'{x.device}')
+    for name, t in others:
+        if t.dtype != x.dtype:
+            raise ValueError(f'{name}: expected {x.dtype}, got {t.dtype}')
+    return code, scode, torch._C._cuda_getCurrentRawStream(dev)
 
 
 def bwd_rows_per_block(r: int) -> int:
@@ -92,17 +115,17 @@ def bwd_rows_per_block(r: int) -> int:
 
 def rms_norm_fwd(x, scale, eps: float):
     """RMSNorm of x [R, D] (bf16 or fp32) with scale [D]: K11's forward."""
-    _check_2d(scale, x=x)
-    check_no_grad(x, scale, why='rms_norm_fwd is a forward kernel alone; '
-                  'differentiate through fused_rms_norm')
+    _check_2d(x, scale)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        raise RuntimeError('rms_norm_fwd is a forward kernel alone; differentiate through '
+                           'fused_rms_norm')
     if use_plain(x):
         return rms_norm_fwd_plain(x, scale, eps)
-    s, code = _kernel_args(x, scale)
+    code, scode, stream = _kernel_args(x, scale)
     r, d = x.shape
     y = torch.empty_like(x)
-    rc = _build.library().rf_rms_norm_fwd(
-        x.data_ptr(), s.data_ptr(), y.data_ptr(), code, r, d, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _library().rf_rms_norm_fwd(x.data_ptr(), scale.data_ptr(), y.data_ptr(), code, scode,
+                                    r, d, eps, stream)
     _build.check(rc, 'rf_rms_norm_fwd')
     LAUNCHES['rms_norm_fwd'] += 1
     return y
@@ -111,17 +134,17 @@ def rms_norm_fwd(x, scale, eps: float):
 def rms_norm_bwd(x, scale, g, eps: float):
     """K11's backward at x [R, D] for the cotangent g [R, D]: (dx in x's
     dtype, ds [D] fp32)."""
-    _check_2d(scale, x=x, g=g)
+    _check_2d(x, scale, ('g', g))
     if use_plain(x):
         return rms_norm_bwd_plain(x, scale, g, eps)
-    s, code = _kernel_args(x, scale, g=g)
+    code, scode, stream = _kernel_args(x, scale, ('g', g))
     r, d = x.shape
     rows = bwd_rows_per_block(r)
     dx = torch.empty_like(x)
     part = torch.empty((-(-r // rows), d), dtype=torch.float32, device=x.device)
-    rc = _build.library().rf_rms_norm_bwd(
-        x.data_ptr(), s.data_ptr(), g.data_ptr(), dx.data_ptr(), part.data_ptr(), code, r, d,
-        rows, float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _library().rf_rms_norm_bwd(x.data_ptr(), scale.data_ptr(), g.data_ptr(),
+                                    dx.data_ptr(), part.data_ptr(), code, scode, r, d, rows,
+                                    eps, stream)
     _build.check(rc, 'rf_rms_norm_bwd')
     LAUNCHES['rms_norm_bwd'] += 1
     return dx, torch.sum(part, dim=0)

@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from renderformer_tpu_torch.config import RenderFormerConfig
-from renderformer_tpu_torch.training.state import TrainState
+from renderformer_tpu_torch.training.state import TrainState, sync_shadow
 
 STATE_FILE = 'state.pt'
 META_FILE = 'renderformer_meta.json'
@@ -61,8 +61,7 @@ def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, Dict[str,
     state.opt_state['count'] = int(opt['count'])
     state.step = int(payload['step'])
     if state.shadow is not None:
-        for s, m in zip(state.shadow.parameters(), state.model.parameters()):
-            s.copy_(m)
+        sync_shadow(state)
     meta_path = os.path.join(path, META_FILE)
     meta = {}
     if os.path.exists(meta_path):

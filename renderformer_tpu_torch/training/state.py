@@ -8,6 +8,12 @@ clipping by global norm, written out so that they compute optax's functions
 NaN/Inf skip, which leaves the parameters and the optimizer state (its
 count too) as they were while the step counter moves on.
 
+optax's ``adamw`` has no mask, so the JAX package decays every leaf of its
+parameter tree, the RoPE base frequencies (``rope_freqs``) too, though no
+gradient reaches them on its flash path.  The port keeps them as buffers,
+out of autograd and out of the stage casts (:func:`decayed_buffers`), and
+its AdamW decays them as optax does a parameter whose gradient is zero.
+
 The fp32 master weights stay in the model.  A step casts them to each
 stage's compute dtype inside the autograd graph (``functional_call``), so
 the gradients reach the masters; with ``bf16_shadow_params`` it instead
@@ -28,6 +34,7 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
+from renderformer_tpu_torch.nn.core import RopeFreqs
 from renderformer_tpu_torch.ops.flash_attention import BWD_VARIANTS, flash_backward
 from renderformer_tpu_torch.pipelines.rendering_pipeline import render_fn
 
@@ -120,9 +127,13 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: Dict,
-               params: Dict[str, torch.Tensor], grad_norm: float) -> None:
+               params: Dict[str, torch.Tensor], grad_norm: float,
+               decayed: Optional[Dict[str, torch.Tensor]] = None) -> None:
         """One step on ``params`` (in place) from ``grads`` (in the order of
-        ``params``, fp32, consumed) and their global norm."""
+        ``params``, fp32, consumed) and their global norm, and on the
+        tensors of ``decayed`` (in place), which take no gradient: with a
+        zero gradient Adam's moments stay 0 and its update is 0 / (0 + eps),
+        so optax moves them by the weight decay alone, p - lr*(wd*p)."""
         names = list(params)
         p = [params[n] for n in names]
         mu = [state['mu'][n] for n in names]
@@ -146,8 +157,14 @@ class AdamW:
         torch._foreach_div_(upd, den)
         del den
         torch._foreach_add_(upd, p, alpha=self.weight_decay)
-        torch._foreach_mul_(upd, -self.schedule(state['count']))
+        neg_lr = -self.schedule(state['count'])
+        torch._foreach_mul_(upd, neg_lr)
         torch._foreach_add_(p, upd)
+        if decayed:
+            d = list(decayed.values())
+            upd = torch._foreach_mul(d, self.weight_decay)
+            torch._foreach_mul_(upd, neg_lr)
+            torch._foreach_add_(d, upd)
         state['count'] = count_inc
 
 
@@ -168,6 +185,24 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 def stage_dtype(name: str, dtype: torch.dtype, view_dtype: torch.dtype) -> torch.dtype:
     return view_dtype if name.startswith(VIEW_PREFIX) else dtype
+
+
+def decayed_buffers(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The buffers that AdamW decays like parameters: every RoPE base
+    frequency table (``...rope_emb.freqs``, the JAX package's
+    ``rope_freqs`` leaves), fp32, by name."""
+    return {f'{n}.freqs': m.freqs for n, m in model.named_modules()
+            if isinstance(m, RopeFreqs)}
+
+
+@torch.no_grad()
+def sync_shadow(state: 'TrainState') -> None:
+    """Copy the masters and the decayed buffers into the shadow."""
+    for s, m in zip(state.shadow.parameters(), state.model.parameters()):
+        s.copy_(m)
+    masters = decayed_buffers(state.model)
+    for n, b in decayed_buffers(state.shadow).items():
+        b.copy_(masters[n])
 
 
 def make_shadow(model: nn.Module, tc: TrainConfig) -> nn.Module:
@@ -276,18 +311,17 @@ def make_train_step(model: nn.Module, tx: AdamW, tc: TrainConfig):
     once, to decide the NaN skip and the clip."""
     images, loss_and_grads = make_loss_fns(model, tc)
     use_shadow = _uses_shadow(tc)
+    decayed = decayed_buffers(model)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, float]]:
         loss, grads = loss_and_grads(state, batch)
         gnorm = global_norm(grads)
         loss_f, gnorm_f = torch.stack([loss.float(), gnorm]).tolist()
         if not tc.skip_nonfinite or (math.isfinite(loss_f) and math.isfinite(gnorm_f)):
-            masters = dict(state.model.named_parameters())
-            tx.update(grads, state.opt_state, masters, gnorm_f)
+            tx.update(grads, state.opt_state, dict(state.model.named_parameters()), gnorm_f,
+                      decayed)
             if use_shadow:
-                with torch.no_grad():
-                    for s, m in zip(state.shadow.parameters(), masters.values()):
-                        s.copy_(m)
+                sync_shadow(state)
         state.step += 1
         return state, {'loss': loss_f, 'grad_norm': gnorm_f}
 

@@ -1,7 +1,8 @@
 """Kernels K5 (resize into space-to-depth layout), K6 (Swin window
 attention), K7 (shifted-window regroup), the forward's logsumexp (K1/K2),
 the flash backward (K8, K9), the transposed resize (K4^T), the flash
-forward without RoPE (K10) and the fused RMSNorm (K11) against their plain
+forward without RoPE (K10), the fp32 flash forward's key splits and tile
+edges, and the fused RMSNorm (K11) against their plain
 versions on a CUDA card, at small sizes, and one tiny-config train step
 through them.  They skip without one.  This file imports no JAX, so on
 a machine with a card and no JAX it runs alone:
@@ -214,6 +215,53 @@ def test_flash_fwd_bf16_tile_edges_match_plain(cuda, rope, with_lse, case):
         torch.testing.assert_close(got[1], want[1], atol=0, rtol=1e-6)
 
 
+# the fp32 forward's key splits and tile edges: b, bkv, sq, sk, h, masked; a
+# masked case with b > 1 zeroes batch row 1's mask.  The train step's sites
+# (1 x 1024 rays x 6 heads) split their keys across clusters of blocks on a
+# 132-SM card; the others run one block a q tile
+F32_CASES = [(1, 1, 1024, 2064, 6, True), (1, 1, 1024, 1024, 6, False),
+             (8, 1, 129, 257, 2, True), (2, 2, 65, 63, 1, True), (1, 1, 1, 1, 1, False),
+             (1, 1, 257, 4096, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('rope', [True, False])
+@pytest.mark.parametrize('with_lse', [False, True])
+@pytest.mark.parametrize('case', range(len(F32_CASES)))
+def test_flash_fwd_fp32_splits_and_edges_match_plain(cuda, rope, with_lse, case):
+    b, bkv, sq, sk, h, masked = F32_CASES[case]
+    dtype = torch.float32
+    q = _randn((b, sq, h, 128), dtype, cuda, seed=1)
+    k, v = (_randn((bkv, sk, h, 128), dtype, cuda, seed=s) for s in (2, 3))
+    mask, keep = None, list(range(b))
+    if masked:
+        mask = torch.from_numpy(np.random.default_rng(4).uniform(size=(b, sk)) > 0.3).to(cuda)
+        mask[:, 0] = True
+        if b > 1:
+            mask[1] = False
+            keep.remove(1)
+    if rope:
+        cq, sq_ = _tables(b, sq, cuda, 6)
+        ck, sk_ = _tables(b, sk, cuda, 7)
+        with torch.no_grad():
+            k_rot = rot_kv_broadcast(k, ck, sk_)
+        fn = lambda: flash_fwd_rope(q, k_rot, v, mask, cq, sq_, with_lse=with_lse)  # noqa: E731
+        name = 'flash_fwd_rope_mask' if masked else 'flash_fwd_rope_nomask'
+    else:
+        kb, vb = (x.repeat_interleave(b // bkv, dim=0) for x in (k, v))
+        fn = lambda: flash_fwd(q, kb, vb, mask, with_lse=with_lse)  # noqa: E731
+        name = 'flash_fwd_mask' if masked else 'flash_fwd_nomask'
+    got, want, launched = _both(fn)
+    assert launched == {name: 1}
+    out, ref = (got[0], want[0]) if with_lse else (got, want)
+    # split TF32 against exact fp32; a fully masked row is uniform over its
+    # keys in both, whatever the key split
+    assert float((out - ref).abs().max()) <= _attn_tol(ref, dtype)
+    if with_lse:
+        torch.testing.assert_close(got[1][keep], want[1][keep], atol=2e-5, rtol=1e-5)
+        torch.testing.assert_close(got[1], want[1], atol=0, rtol=1e-6)
+
+
 def _ulp_tol(want, dtype):
     """One bf16 ulp of max|want| (2^-7 of its binade); fp32 2^-20 of it."""
     amax = float(want.float().abs().max())
@@ -240,6 +288,20 @@ def test_rms_norm_kernels_match_plain(cuda, dtype, rows, d):
     assert float((got[0].float() - want[0].float()).abs().max()) <= _ulp_tol(want[0], dtype)
     # ds: per-block partials summed, against one sum over the rows
     assert float((got[1] - want[1]).abs().max()) <= 1e-5 * float(want[1].abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_rms_norm_kernels_take_a_bf16_scale_as_its_fp32_cast(cuda, dtype):
+    """The kernels widen a bf16 scale in registers: bit for bit the result
+    of its fp32 cast."""
+    x = _randn((2064, 768), dtype, cuda, seed=1) * 3
+    g = _randn((2064, 768), dtype, cuda, seed=3)
+    scale = _randn((768,), torch.bfloat16, cuda, seed=2)
+    with torch.no_grad():
+        assert torch.equal(rms_norm_fwd(x, scale, 1e-6), rms_norm_fwd(x, scale.float(), 1e-6))
+        got, want = rms_norm_bwd(x, scale, g, 1e-6), rms_norm_bwd(x, scale.float(), g, 1e-6)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda

@@ -1,21 +1,26 @@
 """A/B timing of the port's flash-attention forward (K1/K2 and K10) on one GPU.
 
-    python3 tools/torch_flash_ab.py --parent OLD_DIR [--burst 20] [--fp32]
+    python3 tools/torch_flash_ab.py --parent OLD_DIR [--burst 20] [--fp32] [--sites a,b]
 
 Builds every ``*.cu`` in ``OLD_DIR`` (a parent's ``flash_attention.cu``,
-with its ``common.cuh`` and any other source it includes, beside it) into a
-library of its own, then times the parent and the working tree's kernels in
-turns (parent, change, change, parent) at the attention sites of the
-v1-base, v1.1-swin-large and v1-base nerf 512^2 renders, in bf16 (and fp32
-with ``--fp32``), each checked against the plain version.  A turn is the
-median over ``--iters`` timings of ``--burst`` launches between two CUDA
-events, divided by the burst, so that the kernel's time is read without the
-host's enqueue.  SDPA on the same inputs and the tensor-core bound are
-printed beside each site.  Then the host's cost of one wrapper call
-(checks, tensor maps, launch) is timed in turns at a tiny shape, where the
-card waits for the host.  Prints the card's nvidia-smi line, then one JSON
-line a site and dtype.  Both versions run in one process on one card, so
-their times compare.
+with its ``common.cuh``, ``flash_fwd_sm90.cu`` and any other source it
+includes, beside it) into a library of its own, then times the parent and
+the working tree's kernels in turns (parent, change, change, parent) at the
+attention sites of the v1-base, v1.1-swin-large and v1-base nerf 512^2
+renders and of the v1-base and nerf 256^2 train steps (with the
+logsumexp, as the step runs them), in bf16 (and fp32 with ``--fp32``),
+each checked against the plain version.  A turn is the median over
+``--iters`` timings of ``--burst`` launches between two CUDA events,
+divided by the burst, so that the kernel's time is read without the host's
+enqueue.  SDPA on the same inputs, the bound (bf16 tensor cores; for fp32
+split TF32 on the tensor cores, and scalar fp32 FMAs beside it) and the
+fp32 kernel's key split are printed beside each site.  With ``--fp32`` a
+profiler run of SDPA in fp32 at each train site names the kernels behind
+it.  Then the host's cost of one wrapper call (checks, tensor maps,
+launch) is timed in turns at a tiny shape, where the card waits for the
+host.  Prints the card's nvidia-smi line, then one JSON line a site and
+dtype.  Both versions run in one process on one card, so their times
+compare.
 """
 
 import argparse
@@ -34,16 +39,21 @@ sys.path.insert(0, REPO)
 
 PEAK_BF16_TENSOR = 989e12  # H100 SXM dense bf16 tensor-core flop/s
 PEAK_FP32 = 67e12          # H100 SXM fp32 flop/s outside the tensor cores
+PEAK_TF32 = 494.7e12       # H100 SXM dense TF32 tensor-core flop/s
 
-SITES = [  # name, kernel, B, Bkv, Sq, Sk, H, masked
-    ('stage1_self', 'rope', 1, 1, 2064, 2064, 6, True),
-    ('cross', 'rope', 8, 1, 4096, 2064, 6, True),
-    ('ray_self', 'rope', 8, 8, 4096, 4096, 6, False),
-    ('stage1_self_h8', 'rope', 1, 1, 2064, 2064, 8, True),
-    ('cross_h8', 'rope', 8, 1, 4096, 2064, 8, True),
-    ('nerf_stage1_self', 'k10', 1, 1, 2064, 2064, 6, True),
-    ('nerf_cross', 'k10', 8, 8, 4096, 2064, 6, True),
-    ('nerf_ray_self', 'k10', 8, 8, 4096, 4096, 6, False),
+SITES = [  # name, kernel, B, Bkv, Sq, Sk, H, masked, with the logsumexp
+    ('stage1_self', 'rope', 1, 1, 2064, 2064, 6, True, False),
+    ('cross', 'rope', 8, 1, 4096, 2064, 6, True, False),
+    ('ray_self', 'rope', 8, 8, 4096, 4096, 6, False, False),
+    ('stage1_self_h8', 'rope', 1, 1, 2064, 2064, 8, True, False),
+    ('cross_h8', 'rope', 8, 1, 4096, 2064, 8, True, False),
+    ('nerf_stage1_self', 'k10', 1, 1, 2064, 2064, 6, True, False),
+    ('nerf_cross', 'k10', 8, 8, 4096, 2064, 6, True, False),
+    ('nerf_ray_self', 'k10', 8, 8, 4096, 4096, 6, False, False),
+    ('train_cross', 'rope', 1, 1, 1024, 2064, 6, True, True),
+    ('train_ray_self', 'rope', 1, 1, 1024, 1024, 6, False, True),
+    ('train_nerf_cross', 'k10', 1, 1, 1024, 2064, 6, True, True),
+    ('train_nerf_ray_self', 'k10', 1, 1, 1024, 1024, 6, False, True),
 ]
 
 
@@ -80,6 +90,21 @@ def host_us(fn, calls=200):
     return dt / calls * 1e6
 
 
+def print_sdpa_kernels(site, fn):
+    """The CUDA kernels one call of fn() runs, by the profiler: which
+    kernel computes SDPA in fp32 here."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    print(json.dumps({'sdpa_fp32_kernels': site, 'names': names}), flush=True)
+
+
 def build_parent(src_dir, out_dir):
     from renderformer_tpu_torch import _build
     so = os.path.join(out_dir, 'libparent.so')
@@ -97,7 +122,8 @@ def build_parent(src_dir, out_dir):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--parent', required=True,
-                    help="directory holding the parent's flash_attention.cu and common.cuh")
+                    help="directory holding the parent's flash_attention.cu, common.cuh and "
+                         'flash_fwd_sm90.cu/.cuh')
     ap.add_argument('--iters', type=int, default=10)
     ap.add_argument('--burst', type=int, default=20)
     ap.add_argument('--fp32', action='store_true', help='also time the fp32 kernel')
@@ -111,7 +137,7 @@ def main():
     from renderformer_tpu_torch.encodings.rope import apply_rope, make_cos_sin
     from renderformer_tpu_torch.ops import reference_kernels
     from renderformer_tpu_torch.ops.flash_attention import (
-        fan_out, flash_fwd, flash_fwd_rope, flash_fwd_rows, launch_flash_fwd,
+        fan_out, flash_fwd, flash_fwd_rope, flash_fwd_rows, flash_fwd_splits, launch_flash_fwd,
         launch_flash_fwd_rope)
 
     if not torch.cuda.is_available():
@@ -134,17 +160,18 @@ def main():
         c, sn = make_cos_sin(torch.randn(b, s, 9, generator=g, device=dev) * 0.3, 12, 128)
         return c[:, :, 0].contiguous(), sn[:, :, 0].contiguous()
 
-    def site_fns(kind, q, k, v, mask, c, s):
-        """(launch on a library, plain version) of one site."""
+    def site_fns(kind, q, k, v, mask, c, s, lse=None):
+        """(launch on a library, plain version) of one site, writing the
+        logsumexp into ``lse`` where given."""
         if kind == 'rope':
-            return (lambda lib: launch_flash_fwd_rope(lib, q, k, v, mask, c, s),
+            return (lambda lib: launch_flash_fwd_rope(lib, q, k, v, mask, c, s, lse),
                     lambda: flash_fwd_rope(q, k, v, mask, c, s))
-        return (lambda lib: launch_flash_fwd(lib, q, k, v, mask),
+        return (lambda lib: launch_flash_fwd(lib, q, k, v, mask, lse),
                 lambda: flash_fwd(q, k, v, mask))
 
     dtypes = (torch.bfloat16, torch.float32) if args.fp32 else (torch.bfloat16,)
     for dt in dtypes:
-        for site, kind, b, bkv, sq, sk, h, masked in sites:
+        for site, kind, b, bkv, sq, sk, h, masked, with_lse in sites:
             q = randn(b, sq, h, 128, dtype=dt)
             k = randn(b, sk, h, 128, dtype=dt)
             v = randn(bkv, sk, h, 128, dtype=dt)
@@ -153,7 +180,8 @@ def main():
             if masked:
                 mask = torch.ones(b, sk, dtype=torch.bool, device=dev)
                 mask[:, 1552:] = False  # a padded tail of triangles
-            launch, plain = site_fns(kind, q, k, v, mask, c, s)
+            lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) if with_lse else None
+            launch, plain = site_fns(kind, q, k, v, mask, c, s, lse)
             res = {}
             with torch.inference_mode():
                 with reference_kernels():
@@ -172,13 +200,19 @@ def main():
                 am = mask[:, None, None, :] if masked else None
                 sdpa = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am),
                                args.iters, args.burst)
+                if dt == torch.float32 and with_lse:
+                    print_sdpa_kernels(site, lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=am))
             flops = 4 * b * h * sq * sk * 128
-            bound = flops / (PEAK_BF16_TENSOR if dt == torch.bfloat16 else PEAK_FP32) * 1e3
+            bound = {'bound_ms': round(flops / PEAK_BF16_TENSOR * 1e3, 4)}
+            if dt == torch.float32:
+                bound = {'bound_ms': round(3 * flops / PEAK_TF32 * 1e3, 4),
+                         'bound_simt_ms': round(flops / PEAK_FP32 * 1e3, 4)}
             print(json.dumps({'site': site, 'kernel': kind, 'dtype': str(dt).split('.')[-1],
-                              'rows': flash_fwd_rows(dt, b, sq, h), **res,
-                              'sdpa_ms': round(sdpa, 4), 'bound_ms': round(bound, 4)}),
-                  flush=True)
-            del q, k, v, qr, qs, ks, vs, ref
+                              'lse': with_lse, 'rows': flash_fwd_rows(dt, b, sq, h),
+                              'splits': flash_fwd_splits(dt, b, sq, sk, h), **res,
+                              'sdpa_ms': round(sdpa, 4), **bound}), flush=True)
+            del q, k, v, qr, qs, ks, vs, ref, lse
             torch.cuda.empty_cache()
 
     # the wrapper's host cost at a tiny shape: checks, tensor maps, launch
