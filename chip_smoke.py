@@ -8,12 +8,16 @@ Phases, each printing its own lines:
   2. build: compiles the kernels from renderformer_tpu_torch/csrc, and
      counts the wgmma (HGMMA) and TMA load (UTMALDG) instructions that
      cuobjdump finds in the bf16 flash forward's kernels (K1/K2, K10), which
-     must both be non-zero;
+     must both be non-zero, and the TF32 tensor-core instructions (HMMA
+     .TF32) of the fp32 flash forward and of the fp32 dK/dV kernels of the
+     flash backward (K8, K9's dK/dV), which must be non-zero, with their
+     spills and registers;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      every shape the v1-base, v1.1-swin-large and v1-base nerf 512^2 renders
      give it, in bf16 and fp32 (the flash forward without RoPE, K10, and the
      fused RMSNorm, K11, in the renders' bf16), with kernel, plain, library
-     and bound times (CUDA events, median), the tile plan of the bf16 flash
+     and bound times (CUDA events, median; K4 also by CUDA graphs of
+     calls, beside F.interpolate's), the tile plan of the bf16 flash
      forward at each site, and the flash forward (K1/K2 and K10, with and
      without the logsumexp) at its tile edges: Sq and Sk of 129 and 257, a
      batch row whose mask is all zero, a view fan-out;
@@ -33,7 +37,8 @@ Phases, each printing its own lines:
   6. training kernels: the forward with its logsumexp (K1/K2, timed in
      turn with the render's instantiation), K3, the flash backward through
      its wrapper (K8 fused; K9 two-kernel, each of its dQ and dK/dV kernels
-     timed alone against the plain version of its part), K4, K5 and the
+     timed alone against the plain version of its part; K8 also by bursts
+     of launches beside autograd of SDPA), K4, K5 and the
      transposed resize (K4^T) against their plain versions, at every shape
      of the v1-base train step, in bf16 and fp32, and K10 with its logsumexp
      and K11's forward and backward at the nerf train step's shapes and
@@ -250,6 +255,13 @@ def graph_burst_ms(fn, n=LSE_BURST, iters=10):
     return ms
 
 
+def burst_ms(fn, n=LSE_BURST):
+    """Milliseconds a call of fn() in bursts of n back-to-back calls between
+    two CUDA events, divided by n: the device time where the card outruns
+    the host's enqueue."""
+    return time_ms(lambda: [fn() for _ in range(n)]) / n
+
+
 def psnr(ref, x):
     mse = float(((ref - x) ** 2).mean())
     peak = float(ref.max() - ref.min())
@@ -322,11 +334,23 @@ def check_resize(rows, x, hw, per_run):
         else:
             tol, why = amax * 2.0 ** -22, 'same fp32 ops in the same order'
         xc = x.permute(0, 3, 1, 2)
+
+        def lib():
+            return F.interpolate(xc, size=hw, mode='bilinear', align_corners=True)
+
         record_row(rows, 'resize_bilinear', f'{n_in}to{hw[0]}', x.dtype, per_run, out, ref,
-                   tol, why, lambda: resize_bilinear(x, hw),
-                   lambda: F.interpolate(xc, size=hw, mode='bilinear', align_corners=True),
+                   tol, why, lambda: resize_bilinear(x, hw), lib,
                    b * (n_in * n_in + hw[0] * hw[1]) * c * it, 8 * b * hw[0] * hw[1] * c,
                    PEAK_FP32)
+        # host and device apart: the single call holds the host's enqueue
+        # where the card waits for it; a graph of LSE_BURST calls does not
+        row = rows[-1]
+        row['burst_ms'] = graph_burst_ms(lambda: resize_bilinear(x, hw))
+        row['library_burst_ms'] = graph_burst_ms(lib)
+        print(f'resize: resize_bilinear {row["site"]} {row["dtype"]}: single call '
+              f'{row["ms"]:.4f} ms against F.interpolate {row["library_ms"]:.4f}; device (graph '
+              f'of {LSE_BURST}) {row["burst_ms"]:.4f} ms a call against '
+              f'{row["library_burst_ms"]:.4f} (bound {row["bound_ms"]:.4f})', flush=True)
 
 
 def check_resize_s2d(rows, x, hw, per_run):
@@ -385,6 +409,7 @@ FLASH_EDGES = [
 ]
 SASS_KERNEL = 'flash_fwd_sm90_kernel'
 SASS_F32_KERNEL = 'flash_fwd_f32_kernel'
+SASS_BWD_KERNEL = 'flash_bwd_kv_kernel'
 
 
 def flash_rate(dtype):
@@ -410,26 +435,53 @@ def sass_counts(sass, kernel, ops):
     return counts
 
 
+def res_usage(lib_path, kernel):
+    """{instantiation of ``kernel``: 'REG:.. STACK:.. LOCAL:..'} by cuobjdump
+    -res-usage."""
+    cuobjdump = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    res = subprocess.run([cuobjdump, '-res-usage', lib_path], capture_output=True, text=True,
+                         timeout=300)
+    usage, cur = {}, None
+    for line in res.stdout.splitlines():
+        if 'Function ' in line:
+            name = line.split('Function ', 1)[1].strip().rstrip(':')
+            cur = name[name.index(kernel) + len(kernel):][:40] if kernel in name else None
+        elif cur and 'REG:' in line:
+            usage[cur] = ' '.join(w for w in line.split() if w.split(':')[0] in
+                                  ('REG', 'STACK', 'LOCAL', 'SHARED'))
+            cur = None
+    return usage
+
+
 def sass_check(lib_path):
     """Phase 2: HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
     of the bf16 flash forward's kernels, and TF32 HMMA (mma.sync on the
-    tensor cores) in each of the fp32 flash forward's, by cuobjdump; fails
-    unless every one has them."""
+    tensor cores) in each of the fp32 flash forward's and in each fp32
+    instantiation of the flash backward's dK/dV kernel (K8, and K9's dK/dV),
+    by cuobjdump; fails unless every one has them.  Spills (local loads and
+    stores) and registers of the fp32 kernels are printed beside them."""
     cuobjdump = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     res = subprocess.run([cuobjdump, '-sass', lib_path], capture_output=True, text=True,
                          timeout=300)
     if res.returncode:
         fail(f'cuobjdump: {res.stderr.strip()[:500]}')
     # each instantiation must hold the ops of ``need``; local-memory loads
-    # and stores (spills) of the fp32 kernel are counted beside them
-    for kernel, what, need, seen in ((SASS_KERNEL, 'bf16', ('HGMMA', 'UTMALDG'), ()),
-                                     (SASS_F32_KERNEL, 'fp32', ('HMMA TF32',), ('LDL', 'STL'))):
-        counts = sass_counts(res.stdout, kernel, need + seen)
-        print(f'build: sass of {len(counts)} {what} flash forward kernels ({kernel}): '
+    # and stores (spills) of the fp32 kernels are counted beside them
+    for kernel, what, need, seen, only in (
+            (SASS_KERNEL, 'bf16 flash forward', ('HGMMA', 'UTMALDG'), (), ''),
+            (SASS_F32_KERNEL, 'fp32 flash forward', ('HMMA TF32',), ('LDL', 'STL'), ''),
+            (SASS_BWD_KERNEL, 'fp32 flash backward dK/dV', ('HMMA TF32',), ('LDL', 'STL'),
+             'If')):
+        counts = {k: c for k, c in sass_counts(res.stdout, kernel, need + seen).items()
+                  if k.startswith(only)}
+        print(f'build: sass of {len(counts)} {what} kernels ({kernel}): '
               + ', '.join(f'{op} {sum(c[op] for c in counts.values())}' for op in need + seen)
               + '; ' + json.dumps(counts), flush=True)
+        if seen:
+            usage = {k: u for k, u in res_usage(lib_path, kernel).items() if k.startswith(only)}
+            print(f'build: resources of the {what} kernels: {json.dumps(usage)}', flush=True)
         if not counts or any(not c[op] for c in counts.values() for op in need):
-            fail(f'the {what} flash forward kernels lack {need}: {counts}')
+            fail(f'the {what} kernels lack {need}: {counts}')
 
 
 def print_plan(kernel, site, b, sq, h, dtype=None, sk=None):
@@ -903,8 +955,8 @@ def train_kernel_checks():
     from renderformer_tpu_torch.encodings.rope import make_cos_sin
     from renderformer_tpu_torch.ops import reference_kernels
     from renderformer_tpu_torch.ops.flash_attention import (
-        flash_bwd, flash_bwd_dkv_plain, flash_bwd_dq_plain, flash_fwd_rope, launch_flash_bwd,
-        launch_flash_fwd_rope, rot_kv_broadcast, rot_kv_broadcast_plain)
+        flash_bwd, flash_bwd_dkv_plain, flash_bwd_dq_plain, flash_bwd_splits, flash_fwd_rope,
+        launch_flash_bwd, launch_flash_fwd_rope, rot_kv_broadcast, rot_kv_broadcast_plain)
     from renderformer_tpu_torch.ops.fused_resize import resize_bilinear_t
 
     dev = torch.device('cuda')
@@ -927,10 +979,13 @@ def train_kernel_checks():
     ]
     for dtype in (torch.bfloat16, torch.float32):
         it = 2 if dtype == torch.bfloat16 else 4
-        flop_rate = PEAK_BF16_TENSOR if dtype == torch.bfloat16 else PEAK_FP32
         for site, sq, sk, masked, step_dtype, n in sites:
             if dtype == step_dtype:
                 print_plan('flash_fwd_rope', site, 1, sq, H, dtype, sk)
+                splits = flash_bwd_splits(dtype, 1, sq, sk, H)
+                print(f'plan: flash_bwd {site} {str(dtype).split(".")[-1]} B 1 x H {H} x Sk '
+                      f'{sk}: 64 keys a block, q steps split {splits} ways, '
+                      f'{-(-sk // 64) * H * splits} blocks', flush=True)
 
             def per_step(k, paths=ROPE_TRAIN):
                 return {p: k * n for p in paths} if dtype == step_dtype else {}
@@ -1012,16 +1067,28 @@ def train_kernel_checks():
                            per_step(1, (TRAIN, TRAIN_NERF)), fused, ref, tols, why,
                            lambda: flash_bwd(*io, 'fused'), lib_grad(ql, kl, vl),
                            b_in + sq * H * D * it + b_out_kv + b_out_q,
-                           10 * H * sq * sk * D, flop_rate)
+                           10 * H * sq * sk * D, flash_rate(dtype))
+            # the device's time: bursts of launches, the kernel's and autograd
+            # of SDPA's, beside the single calls
+            row = rows[-1]
+            with torch.no_grad():
+                row['burst_ms'] = burst_ms(lambda: launch_flash_bwd(lib, 'fused', *io))
+            row['library_burst_ms'] = burst_ms(lib_grad(ql, kl, vl))
+            print(f'bwd: {row["kernel"]} {site} {row["dtype"]}: bursts of {LSE_BURST} '
+                  f'{row["burst_ms"]:.4f} ms a launch against autograd of SDPA '
+                  f'{row["library_burst_ms"]:.4f} ({row["burst_ms"] / row["library_burst_ms"]:.3f}x;'
+                  f' bound {row["bound_ms"]:.4f}), single calls {row["ms"]:.4f} against '
+                  f'{row["library_ms"]:.4f}', flush=True)
+            with torch.no_grad():
                 two = flash_bwd(*io, 'twokernel')
                 record_row(rows, 'flash_bwd_dq', site, dtype, per_step(1, (TRAIN2,)), two[0],
                            ref[0], tols[0], why, lambda: launch_flash_bwd(lib, 'dq', *io),
-                           lib_grad(ql), b_in + b_out_q, 6 * H * sq * sk * D, flop_rate,
-                           plain_fn=lambda: flash_bwd_dq_plain(*io))
+                           lib_grad(ql), b_in + b_out_q, 6 * H * sq * sk * D,
+                           flash_rate(dtype), plain_fn=lambda: flash_bwd_dq_plain(*io))
                 record_row(rows, 'flash_bwd_dkv', site, dtype, per_step(1, (TRAIN2,)), two[1:],
                            ref[1:], tols[1:], why, lambda: launch_flash_bwd(lib, 'dkv', *io),
-                           lib_grad(kl, vl), b_in + b_out_kv, 8 * H * sq * sk * D, flop_rate,
-                           plain_fn=lambda: flash_bwd_dkv_plain(*io))
+                           lib_grad(kl, vl), b_in + b_out_kv, 8 * H * sq * sk * D,
+                           flash_rate(dtype), plain_fn=lambda: flash_bwd_dkv_plain(*io))
             del q, do, k, v, k_rot, ref_rot, out, lse, ref_out, ref, fused, two, ql, kl, vl, io
             del yl
             torch.cuda.empty_cache()

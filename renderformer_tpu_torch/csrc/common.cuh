@@ -103,4 +103,31 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(s));
 }
 
+// Clusters of `splits` blocks of `threads` threads and `smem` bytes of
+// dynamic shared memory that the current device holds of `kern` at once, or
+// 0 where a query fails; sets the kernel's shared-memory limit on the way.
+template <typename Kernel>
+int cluster_capacity(Kernel kern, int threads, size_t smem, int splits) {
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+      cudaSuccess)
+    return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits * 1024, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kern, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n;
+}
+
 }  // namespace rf

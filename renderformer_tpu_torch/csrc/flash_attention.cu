@@ -393,26 +393,9 @@ int f32_cluster_capacity(int splits) {
   static int cache[64][4] = {};
   const int slot = splits == 1 ? 0 : splits == 2 ? 1 : splits == 4 ? 2 : 3;
   if (cache[dev][slot]) return cache[dev][slot];
-  auto kern = flash_fwd_f32_kernel<true, true, true>;
-  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)sizeof(Smem)) != cudaSuccess)
-    return 0;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits * 1024, 1, 1);
-  cfg.blockDim = dim3(NTHREADS, 1, 1);
-  cfg.dynamicSmemBytes = sizeof(Smem);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, kern, &cfg) != cudaSuccess) {
-    cudaGetLastError();
-    return 0;
-  }
+  const int n = cluster_capacity(flash_fwd_f32_kernel<true, true, true>, NTHREADS,
+                                 sizeof(Smem), splits);
+  if (n <= 0) return 0;
   cache[dev][slot] = n;
   return n;
 }

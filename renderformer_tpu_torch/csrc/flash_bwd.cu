@@ -19,21 +19,42 @@
 // Bound on this card: five products of Sq x Sk x D per (b, h), 10*Sq*Sk*D
 // flops (K9 recomputes S and dP in its dQ kernel: 14*Sq*Sk*D) against
 // ~4*(Sq+Sk)*D elements moved, far above the ~295 flop/byte ridge, so the
-// tensor cores bound it.  Design: the TPU's sequential q-block grid with dK/dV
-// resident in VMEM has no GPU counterpart (blocks run in parallel, in no
-// order).  Here one block of 4 warps owns a 64-key tile of one (head, batch)
-// and loops over 32-row q tiles: K and V stay in shared memory, dK and dV
-// stay in registers (each warp 16 keys x D in mma C layout), P^T and dS^T are
-// reused from the C layout of S^T as A fragments of dV += P^T.dO and
-// dK += dS^T.q.  K8 also multiplies dQ = dS.K for the tile (dS^T staged in
-// shared memory, read back transposed by ldmatrix.trans) and adds it into an
-// fp32 scratch with atomics, so its sums run in a run-dependent order.  K9's
-// dK/dV kernel is the same kernel without dQ; its dQ kernel owns a 64-row q
-// tile and loops over key tiles, recomputing P, with dQ in registers: no
-// atomics, a deterministic result.  bf16 products are mma.sync m16n8k16 with
-// fp32 accumulators (common.cuh); the fp32 instantiation keeps the layouts and
-// multiplies with scalar FMAs, exact fp32 like the plain version.  No TMA,
-// wgmma or pipelined q tiles yet.
+// tensor cores bound it; in fp32 at a third of the TF32 rate, as split TF32.
+// Design: the TPU's sequential q-block grid with dK/dV resident in VMEM has no
+// GPU counterpart (blocks run in parallel, in no order).  Here one block of 4
+// warps owns a 64-key tile of one (head, batch) and loops over q tiles (32 rows
+// in bf16, 16 in fp32): K and V stay in shared memory, dK and dV stay in
+// registers (each warp 16 keys x D in mma C layout), P^T and dS^T are reused
+// from the C layout of S^T as A fragments of dV += P^T.dO and dK += dS^T.q.  The
+// q and dO tiles are double-buffered: step i+1's cp.async copies run while step
+// i multiplies, and each thread scales the q chunks it copied once they land,
+// so a step costs one barrier (two with dQ).  Where the key tiles fill less than
+// two waves of the card (the train step's sites: 96 and 198 tiles against 264
+// resident blocks), a tile's q steps split over the two blocks of a thread
+// block cluster, which sum their partial dK and dV through distributed shared
+// memory (kv_splits).  K8 also multiplies dQ = dS.K for the tile (dS^T staged in
+// shared memory) and adds it into an fp32 scratch with atomics, a float2
+// atomicAdd for the two adjacent columns a thread holds (sm_90), so its sums
+// run in a run-dependent order.  K9's dK/dV kernel is the same kernel without
+// dQ; its dQ kernel owns a 64-row q tile and loops over key tiles, recomputing
+// P, with dQ in registers: no atomics, a deterministic result.
+//
+// bf16 products are mma.sync m16n8k16 with fp32 accumulators (common.cuh). fp32
+// takes all five products on the tensor cores as split TF32 (x = hi + lo with
+// hi truncated to TF32, split_tf32_trunc below; three mma.m16n8k8.tf32 a
+// product, the small ones first, fp32 accumulators), with the operands split in
+// registers as their fragments are loaded: S^T and dP^T keep the large products
+// and the small ones in accumulators of their own, added before the bias; each
+// q step's dV and dK products go to a fresh accumulator that one FADD adds to
+// the running sum; dQ's 24 products of a tile share one accumulator.  The C
+// layout of S^T becomes the A layout of dV and dK by naming the q columns 8j+2t
+// and 8j+2t+1 of s[j] the k indices t and t+4; dO's and q's B fragments read
+// those two rows, and dQ reads dS from the fp32 stage.  Row strides of D+4 (K,
+// V, q, dO) and BQ+8 (the stage) keep every fragment load free of bank
+// conflicts.  16-row q steps hold the fp32 block at 105.5 KB of shared memory,
+// so two blocks share an SM (the bf16 kernel's registers allow two as
+// well).  K9's dQ kernel multiplies with scalar FMAs in fp32.
+#include <cooperative_groups.h>
 #include <math.h>
 
 #include <type_traits>
@@ -41,12 +62,12 @@
 #include "common.cuh"
 
 using namespace rf;
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int D = 128;       // the head dim of the released models
 constexpr int KV_BK = 64;    // keys a block owns (dK/dV kernels)
-constexpr int KV_BQ = 32;    // q rows a loop step (dK/dV kernels)
 constexpr int DQ_BQ = 64;    // q rows a block owns (K9 dQ kernel)
 constexpr int DQ_BK = 64;    // keys a loop step (K9 dQ kernel)
 constexpr int NTHREADS = 128;
@@ -59,13 +80,19 @@ constexpr int kVec = 16 / (int)sizeof(T);
 template <typename T>
 constexpr int kLd = D + kVec<T>;  // padded row stride of a [rows][D] tile
 
+// q rows a loop step of the dK/dV kernels: 32 in bf16; 16 in fp32, which
+// keeps the fp32 block at 105.5 KB of shared memory, so two fit on an SM
+template <typename T>
+constexpr int kKvBq = std::is_same<T, float>::value ? 16 : 32;
+
+// K and V; two buffers each of q and dO; two of the q rows' lse * log2(e)
+// and delta; the key bias; with dQ the dS^T stage, [KV_BK][BQ + 8] in the
+// input dtype
 template <typename T, bool WITH_DQ>
 constexpr size_t kv_smem_bytes() {
-  return (size_t)(2 * KV_BK + 2 * KV_BQ) * kLd<T> * sizeof(T) +
-         (size_t)(2 * KV_BQ + KV_BK) * sizeof(float) +
-         (std::is_same<T, float>::value
-              ? (size_t)2 * KV_BK * (KV_BQ + 4) * sizeof(float)
-              : (WITH_DQ ? (size_t)KV_BK * (KV_BQ + 8) * sizeof(T) : 0));
+  return (size_t)(2 * KV_BK + 4 * kKvBq<T>) * kLd<T> * sizeof(T) +
+         (size_t)(4 * kKvBq<T> + KV_BK) * sizeof(float) +
+         (WITH_DQ ? (size_t)KV_BK * (kKvBq<T> + 8) * sizeof(T) : 0);
 }
 
 template <typename T>
@@ -88,6 +115,17 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int bb, int h, i
   }
 }
 
+// x = hi + lo in two instructions: hi is x truncated to TF32 (its low 13
+// bits cleared, exact as a TF32 operand), lo = x - hi is exact in fp32 and
+// is passed as it is, the tensor cores reading a .tf32 operand's upper 19
+// bits.  |x - hi - lo| < 2^-20 |x|, twice split_tf32's (common.cuh: hi
+// rounded to nearest, two instructions more), which the emulation in
+// tests/test_torch_flash_bwd_fp32.py holds to the fp32 bar.
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xFFFFE000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
 // the key bias of keys [k0, k0 + n): -inf past Sk, -1e30 where masked, else 0
 template <bool HAS_MASK>
 __device__ __forceinline__ float key_bias(const uint8_t* mask, int b, int kj, int Sk) {
@@ -103,43 +141,47 @@ __device__ __forceinline__ float key_bias(const uint8_t* mask, int b, int kj, in
 //   A regs: {row g, cols 2t..2t+1}, {row g+8, ..}, {row g, cols 2t+8..}, {row g+8, ..};
 //   B regs: {k rows 2t..2t+1, col g}, {k rows 2t+8.., col g};
 //   C:      c0,c1 at row g, cols 2t, 2t+1; c2,c3 at row g+8.
+// and of mma.m16n8k8.tf32 (common.cuh): A a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+// a3 (g+8, t+4); B b0 (k t, n g), b1 (k t+4, n g); C as above.
 // Here the rows of S^T, dP^T, dK and dV are keys (warp w: keys 16w..16w+15) and
 // the columns of S^T and dP^T are the q rows of the loop step.
 template <typename T, bool HAS_MASK, bool WITH_DQ>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 2)
 flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, const uint8_t* __restrict__ mask,
                     float* __restrict__ dq_acc, T* __restrict__ dk, T* __restrict__ dv,
-                    int reps, int Sq, int Sk, int H, float qscale, float dqscale,
-                    float dkscale) {
+                    int reps, int Sq, int Sk, int H, int splits, float qscale,
+                    float dqscale, float dkscale) {
   constexpr bool kBF = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int LD = kLd<T>;
-  constexpr int NT = KV_BQ / 8;      // n8 tiles over a q step
-  constexpr int LDS = KV_BQ + 8;     // bf16 dS^T stage stride
-  constexpr int LDP = KV_BQ + 4;     // fp32 P^T / dS^T stage stride
+  constexpr int LD = kLd<T>, VEC = kVec<T>;
+  constexpr int BQ = kKvBq<T>;
+  constexpr int NT = BQ / 8;   // n8 tiles over a q step
+  constexpr int LDS = BQ + 8;  // dS^T stage stride
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);
   T* Vs = Ks + KV_BK * LD;
-  T* Qs = Vs + KV_BK * LD;
-  T* dOs = Qs + KV_BQ * LD;
-  float* lse2s = reinterpret_cast<float*>(dOs + KV_BQ * LD);
-  float* deltas = lse2s + KV_BQ;
-  float* kbias = deltas + KV_BQ;
-  float* Ps = kbias + KV_BK;           // fp32: [KV_BK][LDP] P^T, then dS^T
-  float* DSf = Ps + KV_BK * LDP;
-  T* dSs = reinterpret_cast<T*>(kbias + KV_BK);  // bf16 with dQ: [KV_BK][LDS]
+  T* Qs = Vs + KV_BK * LD;  // [2][BQ][LD]
+  T* dOs = Qs + 2 * BQ * LD;
+  float* lse2s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);  // [2][BQ]
+  float* deltas = lse2s + 2 * BQ;
+  float* kbias = deltas + 2 * BQ;
+  T* dSs = reinterpret_cast<T*>(kbias + KV_BK);  // with dQ: [KV_BK][LDS]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3, lm = lane >> 3, lr = lane & 7;
-  const int k0 = blockIdx.x * KV_BK, h = blockIdx.y, b = blockIdx.z;
+  const int part = blockIdx.x % splits;  // the block's rank in its cluster
+  const int k0 = (blockIdx.x / splits) * KV_BK, h = blockIdx.y, b = blockIdx.z;
   const int r0 = warp * 16 + g;  // this thread's keys: r0 and r0 + 8 of the tile
+  // the block's q steps: a contiguous part of the key tile's, split over the
+  // blocks of its cluster
+  const int nsteps = (Sq + BQ - 1) / BQ;
+  const int s0 = nsteps * part / splits, s1 = nsteps * (part + 1) / splits;
 
   // the block's K and V tiles, resident for the whole loop
   {
     const int rows = Sk - k0 < KV_BK ? Sk - k0 : KV_BK;
-    constexpr int VEC = kVec<T>;
     for (int i = tid; i < KV_BK * (D / VEC); i += NTHREADS) {
       const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
       const bool ok = r < rows;
@@ -147,8 +189,26 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       cp_async16(&Ks[r * LD + c], k + (((size_t)b * Sk + kr) * H + h) * D + c, ok);
       cp_async16(&Vs[r * LD + c], v + (((size_t)(b / reps) * Sk + kr) * H + h) * D + c, ok);
     }
-    cp_async_commit();
     if (tid < KV_BK) kbias[tid] = key_bias<HAS_MASK>(mask, b, k0 + tid, Sk);
+  }
+  // q and dO of a step into buffer buf, one commit group; the step's lse
+  // (times log2 e) and delta into registers of the first BQ threads
+  float lse2_next = 0.f, delta_next = 0.f;
+  auto load_step = [&](int it, int buf) {
+    load_rows(Qs + buf * BQ * LD, q, b, h, H, it * BQ, BQ, Sq, tid);
+    load_rows(dOs + buf * BQ * LD, dout, b, h, H, it * BQ, BQ, Sq, tid);
+    cp_async_commit();
+    if (tid < BQ) {
+      const int qi = it * BQ + tid;
+      const size_t o = ((size_t)b * H + h) * Sq + qi;
+      lse2_next = qi < Sq ? lse[o] * LOG2E_F : INFINITY;
+      delta_next = qi < Sq ? delta[o] : 0.f;
+    }
+  };
+  load_step(s0, 0);
+  if (tid < BQ) {
+    lse2s[tid] = lse2_next;
+    deltas[tid] = delta_next;
   }
 
   float dka[DT][4], dva[DT][4];
@@ -157,26 +217,40 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
 
-  for (int q0 = 0; q0 < Sq; q0 += KV_BQ) {
-    load_rows(Qs, q, b, h, H, q0, KV_BQ, Sq, tid);
-    load_rows(dOs, dout, b, h, H, q0, KV_BQ, Sq, tid);
-    cp_async_commit();
-    if (tid < KV_BQ) {
-      const int qi = q0 + tid;
-      const size_t o = ((size_t)b * H + h) * Sq + qi;
-      lse2s[tid] = qi < Sq ? lse[o] * LOG2E_F : INFINITY;
-      deltas[tid] = qi < Sq ? delta[o] : 0.f;
-    }
+  for (int it = s0; it < s1; ++it) {
+    const int buf = (it - s0) & 1, q0 = it * BQ;
+    T* Qb = Qs + buf * BQ * LD;
+    const T* dOb = dOs + buf * BQ * LD;
+    const float* lse2b = lse2s + buf * BQ;
+    const float* deltab = deltas + buf * BQ;
+    // this step's copies by this thread have landed (at step 0 K and V's
+    // too); q is scaled by D^-0.5 * log2(e) in fp32 and rounded to the input
+    // dtype in the 16-byte chunks this thread copied, so the scaling needs
+    // no pass and no barrier of its own
     cp_async_wait<0>();
-    __syncthreads();
-    // q scaled by D^-0.5 * log2(e) in fp32, rounded to the input dtype
-    for (int i = tid; i < KV_BQ * D; i += NTHREADS) {
-      T* p = &Qs[(i / D) * LD + i % D];
-      *p = from_float<T>(to_float(*p) * qscale);
+    for (int i = tid; i < BQ * (D / VEC); i += NTHREADS) {
+      T* p = &Qb[(i / (D / VEC)) * LD + (i % (D / VEC)) * VEC];
+      if constexpr (kBF) {
+        uint4 x = *reinterpret_cast<uint4*>(p);
+        uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[e]));
+          w[e] = pack_bf16(f.x * qscale, f.y * qscale);
+        }
+        *reinterpret_cast<uint4*>(p) = x;
+      } else {
+        float4 x = *reinterpret_cast<float4*>(p);
+        x = make_float4(x.x * qscale, x.y * qscale, x.z * qscale, x.w * qscale);
+        *reinterpret_cast<float4*>(p) = x;
+      }
     }
-    __syncthreads();
+    __syncthreads();  // the step's tiles are in place, and every thread is done with step it - 1
+    // the next step's copies run while this one multiplies; its buffer was
+    // last read in step it - 1
+    if (it + 1 < s1) load_step(it + 1, buf ^ 1);
 
-    // S^T = K Q^T and dP^T = V dO^T, [16 keys x KV_BQ] a warp
+    // S^T = K Q^T and dP^T = V dO^T, [16 keys x BQ] a warp
     float s[NT][4], dp[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -193,8 +267,8 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         for (int j = 0; j < NT; j += 2) {
           uint32_t qb[4], ob[4];
           const int br = (j + (lm >> 1)) * 8 + lr, bc = kk * 16 + (lm & 1) * 8;
-          ldmatrix_x4(qb, &Qs[br * LD + bc]);
-          ldmatrix_x4(ob, &dOs[br * LD + bc]);
+          ldmatrix_x4(qb, &Qb[br * LD + bc]);
+          ldmatrix_x4(ob, &dOb[br * LD + bc]);
           mma_bf16(s[j], ka, qb[0], qb[1]);
           mma_bf16(s[j + 1], ka, qb[2], qb[3]);
           mma_bf16(dp[j], va, ob[0], ob[1]);
@@ -202,21 +276,50 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         }
       }
     } else {
-      for (int d = 0; d < D; ++d) {
-        const float k0v = to_float(Ks[r0 * LD + d]), k1v = to_float(Ks[(r0 + 8) * LD + d]);
-        const float v0v = to_float(Vs[r0 * LD + d]), v1v = to_float(Vs[(r0 + 8) * LD + d]);
+      // split TF32: the hi*hi products in s and dp, the two small products
+      // of each k step (lo*hi first) in sl and dpl, added before the bias.
+      // Row stride D+4 keeps these 32-bit fragment loads free of bank
+      // conflicts (rows g: banks 4g + t)
+      float sl[NT][4], dpl[NT][4];
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = j * 8 + 2 * t4 + e;
-            const float qv = to_float(Qs[c * LD + d]), ov = to_float(dOs[c * LD + d]);
-            s[j][e] = fmaf(k0v, qv, s[j][e]);
-            s[j][2 + e] = fmaf(k1v, qv, s[j][2 + e]);
-            dp[j][e] = fmaf(v0v, ov, dp[j][e]);
-            dp[j][2 + e] = fmaf(v1v, ov, dp[j][2 + e]);
-          }
+        for (int e = 0; e < 4; ++e) sl[j][e] = dpl[j][e] = 0.f;
+#pragma unroll 4
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const int c = kk * 8 + t4;
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        split_tf32_trunc(Ks[r0 * LD + c], kh[0], kl[0]);
+        split_tf32_trunc(Ks[(r0 + 8) * LD + c], kh[1], kl[1]);
+        split_tf32_trunc(Ks[r0 * LD + c + 4], kh[2], kl[2]);
+        split_tf32_trunc(Ks[(r0 + 8) * LD + c + 4], kh[3], kl[3]);
+        split_tf32_trunc(Vs[r0 * LD + c], vh[0], vl[0]);
+        split_tf32_trunc(Vs[(r0 + 8) * LD + c], vh[1], vl[1]);
+        split_tf32_trunc(Vs[r0 * LD + c + 4], vh[2], vl[2]);
+        split_tf32_trunc(Vs[(r0 + 8) * LD + c + 4], vh[3], vl[3]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int o = (j * 8 + g) * LD + c;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32_trunc(Qb[o], bh0, bl0);
+          split_tf32_trunc(Qb[o + 4], bh1, bl1);
+          mma_tf32(sl[j], kl, bh0, bh1);
+          mma_tf32(sl[j], kh, bl0, bl1);
+          mma_tf32(s[j], kh, bh0, bh1);
+          split_tf32_trunc(dOb[o], bh0, bl0);
+          split_tf32_trunc(dOb[o + 4], bh1, bl1);
+          mma_tf32(dpl[j], vl, bh0, bh1);
+          mma_tf32(dpl[j], vh, bl0, bl1);
+          mma_tf32(dp[j], vh, bh0, bh1);
+        }
       }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] += sl[j][e];
+          dp[j][e] += dpl[j][e];
+        }
     }
 
     // P^T = exp2(s2 - lse2) and dS^T = (dP^T - delta) * P^T; s keeps P^T,
@@ -226,15 +329,28 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = j * 8 + 2 * t4 + (e & 1);
-        const float p = exp2f((s[j][e] + kbias[r0 + (e >> 1) * 8]) - lse2s[c]);
+        const float p = exp2f((s[j][e] + kbias[r0 + (e >> 1) * 8]) - lse2b[c]);
         s[j][e] = p;
-        dp[j][e] = to_float(from_float<T>((dp[j][e] - deltas[c]) * p));
+        dp[j][e] = to_float(from_float<T>((dp[j][e] - deltab[c]) * p));
       }
-
-    if constexpr (kBF) {
-      // dV += P^T dO and dK += dS^T Q, A fragments straight from the C layout
+    // dS^T staged for dQ, [key][q]
+    if constexpr (WITH_DQ) {
 #pragma unroll
-      for (int kk = 0; kk < KV_BQ / 16; ++kk) {
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          T* dst = &dSs[(r0 + hh * 8) * LDS + j * 8 + 2 * t4];
+          if constexpr (kBF)
+            *reinterpret_cast<uint32_t*>(dst) = pack_bf16(dp[j][2 * hh], dp[j][2 * hh + 1]);
+          else
+            *reinterpret_cast<float2*>(dst) = make_float2(dp[j][2 * hh], dp[j][2 * hh + 1]);
+        }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, A fragments straight from the C layout
+    if constexpr (kBF) {
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
         uint32_t pa[4], sa[4];
         pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
         pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
@@ -248,61 +364,66 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         for (int dt = 0; dt < DT; dt += 2) {
           uint32_t ob[4], qb[4];
           const int br = kk * 16 + (lm & 1) * 8 + lr, bc = (dt + (lm >> 1)) * 8;
-          ldmatrix_x4_trans(ob, &dOs[br * LD + bc]);
-          ldmatrix_x4_trans(qb, &Qs[br * LD + bc]);
+          ldmatrix_x4_trans(ob, &dOb[br * LD + bc]);
+          ldmatrix_x4_trans(qb, &Qb[br * LD + bc]);
           mma_bf16(dva[dt], pa, ob[0], ob[1]);
           mma_bf16(dva[dt + 1], pa, ob[2], ob[3]);
           mma_bf16(dka[dt], sa, qb[0], qb[1]);
           mma_bf16(dka[dt + 1], sa, qb[2], qb[3]);
         }
       }
-      if constexpr (WITH_DQ) {
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh)
-            *reinterpret_cast<uint32_t*>(&dSs[(r0 + hh * 8) * LDS + j * 8 + 2 * t4]) =
-                pack_bf16(dp[j][2 * hh], dp[j][2 * hh + 1]);
-      }
     } else {
-      // stage P^T and dS^T (fp32) for the scalar products of this warp's keys
+      // the k step j takes q rows 8j + 2t (index t) and 8j + 2t + 1 (index
+      // t + 4), the columns of s[j] and dp[j] this thread holds; dO's and
+      // q's B fragments read those two rows (banks 8t + g).  A step's
+      // products, the small ones first, go to a fresh accumulator that one
+      // FADD adds to dV or dK, so the tensor cores' additions never run
+      // over the whole q range
+      uint32_t ph[NT][4], pl[NT][4], dsh[NT][4], dsl[NT][4];
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+      for (int j = 0; j < NT; ++j) {
+        split_tf32_trunc(s[j][0], ph[j][0], pl[j][0]);
+        split_tf32_trunc(s[j][2], ph[j][1], pl[j][1]);
+        split_tf32_trunc(s[j][1], ph[j][2], pl[j][2]);
+        split_tf32_trunc(s[j][3], ph[j][3], pl[j][3]);
+        split_tf32_trunc(dp[j][0], dsh[j][0], dsl[j][0]);
+        split_tf32_trunc(dp[j][2], dsh[j][1], dsl[j][1]);
+        split_tf32_trunc(dp[j][1], dsh[j][2], dsl[j][2]);
+        split_tf32_trunc(dp[j][3], dsh[j][3], dsl[j][3]);
+      }
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        float tv[4] = {0.f, 0.f, 0.f, 0.f}, tk[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int o = (j * 8 + 2 * t4) * LD + dt * 8 + g;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32_trunc(dOb[o], bh0, bl0);
+          split_tf32_trunc(dOb[o + LD], bh1, bl1);
+          mma_3xtf32(tv, ph[j], pl[j], bh0, bh1, bl0, bl1);
+          split_tf32_trunc(Qb[o], bh0, bl0);
+          split_tf32_trunc(Qb[o + LD], bh1, bl1);
+          mma_3xtf32(tk, dsh[j], dsl[j], bh0, bh1, bl0, bl1);
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int o = (r0 + (e >> 1) * 8) * LDP + j * 8 + 2 * t4 + (e & 1);
-          Ps[o] = s[j][e];
-          DSf[o] = dp[j][e];
+          dva[dt][e] += tv[e];
+          dka[dt][e] += tk[e];
         }
-      __syncwarp();
-      for (int c = 0; c < KV_BQ; ++c) {
-        const float p0 = Ps[r0 * LDP + c], p1 = Ps[(r0 + 8) * LDP + c];
-        const float d0 = DSf[r0 * LDP + c], d1 = DSf[(r0 + 8) * LDP + c];
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = dt * 8 + 2 * t4 + e;
-            const float ov = to_float(dOs[c * LD + col]), qv = to_float(Qs[c * LD + col]);
-            dva[dt][e] = fmaf(p0, ov, dva[dt][e]);
-            dva[dt][2 + e] = fmaf(p1, ov, dva[dt][2 + e]);
-            dka[dt][e] = fmaf(d0, qv, dka[dt][e]);
-            dka[dt][2 + e] = fmaf(d1, qv, dka[dt][2 + e]);
-          }
       }
     }
 
     if constexpr (WITH_DQ) {
-      // dQ[q, :] += scale * sum over the tile's keys of dS^T[key, q] K[key, :];
-      // warp w: q rows 16 (w & 1) .., head-dim columns 64 (w >> 1) ..
       __syncthreads();  // every warp's dS^T is staged
-      const int mt = warp & 1, dh = warp >> 1;
-      float acc[DT / 2][4];
-#pragma unroll
-      for (int dt = 0; dt < DT / 2; ++dt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
       if constexpr (kBF) {
+        // dQ[q, :] += scale * sum over the tile's keys of dS^T[key, q] K[key, :];
+        // warp w: q rows 16 (w & 1) .., head-dim columns 64 (w >> 1) ..
+        const int mt = warp & 1, dh = warp >> 1;
+        float acc[DT / 2][4];
+#pragma unroll
+        for (int dt = 0; dt < DT / 2; ++dt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < KV_BK / 16; ++kk) {
           uint32_t a[4];
@@ -318,34 +439,113 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
             mma_bf16(acc[dt + 1], a, kb[2], kb[3]);
           }
         }
-      } else {
-        const int qr = mt * 16 + g;
-        for (int kj = 0; kj < KV_BK; ++kj) {
-          const float a0 = DSf[kj * LDP + qr], a1 = DSf[kj * LDP + qr + 8];
 #pragma unroll
-          for (int dt = 0; dt < DT / 2; ++dt)
+        for (int hh = 0; hh < 2; ++hh) {
+          const int qi = q0 + mt * 16 + g + hh * 8;
+          if (qi < Sq) {
+            float* dst = dq_acc + (((size_t)b * Sq + qi) * H + h) * D + dh * 64;
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float kv = to_float(Ks[kj * LD + dh * 64 + dt * 8 + 2 * t4 + e]);
-              acc[dt][e] = fmaf(a0, kv, acc[dt][e]);
-              acc[dt][2 + e] = fmaf(a1, kv, acc[dt][2 + e]);
-            }
+            for (int dt = 0; dt < DT / 2; ++dt)
+              atomicAdd(reinterpret_cast<float2*>(dst + dt * 8 + 2 * t4),
+                        make_float2(acc[dt][2 * hh] * dqscale, acc[dt][2 * hh + 1] * dqscale));
+          }
         }
-      }
+      } else {
+        // dQ of the step's q rows in split TF32, 16 at a time, warp w:
+        // head-dim columns 32w ..; A = dS [q][key] read from the dS^T stage
+        // (banks 24t + g at BQ 16), K's B fragment at keys 8kk + t and + 4
+        // (banks 4t + g); the 24 products of the tile in one accumulator,
+        // the small ones of each k step first
+        constexpr int NB = DT / 4;
+#pragma unroll 1
+        for (int mt = 0; mt < BQ / 16; ++mt) {
+          float acc[NB][4];
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int qi = q0 + mt * 16 + g + hh * 8;
-        if (qi < Sq) {
-          float* dst = dq_acc + (((size_t)b * Sq + qi) * H + h) * D + dh * 64;
+          for (int n = 0; n < NB; ++n)
 #pragma unroll
-          for (int dt = 0; dt < DT / 2; ++dt)
+            for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll 2
+          for (int kk = 0; kk < KV_BK / 8; ++kk) {
+            const float* a = &dSs[(kk * 8 + t4) * LDS + mt * 16 + g];
+            uint32_t ah[4], al[4];
+            split_tf32_trunc(a[0], ah[0], al[0]);
+            split_tf32_trunc(a[8], ah[1], al[1]);
+            split_tf32_trunc(a[4 * LDS], ah[2], al[2]);
+            split_tf32_trunc(a[4 * LDS + 8], ah[3], al[3]);
 #pragma unroll
-            for (int e = 0; e < 2; ++e)
-              atomicAdd(dst + dt * 8 + 2 * t4 + e, acc[dt][2 * hh + e] * dqscale);
+            for (int n = 0; n < NB; ++n) {
+              const float* kb = &Ks[(kk * 8 + t4) * LD + warp * 32 + n * 8 + g];
+              uint32_t bh0, bl0, bh1, bl1;
+              split_tf32_trunc(kb[0], bh0, bl0);
+              split_tf32_trunc(kb[4 * LD], bh1, bl1);
+              mma_3xtf32(acc[n], ah, al, bh0, bh1, bl0, bl1);
+            }
+          }
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int qi = q0 + mt * 16 + g + hh * 8;
+            if (qi < Sq) {
+              float* dst = dq_acc + (((size_t)b * Sq + qi) * H + h) * D + warp * 32;
+#pragma unroll
+              for (int n = 0; n < NB; ++n)
+                atomicAdd(reinterpret_cast<float2*>(dst + n * 8 + 2 * t4),
+                          make_float2(acc[n][2 * hh] * dqscale, acc[n][2 * hh + 1] * dqscale));
+            }
+          }
         }
       }
     }
-    __syncthreads();  // the q, dO and stage buffers are free for the next step
+    // the next step's lse and delta land in the buffer step it - 1 used
+    if (it + 1 < s1 && tid < BQ) {
+      lse2s[(buf ^ 1) * BQ + tid] = lse2_next;
+      deltas[(buf ^ 1) * BQ + tid] = delta_next;
+    }
+  }
+
+  if (splits > 1) {
+    // the q split: each block leaves its partial dK and dV in its own shared
+    // memory, and after a cluster barrier each block sums a slice of the
+    // keys over every block's partials, in rank order, through distributed
+    // shared memory
+    constexpr int LDM = D + 4;
+    float* pk = reinterpret_cast<float*>(smem_raw);  // [KV_BK][LDM] dK, then dV
+    float* pv = pk + KV_BK * LDM;
+    __syncthreads();  // every warp is done with K, V and the q tiles
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const int o = (r0 + hh * 8) * LDM + dt * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(&pk[o]) = make_float2(dka[dt][2 * hh], dka[dt][2 * hh + 1]);
+        *reinterpret_cast<float2*>(&pv[o]) = make_float2(dva[dt][2 * hh], dva[dt][2 * hh + 1]);
+      }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int rows = KV_BK / splits;
+    for (int i = tid; i < rows * (D / 4); i += NTHREADS) {
+      const int r = part * rows + i / (D / 4), c = (i % (D / 4)) * 4, kj = k0 + r;
+      if (kj >= Sk) continue;
+      float4 sk4 = make_float4(0.f, 0.f, 0.f, 0.f), sv4 = sk4;
+      for (int cr = 0; cr < splits; ++cr) {
+        const float4 a = *reinterpret_cast<const float4*>(cluster.map_shared_rank(pk, cr) +
+                                                          r * LDM + c);
+        const float4 bv = *reinterpret_cast<const float4*>(cluster.map_shared_rank(pv, cr) +
+                                                           r * LDM + c);
+        sk4 = make_float4(sk4.x + a.x, sk4.y + a.y, sk4.z + a.z, sk4.w + a.w);
+        sv4 = make_float4(sv4.x + bv.x, sv4.y + bv.y, sv4.z + bv.z, sv4.w + bv.w);
+      }
+      const size_t o = (((size_t)b * Sk + kj) * H + h) * D + c;
+      dk[o] = from_float<T>(sk4.x * dkscale);
+      dk[o + 1] = from_float<T>(sk4.y * dkscale);
+      dk[o + 2] = from_float<T>(sk4.z * dkscale);
+      dk[o + 3] = from_float<T>(sk4.w * dkscale);
+      dv[o] = from_float<T>(sv4.x);
+      dv[o + 1] = from_float<T>(sv4.y);
+      dv[o + 2] = from_float<T>(sv4.z);
+      dv[o + 3] = from_float<T>(sv4.w);
+    }
+    cluster.sync();  // no block leaves while another reads its shared memory
+    return;
   }
 
   // epilogue: dK takes 1/log2(e), both cast to the input dtype
@@ -542,23 +742,71 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
+// Clusters of `splits` blocks of the dK/dV kernel that the current device
+// holds at once (cached per instantiation and device), or 0 where the query
+// fails.
+template <typename T, bool HAS_MASK, bool WITH_DQ>
+int kv_cluster_capacity(int splits) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
+  static int cache[64][2] = {};
+  const int slot = splits == 1 ? 0 : 1;
+  if (cache[dev][slot]) return cache[dev][slot];
+  const int n = cluster_capacity(flash_bwd_kv_kernel<T, HAS_MASK, WITH_DQ>, NTHREADS,
+                                 kv_smem_bytes<T, WITH_DQ>(), splits);
+  if (n <= 0) return 0;
+  cache[dev][slot] = n;
+  return n;
+}
+
+// Blocks a key tile's q steps split across: 2 where the key tiles fill less
+// than two waves of the blocks the card holds at once, else 1.  Below two
+// waves some SMs run one block while others run two, or sit idle; halves
+// of a tile even that out, at the cost of loading K and V twice and one
+// merge.  Forced at the train step's fp32 sites (tools/torch_flash_ab.py
+// --bwd, H100): cross, 198 key tiles on 264 resident blocks, 1 / 2 / 4
+// ways 0.50 / 0.44 / 0.48 ms; ray self, 96 tiles, 0.36 / 0.26 / 0.27.
+template <typename T, bool HAS_MASK, bool WITH_DQ>
+int kv_splits(int B, int Sq, int Sk, int H) {
+  const long tiles = (long)((Sk + KV_BK - 1) / KV_BK) * H * B;
+  const int nsteps = (Sq + kKvBq<T> - 1) / kKvBq<T>;
+  const int cap1 = kv_cluster_capacity<T, HAS_MASK, WITH_DQ>(1);
+  if (nsteps < 2 || cap1 <= 0 || tiles >= 2L * cap1) return 1;
+  return kv_cluster_capacity<T, HAS_MASK, WITH_DQ>(2) > 0 ? 2 : 1;
+}
+
 template <typename T, bool HAS_MASK, bool WITH_DQ>
 cudaError_t launch_kv(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, const void* mask, void* dq_acc,
                       void* dk, void* dv, int B, int reps, int Sq, int Sk, int H, float qscale,
                       float dqscale, float dkscale, cudaStream_t stream) {
   constexpr size_t smem = kv_smem_bytes<T, WITH_DQ>();
+  static_assert(smem >= (size_t)2 * KV_BK * (D + 4) * sizeof(float),
+                "the q split's partial dK and dV reuse the tiles' shared memory");
   auto kern = flash_bwd_kv_kernel<T, HAS_MASK, WITH_DQ>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sk + KV_BK - 1) / KV_BK, H, B);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  const int splits = kv_splits<T, HAS_MASK, WITH_DQ>(B, Sq, Sk, H);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Sk + KV_BK - 1) / KV_BK * splits, H, B);
+  cfg.blockDim = dim3(NTHREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
       static_cast<float*>(dq_acc), static_cast<T*>(dk), static_cast<T*>(dv), reps, Sq, Sk, H,
-      qscale, dqscale, dkscale);
+      splits, qscale, dqscale, dkscale);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -634,4 +882,13 @@ extern "C" int rf_flash_bwd_dq(const void* q, const void* k, const void* v, cons
   if (dtype == kF32) return has_mask ? RF_DQ(float, true) : RF_DQ(float, false);
 #undef RF_DQ
   return cudaErrorInvalidValue;
+}
+
+// Blocks (one thread block cluster) that share a key tile's q steps in the
+// dK/dV kernel at this grid on the current device (K8's masked
+// instantiation; K9's dK/dV kernel has the same shared memory and grid).
+extern "C" int rf_flash_bwd_splits(int dtype, int B, int Sq, int Sk, int H) {
+  if (dtype == kBF16) return kv_splits<__nv_bfloat16, true, true>(B, Sq, Sk, H);
+  if (dtype == kF32) return kv_splits<float, true, true>(B, Sq, Sk, H);
+  return 0;
 }

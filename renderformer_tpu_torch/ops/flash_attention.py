@@ -139,6 +139,15 @@ def flash_fwd_splits(dtype, b: int, sq: int, sk: int, h: int) -> int:
         _build.DTYPE_CODES[str(dtype).split('.')[-1]], b, sq, sk, h)
 
 
+def flash_bwd_splits(dtype, b: int, sq: int, sk: int, h: int) -> int:
+    """Blocks (one thread block cluster) that share the q steps of a key tile
+    of the CUDA flash backward's dK/dV kernel (K8, K9's dK/dV) at this grid
+    on the current card (1 or 2), their partial dK and dV summed through
+    the cluster's shared memory."""
+    return _build.library().rf_flash_bwd_splits(
+        _build.DTYPE_CODES[str(dtype).split('.')[-1]], b, sq, sk, h)
+
+
 def _check_kernel_dtype(what, t):
     if t.dtype not in KERNEL_DTYPES:
         raise ValueError(f'{what} kernel takes {KERNEL_DTYPES}, got {t.dtype}')

@@ -10,6 +10,7 @@ them on the card."""
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Tuple
 
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from renderformer_tpu_torch import _build
-from renderformer_tpu_torch.ops import LAUNCHES, check_cuda_tensor, use_plain
+from renderformer_tpu_torch.ops import LAUNCHES, use_plain
 from renderformer_tpu_torch.ops.s2d_conv import depth_to_space, space_to_depth
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -135,37 +136,53 @@ def _check_input(x, out_hw):
     return oh, ow
 
 
-def _launch(fn_name, x, out, oh, ow):
-    b, ih, iw, c = x.shape
-    if x.dtype not in KERNEL_DTYPES:
+# dtype -> (its code in the C interface, elements in 16 bytes)
+_CODES = {torch.bfloat16: (_build.DTYPE_CODES['bfloat16'], 8),
+          torch.float32: (_build.DTYPE_CODES['float32'], 4)}
+_fns = {}
+_ptr = ctypes.c_void_p
+
+
+def _kernel(name):
+    """The C entry point ``name`` of the kernel library, looked up once, as a
+    function object of its own without argtypes: a ctypes call converts the
+    ints and the ``c_void_p`` pointers it is given at half the cost of one
+    that checks each against declared argtypes."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = _build.library()[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _kernel_args(name, x, c):
+    """Check x [B, H, W, C] (contiguous, as ``_check_input`` saw it) for a
+    resize kernel on the card: a kernel dtype, 16-byte channel vectors, a
+    16-byte aligned start; returns (x's address, its dtype code, the raw
+    current stream), the two pointers as ``c_void_p``."""
+    code, vec = _CODES.get(x.dtype, (None, 0))
+    if code is None:
         raise ValueError(f'resize kernel takes {KERNEL_DTYPES}, got {x.dtype}')
-    if (c * x.element_size()) % 16:
+    if c % vec:
         raise ValueError(f'resize kernel needs C*itemsize % 16 == 0, got C={c}')
-    check_cuda_tensor('x', x, x.dtype, (b, ih, iw, c))
-    rc = getattr(_build.library(), fn_name)(
-        x.data_ptr(), out.data_ptr(), _build.DTYPE_CODES[str(x.dtype).split('.')[-1]],
-        b, ih, iw, oh, ow, c, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, fn_name)
-    return out
+    xp = x.data_ptr()
+    if xp % 16:
+        raise ValueError(f'{name}: expected a 16-byte aligned tensor')
+    return _ptr(xp), code, _ptr(torch._C._cuda_getCurrentRawStream(x.get_device()))
 
 
-def _resize_fwd(x, oh, ow):
+def _resize_fwd(x, oh, ow, s2d=False):
+    """K4 (or with ``s2d`` K5) on x [B, IH, IW, C], or its plain version."""
     if use_plain(x):
-        return resize_bilinear_plain(x, (oh, ow))
-    b, _, _, c = x.shape
-    out = _launch('rf_resize_bilinear', x,
-                  torch.empty((b, oh, ow, c), dtype=x.dtype, device=x.device), oh, ow)
-    LAUNCHES['resize_bilinear'] += 1
-    return out
-
-
-def _resize_s2d_fwd(x, oh, ow):
-    if use_plain(x):
-        return resize_s2d_plain(x, (oh, ow))
-    b, _, _, c = x.shape
-    out = _launch('rf_resize_s2d', x, torch.empty(
-        (b, oh // 2, ow // 2, 4 * c), dtype=x.dtype, device=x.device), oh, ow)
-    LAUNCHES['resize_s2d'] += 1
+        return resize_s2d_plain(x, (oh, ow)) if s2d else resize_bilinear_plain(x, (oh, ow))
+    b, ih, iw, c = x.shape
+    xp, code, stream = _kernel_args('x', x, c)
+    name = 'rf_resize_s2d' if s2d else 'rf_resize_bilinear'
+    out = x.new_empty((b, oh // 2, ow // 2, 4 * c) if s2d else (b, oh, ow, c))
+    rc = _kernel(name)(xp, _ptr(out.data_ptr()), code, b, ih, iw, oh, ow, c, stream)
+    if rc:
+        _build.check(rc, name)
+    LAUNCHES['resize_s2d' if s2d else 'resize_bilinear'] += 1
     return out
 
 
@@ -176,20 +193,16 @@ def resize_bilinear_t(g, in_hw: Tuple[int, int]):
     if use_plain(g):
         return resize_bilinear_t_plain(g, (ih, iw))
     b, oh, ow, c = g.shape
-    if g.dtype not in KERNEL_DTYPES:
-        raise ValueError(f'resize kernel takes {KERNEL_DTYPES}, got {g.dtype}')
-    if (c * g.element_size()) % 16:
-        raise ValueError(f'resize kernel needs C*itemsize % 16 == 0, got C={c}')
-    check_cuda_tensor('g', g, g.dtype, (b, oh, ow, c))
+    gp, code, stream = _kernel_args('g', g, c)
     span_h, w_h = _device_adjoint_taps(ih, oh, g.device)
     span_w, w_w = _device_adjoint_taps(iw, ow, g.device)
-    out = torch.empty((b, ih, iw, c), dtype=g.dtype, device=g.device)
-    rc = _build.library().rf_resize_bilinear_t(
-        g.data_ptr(), out.data_ptr(), span_h.data_ptr(), w_h.data_ptr(), w_h.shape[1],
-        span_w.data_ptr(), w_w.data_ptr(), w_w.shape[1],
-        _build.DTYPE_CODES[str(g.dtype).split('.')[-1]], b, ih, iw, oh, ow, c,
-        torch.cuda.current_stream(g.device).cuda_stream)
-    _build.check(rc, 'rf_resize_bilinear_t')
+    out = g.new_empty((b, ih, iw, c))
+    rc = _kernel('rf_resize_bilinear_t')(
+        gp, _ptr(out.data_ptr()), _ptr(span_h.data_ptr()), _ptr(w_h.data_ptr()), w_h.shape[1],
+        _ptr(span_w.data_ptr()), _ptr(w_w.data_ptr()), w_w.shape[1], code, b, ih, iw, oh, ow,
+        c, stream)
+    if rc:
+        _build.check(rc, 'rf_resize_bilinear_t')
     LAUNCHES['resize_bilinear_t'] += 1
     return out
 
@@ -213,22 +226,18 @@ class _ResizeS2d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, oh, ow):
         ctx.in_hw = (x.shape[1], x.shape[2])
-        return _resize_s2d_fwd(x, oh, ow)
+        return _resize_fwd(x, oh, ow, s2d=True)
 
     @staticmethod
     def backward(ctx, g):
         return resize_bilinear_t(depth_to_space(g).contiguous(), ctx.in_hw), None, None
 
 
-def _tracked(x):
-    return torch.is_grad_enabled() and x.requires_grad
-
-
 def resize_bilinear(x, out_hw: Tuple[int, int]):
     """[B, IH, IW, C] -> [B, OH, OW, C], align_corners=True; differentiable
     (backward K4^T)."""
     oh, ow = _check_input(x, out_hw)
-    if _tracked(x):
+    if x.requires_grad and torch.is_grad_enabled():
         return _Resize.apply(x, oh, ow)
     return _resize_fwd(x, oh, ow)
 
@@ -240,6 +249,6 @@ def resize_s2d(x, out_hw: Tuple[int, int]):
     oh, ow = _check_input(x, out_hw)
     if oh % 2 or ow % 2:
         raise ValueError(f'space-to-depth needs an even output size, got {out_hw}')
-    if _tracked(x):
+    if x.requires_grad and torch.is_grad_enabled():
         return _ResizeS2d.apply(x, oh, ow)
-    return _resize_s2d_fwd(x, oh, ow)
+    return _resize_fwd(x, oh, ow, s2d=True)

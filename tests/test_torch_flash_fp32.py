@@ -49,6 +49,19 @@ SPLITS = (1, 2, 4, 8)
 ROUNDINGS = ('nearest', 'toward_zero')
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_thread():
+    """One intra-op thread for this module's float64 emulation: the suite
+    runs in parallel workers, and these products, each small, lose far more
+    to threads that wait on one another across busy cores than they gain
+    (one case of the forward's emulation took 20x its one-thread time that
+    way)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """fp32 rounded to 10 mantissa bits, to nearest with ties away from zero
     (``cvt.rna``): half a TF32 ulp added to the magnitude bits, the low 13

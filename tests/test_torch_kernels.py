@@ -61,6 +61,26 @@ def test_resize_s2d_kernel_matches_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('name', ['resize_bilinear', 'resize_s2d', 'resize_bilinear_t'])
+def test_resize_kernels_refuse_what_they_do_not_take(cuda, name):
+    """K4, K5 and K4^T raise on a CUDA tensor they cannot take: no plain
+    fallback."""
+    fn = {'resize_bilinear': lambda x: resize_bilinear(x, (8, 8)),
+          'resize_s2d': lambda x: resize_s2d(x, (8, 8)),
+          'resize_bilinear_t': lambda x: resize_bilinear_t(x, (2, 2))}[name]
+    bad = [_randn((1, 4, 4, 6), torch.float32, cuda),          # C * 4 bytes, not 16-byte vectors
+           _randn((1, 4, 4, 8), torch.float16, cuda),          # no fp16 kernel
+           _randn((1, 4, 4, 8), torch.float32, cuda).transpose(1, 2),  # not contiguous
+           torch.zeros(129, device=cuda)[1:].view(1, 4, 4, 8),  # 4 bytes past 16-byte alignment
+           _randn((4, 4, 8), torch.float32, cuda)]             # not [B, H, W, C]
+    with torch.no_grad():
+        for x in bad:
+            with pytest.raises(ValueError):
+                fn(x)
+        assert fn(_randn((1, 4, 4, 8), torch.float32, cuda)).is_cuda
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('inverse', [False, True])
 def test_regroup_kernel_matches_plain(cuda, dtype, inverse):

@@ -1,6 +1,7 @@
-"""A/B timing of the port's flash-attention forward (K1/K2 and K10) on one GPU.
+"""A/B timing of the port's flash-attention forward (K1/K2 and K10) or backward (K8, K9) on one GPU.
 
     python3 tools/torch_flash_ab.py --parent OLD_DIR [--burst 20] [--fp32] [--sites a,b]
+    python3 tools/torch_flash_ab.py --parent OLD_DIR --bwd [--burst 20] [--sites a,b]
 
 Builds every ``*.cu`` in ``OLD_DIR`` (a parent's ``flash_attention.cu``,
 with its ``common.cuh``, ``flash_fwd_sm90.cu`` and any other source it
@@ -21,6 +22,16 @@ launch) is timed in turns at a tiny shape, where the card waits for the
 host.  Prints the card's nvidia-smi line, then one JSON line a site and
 dtype.  Both versions run in one process on one card, so their times
 compare.
+
+With ``--bwd`` (``OLD_DIR`` holding a parent's ``flash_bwd.cu`` and
+``common.cuh``) the backward is timed instead, at the v1-base and nerf
+256^2 train step's sites in the dtype the step runs there (the bf16
+stage-1 self-attention, the fp32 cross- and ray self-attention; the nerf
+step's sites have the same shapes): K8 (``'fused'``) and K9's dK/dV kernel
+(``'dkv'``, the same template without dQ), each turn the median of bursts
+checked against the plain backward, beside the autograd of SDPA on the same
+inputs (all three gradients, and dk/dv alone) and the bound (bf16 tensor
+cores; for fp32 split TF32, and scalar fp32 FMAs beside it).
 """
 
 import argparse
@@ -112,11 +123,94 @@ def build_parent(src_dir, out_dir):
                     *sorted(glob.glob(os.path.join(src_dir, '*.cu'))), '-o', so], check=True,
                    stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
     lib = ctypes.CDLL(so)
-    for name in ('rf_flash_fwd_rope', 'rf_flash_fwd'):
+    for name in ('rf_flash_fwd_rope', 'rf_flash_fwd', 'rf_flash_bwd_kv', 'rf_flash_bwd_dq'):
+        if not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = _build.SIGNATURES[name]
         fn.restype = ctypes.c_int
     return lib
+
+
+BWD_SITES = [  # name, dtype name, Sq, Sk, masked: the train step's sites, H 6
+    ('train_stage1_self', 'bfloat16', 2064, 2064, True),
+    ('train_cross', 'float32', 1024, 2064, True),
+    ('train_ray_self', 'float32', 1024, 1024, False),
+]
+
+
+def bwd_main(args):
+    """The backward's A/B (``--bwd``)."""
+    import torch
+    import torch.nn.functional as F
+    from renderformer_tpu_torch import _build
+    from renderformer_tpu_torch.ops import reference_kernels
+    from renderformer_tpu_torch.ops.flash_attention import (
+        flash_bwd, flash_bwd_splits, flash_fwd, launch_flash_bwd)
+
+    if not torch.cuda.is_available():
+        sys.exit('needs a CUDA device')
+    os.makedirs(_build.BUILD_ROOT, exist_ok=True)
+    change = _build.library()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
+        parent = build_parent(os.path.abspath(args.parent), tmp)
+    print(subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+        capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    g = torch.Generator(device='cuda').manual_seed(0)
+    h = 6
+    for site, dtname, sq, sk, masked in BWD_SITES:
+        if args.sites and site not in args.sites.split(','):
+            continue
+        dt = getattr(torch, dtname)
+        q, do = (torch.randn(1, sq, h, 128, generator=g, device='cuda').to(dt) for _ in range(2))
+        k, v = (torch.randn(1, sk, h, 128, generator=g, device='cuda').to(dt) for _ in range(2))
+        mask = None
+        if masked:
+            mask = torch.ones(1, sk, dtype=torch.bool, device='cuda')
+            mask[:, 1552:] = False  # a padded tail of triangles
+        with torch.no_grad():
+            with reference_kernels():
+                out, lse = flash_fwd(q, k, v, mask, with_lse=True)
+            delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            io = (q, k, v, mask, lse, delta, do)
+            with reference_kernels():
+                ref = flash_bwd(*io)
+            # chip_smoke.py's bar: 2 * attention_tol per output
+            tols = [float(r.float().abs().max()) * (8 * 2.0 ** -8 if dt == torch.bfloat16
+                                                    else 2.0 ** -15) for r in ref]
+            res = {}
+            for kernels in ('fused', 'dkv'):
+                for name, lib in (('parent', parent), ('change', change),
+                                  ('change', change), ('parent', parent)):
+                    got = launch_flash_bwd(lib, kernels, *io)
+                    worst = max(float((x.float() - r.float()).abs().max()) / t
+                                for x, r, t in zip(got, ref, tols) if x is not None)
+                    ms = time_ms(lambda: launch_flash_bwd(lib, kernels, *io), args.iters,
+                                 args.burst)
+                    res.setdefault(f'{kernels}_{name}', []).append(
+                        (round(ms, 4), round(worst, 4)))
+        qs, ks, vs = (t.detach().transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        am = mask[:, None, None, :] if masked else None
+        y = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am)
+        gy = do.transpose(1, 2).contiguous()
+        sdpa = time_ms(lambda: torch.autograd.grad(y, (qs, ks, vs), gy, retain_graph=True),
+                       args.iters, args.burst)
+        sdpa_kv = time_ms(lambda: torch.autograd.grad(y, (ks, vs), gy, retain_graph=True),
+                          args.iters, args.burst)
+        flops = 10 * h * sq * sk * 128
+        bound = {'bound_ms': round(flops / PEAK_BF16_TENSOR * 1e3, 4)}
+        if dt == torch.float32:
+            bound = {'bound_ms': round(3 * flops / PEAK_TF32 * 1e3, 4),
+                     'bound_simt_ms': round(flops / PEAK_FP32 * 1e3, 4)}
+        print(json.dumps({'site': site, 'dtype': dtname,
+                          'splits': flash_bwd_splits(dt, 1, sq, sk, h),
+                          'turns (ms, err/bar)': res,
+                          'sdpa_bwd_ms': round(sdpa, 4), 'sdpa_bwd_kv_ms': round(sdpa_kv, 4),
+                          **bound}), flush=True)
+        del q, do, k, v, out, lse, delta, io, ref, qs, ks, vs, y, gy
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -127,8 +221,12 @@ def main():
     ap.add_argument('--iters', type=int, default=10)
     ap.add_argument('--burst', type=int, default=20)
     ap.add_argument('--fp32', action='store_true', help='also time the fp32 kernel')
+    ap.add_argument('--bwd', action='store_true',
+                    help="time the backward (K8, K9's dK/dV) instead of the forward")
     ap.add_argument('--sites', help='comma-separated site names (default: all)')
     args = ap.parse_args()
+    if args.bwd:
+        return bwd_main(args)
     sites = [x for x in SITES if not args.sites or x[0] in args.sites.split(',')]
 
     import torch

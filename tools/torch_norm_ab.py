@@ -110,21 +110,23 @@ def load_module(name, path):
     return mod
 
 
-def parent_wrapper(src_dir, out_dir):
-    """The parent's ops/fused_norm.py, bound to its own kernels built from
-    ``src_dir`` with its own _build.py's signatures."""
+def parent_module(src_dir, out_dir, module_file, names):
+    """The parent's wrapper module ``module_file`` (in ``src_dir``), bound to
+    its own kernels built from ``src_dir`` with its own _build.py's
+    signatures of the C entry points ``names``."""
     from renderformer_tpu_torch import _build
     pbuild = load_module('parent_build', os.path.join(src_dir, '_build.py'))
-    so = os.path.join(out_dir, 'libparent_norm.so')
+    so = os.path.join(out_dir, 'libparent.so')
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, '-shared', '-I', src_dir,
                     *sorted(glob.glob(os.path.join(src_dir, '*.cu'))), '-o', so], check=True,
                    stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
     lib = ctypes.CDLL(so)
-    for name in ('rf_rms_norm_fwd', 'rf_rms_norm_bwd'):
+    for name in names:
         fn = getattr(lib, name)
         fn.argtypes = pbuild.SIGNATURES[name]
         fn.restype = ctypes.c_int
-    mod = load_module('parent_fused_norm', os.path.join(src_dir, 'fused_norm.py'))
+    mod = load_module('parent_' + os.path.splitext(module_file)[0],
+                      os.path.join(src_dir, module_file))
     mod._build = types.SimpleNamespace(library=lambda: lib, DTYPE_CODES=pbuild.DTYPE_CODES,
                                        check=_build.check)
     return mod
@@ -149,7 +151,8 @@ def main():
     os.makedirs(_build.BUILD_ROOT, exist_ok=True)
     _build.library()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
-        parent = parent_wrapper(os.path.abspath(args.parent), tmp)
+        parent = parent_module(os.path.abspath(args.parent), tmp, 'fused_norm.py',
+                               ('rf_rms_norm_fwd', 'rf_rms_norm_bwd'))
     print(subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
