@@ -7,17 +7,19 @@ Phases, each printing its own lines:
   1. card: the nvidia-smi name and power limit, and torch's device name;
   2. build: compiles the kernels from renderformer_tpu_torch/csrc, and
      counts the wgmma (HGMMA) and TMA load (UTMALDG) instructions that
-     cuobjdump finds in the bf16 flash forward's kernels (K1/K2, K10), which
-     must both be non-zero, and the TF32 tensor-core instructions (HMMA
-     .TF32) of the fp32 flash forward and of the fp32 dK/dV kernels of the
-     flash backward (K8, K9's dK/dV), which must be non-zero, with their
-     spills and registers;
+     cuobjdump finds in the bf16 flash forward's kernels (K1/K2, K10) and
+     the bf16 flash backward's (K8, K9's dK/dV), which must both be
+     non-zero, and the TF32 tensor-core instructions (HMMA .TF32) of the
+     fp32 flash forward and of the fp32 dK/dV kernels of the flash backward
+     (K8, K9's dK/dV), which must be non-zero, with the backward's and the
+     fp32 kernels' spills and registers;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      every shape the v1-base, v1.1-swin-large and v1-base nerf 512^2 renders
      give it, in bf16 and fp32 (the flash forward without RoPE, K10, and the
      fused RMSNorm, K11, in the renders' bf16), with kernel, plain, library
      and bound times (CUDA events, median; K4 also by CUDA graphs of
-     calls, beside F.interpolate's), the tile plan of the bf16 flash
+     calls, beside F.interpolate's; K3 also by CUDA graphs of calls, beside
+     its bytes bound), the tile plan of the bf16 flash
      forward at each site, and the flash forward (K1/K2 and K10, with and
      without the logsumexp) at its tile edges: Sq and Sk of 129 and 257, a
      batch row whose mask is all zero, a view fan-out;
@@ -35,7 +37,9 @@ Phases, each printing its own lines:
      median unprofiled render); for v1-base also, with no bar, rays/s of the
      render with fused_norm=True beside the default, timed in turn;
   6. training kernels: the forward with its logsumexp (K1/K2, timed in
-     turn with the render's instantiation), K3, the flash backward through
+     turn with the render's instantiation), K3 (also by CUDA graphs of
+     calls), the flash backward's tile plan at each site (keys a block, q
+     step, q split, blocks on the card's SMs), the flash backward through
      its wrapper (K8 fused; K9 two-kernel, each of its dQ and dK/dV kernels
      timed alone against the plain version of its part; K8 also by bursts
      of launches beside autograd of SDPA), K4, K5 and the
@@ -104,6 +108,8 @@ TRAIN_ST = (TRAIN_RES // 8) ** 2   # 1024 ray tokens
 TRAIN_STEPS = 5                    # timed steps after a warm-up
 LSE_BURST = 20                     # launches per timing of the logsumexp A/B
 
+BWD_SOURCES = ['renderformer_tpu_torch/csrc/flash_bwd_sm90.cu',
+               'renderformer_tpu_torch/csrc/flash_bwd.cu']
 KERNELS = {
     'flash_fwd_rope_mask': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/flash_fwd_sm90.cu',
@@ -114,18 +120,19 @@ KERNELS = {
     'rot_kv_broadcast': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/rot_kv.cu',
         replaces='renderformer_tpu/ops/flash_attention.py:819'),
+    # K8 and K9's dK/dV kernel: bf16 in flash_bwd_sm90.cu, fp32 in flash_bwd.cu
     'flash_bwd_mask': dict(
-        route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd.cu',
-        replaces='renderformer_tpu/ops/flash_attention.py:425'),
+        route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd_sm90.cu',
+        sources=BWD_SOURCES, replaces='renderformer_tpu/ops/flash_attention.py:425'),
     'flash_bwd_nomask': dict(
-        route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd.cu',
-        replaces='renderformer_tpu/ops/flash_attention.py:425'),
+        route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd_sm90.cu',
+        sources=BWD_SOURCES, replaces='renderformer_tpu/ops/flash_attention.py:425'),
     'flash_bwd_dq': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd.cu',
         replaces='renderformer_tpu/ops/flash_attention.py:323'),
     'flash_bwd_dkv': dict(
-        route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd.cu',
-        replaces='renderformer_tpu/ops/flash_attention.py:368'),
+        route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd_sm90.cu',
+        sources=BWD_SOURCES, replaces='renderformer_tpu/ops/flash_attention.py:368'),
     'resize_bilinear': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/resize.cu',
         replaces='renderformer_tpu/ops/fused_resize.py:100'),
@@ -387,6 +394,17 @@ K3_WHY = ('same fp32 arithmetic as the plain version; one ulp of the largest out
           'a differently rounded product')
 
 
+def k3_burst(rows, fn):
+    """K3's device time at the last row's site: a CUDA graph of LSE_BURST
+    calls, against its bytes bound."""
+    row = rows[-1]
+    row['burst_ms'] = graph_burst_ms(fn)
+    print(f'k3: rot_kv_broadcast {row["site"]} {row["dtype"]}: device (graph of {LSE_BURST}) '
+          f'{row["burst_ms"]:.5f} ms a call against its bytes bound {row["bound_ms"]:.5f} '
+          f'({row["bound_ms"] / row["burst_ms"]:.3f} of it); single call {row["ms"]:.4f}',
+          flush=True)
+
+
 def k3_tol(ref):
     import torch
     return float(ref.float().abs().max()) * (2.0 ** -7 if ref.dtype == torch.bfloat16
@@ -410,6 +428,7 @@ FLASH_EDGES = [
 SASS_KERNEL = 'flash_fwd_sm90_kernel'
 SASS_F32_KERNEL = 'flash_fwd_f32_kernel'
 SASS_BWD_KERNEL = 'flash_bwd_kv_kernel'
+SASS_BWD_BF16_KERNEL = 'flash_bwd_sm90_kernel'
 
 
 def flash_rate(dtype):
@@ -455,11 +474,12 @@ def res_usage(lib_path, kernel):
 
 def sass_check(lib_path):
     """Phase 2: HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
-    of the bf16 flash forward's kernels, and TF32 HMMA (mma.sync on the
-    tensor cores) in each of the fp32 flash forward's and in each fp32
-    instantiation of the flash backward's dK/dV kernel (K8, and K9's dK/dV),
-    by cuobjdump; fails unless every one has them.  Spills (local loads and
-    stores) and registers of the fp32 kernels are printed beside them."""
+    of the bf16 flash forward's kernels and of the bf16 flash backward's
+    (K8, and K9's dK/dV), and TF32 HMMA (mma.sync on the tensor cores) in
+    each of the fp32 flash forward's and in each fp32 instantiation of the
+    flash backward's dK/dV kernel, by cuobjdump; fails unless every one has
+    them.  Spills (local loads and stores) and registers of the backward
+    and the fp32 kernels are printed beside them."""
     cuobjdump = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     res = subprocess.run([cuobjdump, '-sass', lib_path], capture_output=True, text=True,
                          timeout=300)
@@ -469,6 +489,8 @@ def sass_check(lib_path):
     # and stores (spills) of the fp32 kernels are counted beside them
     for kernel, what, need, seen, only in (
             (SASS_KERNEL, 'bf16 flash forward', ('HGMMA', 'UTMALDG'), (), ''),
+            (SASS_BWD_BF16_KERNEL, 'bf16 flash backward', ('HGMMA', 'UTMALDG'), ('LDL', 'STL'),
+             ''),
             (SASS_F32_KERNEL, 'fp32 flash forward', ('HMMA TF32',), ('LDL', 'STL'), ''),
             (SASS_BWD_KERNEL, 'fp32 flash backward dK/dV', ('HMMA TF32',), ('LDL', 'STL'),
              'If')):
@@ -703,6 +725,7 @@ def kernel_checks():
                 record('rot_kv_broadcast', site, dtype, n, out, ref, k3_tol(ref), K3_WHY,
                        lambda: rot_kv_broadcast(k, ck, sk_t), None,
                        k3_bytes(b, bkv, sk, H, it), 3 * b * sk * H * D, PEAK_FP32)
+                k3_burst(rows, lambda: rot_kv_broadcast(k, ck, sk_t))
                 k_rot = out
                 # K1 / K2 at this site
                 kname = 'flash_fwd_rope_mask' if masked else 'flash_fwd_rope_nomask'
@@ -955,8 +978,9 @@ def train_kernel_checks():
     from renderformer_tpu_torch.encodings.rope import make_cos_sin
     from renderformer_tpu_torch.ops import reference_kernels
     from renderformer_tpu_torch.ops.flash_attention import (
-        flash_bwd, flash_bwd_dkv_plain, flash_bwd_dq_plain, flash_bwd_splits, flash_fwd_rope,
-        launch_flash_bwd, launch_flash_fwd_rope, rot_kv_broadcast, rot_kv_broadcast_plain)
+        flash_bwd, flash_bwd_dkv_plain, flash_bwd_dq_plain, flash_bwd_keys, flash_bwd_splits,
+        flash_fwd_rope, launch_flash_bwd, launch_flash_fwd_rope, rot_kv_broadcast,
+        rot_kv_broadcast_plain)
     from renderformer_tpu_torch.ops.fused_resize import resize_bilinear_t
 
     dev = torch.device('cuda')
@@ -983,9 +1007,13 @@ def train_kernel_checks():
             if dtype == step_dtype:
                 print_plan('flash_fwd_rope', site, 1, sq, H, dtype, sk)
                 splits = flash_bwd_splits(dtype, 1, sq, sk, H)
+                keys = flash_bwd_keys(dtype)
+                step = ('64 q rows a step, in halves of 32' if dtype == torch.bfloat16
+                        else '16 q rows a step')
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
                 print(f'plan: flash_bwd {site} {str(dtype).split(".")[-1]} B 1 x H {H} x Sk '
-                      f'{sk}: 64 keys a block, q steps split {splits} ways, '
-                      f'{-(-sk // 64) * H * splits} blocks', flush=True)
+                      f'{sk}: {keys} keys a block, {step}, q steps split {splits} ways, '
+                      f'{-(-sk // keys) * H * splits} blocks on {sms} SMs', flush=True)
 
             def per_step(k, paths=ROPE_TRAIN):
                 return {p: k * n for p in paths} if dtype == step_dtype else {}
@@ -1004,6 +1032,7 @@ def train_kernel_checks():
                 record_row(rows, 'rot_kv_broadcast', site, dtype, per_step(3), k_rot, ref_rot,
                            k3_tol(ref_rot), K3_WHY, lambda: rot_kv_broadcast(k, ck, sk_t), None,
                            k3_bytes(1, 1, sk, H, it), 3 * sk * H * D, PEAK_FP32)
+                k3_burst(rows, lambda: rot_kv_broadcast(k, ck, sk_t))
                 # K1/K2 with the logsumexp: twice a step (forward, remat recompute)
                 kname = 'flash_fwd_rope_mask' if masked else 'flash_fwd_rope_nomask'
                 out, lse = flash_fwd_rope(q, k_rot, v, mask, cq, sq_t, with_lse=True)

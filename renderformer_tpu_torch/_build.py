@@ -48,6 +48,8 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _F, _F, _F, _P],
     # dtype, B, Sq, Sk, H -> blocks that split a key tile's q steps (dK/dV kernel)
     'rf_flash_bwd_splits': [_I, _I, _I, _I, _I],
+    # dtype -> keys a block of the dK/dV kernel owns
+    'rf_flash_bwd_keys': [_I],
     # q, k, v, dout, lse, delta, mask, dq, dtype, has_mask, B, reps, Sq, Sk,
     # H, D, qscale, dqscale, stream
     'rf_flash_bwd_dq': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -20,46 +20,50 @@
 // flops (K9 recomputes S and dP in its dQ kernel: 14*Sq*Sk*D) against
 // ~4*(Sq+Sk)*D elements moved, far above the ~295 flop/byte ridge, so the
 // tensor cores bound it; in fp32 at a third of the TF32 rate, as split TF32.
+// bf16 K8 and K9's bf16 dK/dV kernel run flash_bwd_sm90.cu (TMA and wgmma);
+// this file holds the fp32 dK/dV kernel (K8 and K9's), K9's dQ kernel in both
+// dtypes and the C entry points.
 // Design: the TPU's sequential q-block grid with dK/dV resident in VMEM has no
 // GPU counterpart (blocks run in parallel, in no order).  Here one block of 4
-// warps owns a 64-key tile of one (head, batch) and loops over q tiles (32 rows
-// in bf16, 16 in fp32): K and V stay in shared memory, dK and dV stay in
-// registers (each warp 16 keys x D in mma C layout), P^T and dS^T are reused
-// from the C layout of S^T as A fragments of dV += P^T.dO and dK += dS^T.q.  The
-// q and dO tiles are double-buffered: step i+1's cp.async copies run while step
-// i multiplies, and each thread scales the q chunks it copied once they land,
-// so a step costs one barrier (two with dQ).  Where the key tiles fill less than
-// two waves of the card (the train step's sites: 96 and 198 tiles against 264
+// warps owns a 64-key tile of one (head, batch) and loops over 16-row q steps:
+// K and V stay in shared memory, dK and dV stay in registers (each warp 16
+// keys x D in mma C layout), P^T and dS^T are reused from the C layout of S^T
+// as A fragments of dV += P^T.dO and dK += dS^T.q.  The q and dO tiles are
+// double-buffered: step i+1's cp.async copies run while step i multiplies,
+// and each thread scales the q chunks it copied once they land, so a step
+// costs one barrier (two with dQ).  Where the key tiles fill less than two
+// waves of the card (the train step's sites: 96 and 198 tiles against 264
 // resident blocks), a tile's q steps split over the two blocks of a thread
 // block cluster, which sum their partial dK and dV through distributed shared
-// memory (kv_splits).  K8 also multiplies dQ = dS.K for the tile (dS^T staged in
-// shared memory) and adds it into an fp32 scratch with atomics, a float2
+// memory (kv_splits).  K8 also multiplies dQ = dS.K for the tile (dS^T staged
+// in shared memory) and adds it into an fp32 scratch with atomics, a float2
 // atomicAdd for the two adjacent columns a thread holds (sm_90), so its sums
 // run in a run-dependent order.  K9's dK/dV kernel is the same kernel without
 // dQ; its dQ kernel owns a 64-row q tile and loops over key tiles, recomputing
 // P, with dQ in registers: no atomics, a deterministic result.
 //
-// bf16 products are mma.sync m16n8k16 with fp32 accumulators (common.cuh). fp32
-// takes all five products on the tensor cores as split TF32 (x = hi + lo with
-// hi truncated to TF32, split_tf32_trunc below; three mma.m16n8k8.tf32 a
-// product, the small ones first, fp32 accumulators), with the operands split in
-// registers as their fragments are loaded: S^T and dP^T keep the large products
-// and the small ones in accumulators of their own, added before the bias; each
-// q step's dV and dK products go to a fresh accumulator that one FADD adds to
-// the running sum; dQ's 24 products of a tile share one accumulator.  The C
-// layout of S^T becomes the A layout of dV and dK by naming the q columns 8j+2t
-// and 8j+2t+1 of s[j] the k indices t and t+4; dO's and q's B fragments read
-// those two rows, and dQ reads dS from the fp32 stage.  Row strides of D+4 (K,
-// V, q, dO) and BQ+8 (the stage) keep every fragment load free of bank
-// conflicts.  16-row q steps hold the fp32 block at 105.5 KB of shared memory,
-// so two blocks share an SM (the bf16 kernel's registers allow two as
-// well).  K9's dQ kernel multiplies with scalar FMAs in fp32.
+// The fp32 dK/dV kernel takes all five products on the tensor cores as split
+// TF32 (x = hi + lo with hi truncated to TF32, split_tf32_trunc below; three
+// mma.m16n8k8.tf32 a product, the small ones first, fp32 accumulators), with
+// the operands split in registers as their fragments are loaded: S^T and dP^T
+// keep the large products and the small ones in accumulators of their own,
+// added before the bias; each q step's dV and dK products go to a fresh
+// accumulator that one FADD adds to the running sum; dQ's 24 products of a
+// tile share one accumulator.  The C layout of S^T becomes the A layout of dV
+// and dK by naming the q columns 8j+2t and 8j+2t+1 of s[j] the k indices t and
+// t+4; dO's and q's B fragments read those two rows, and dQ reads dS from the
+// fp32 stage.  Row strides of D+4 (K, V, q, dO) and BQ+8 (the stage) keep every
+// fragment load free of bank conflicts.  16-row q steps hold the block at
+// 105.5 KB of shared memory, so two blocks share an SM.  K9's dQ kernel
+// multiplies with mma.sync m16n8k16 in bf16 (common.cuh) and with scalar FMAs
+// in fp32.
 #include <cooperative_groups.h>
 #include <math.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "flash_bwd_sm90.cuh"
 
 using namespace rf;
 namespace cg = cooperative_groups;
@@ -80,8 +84,8 @@ constexpr int kVec = 16 / (int)sizeof(T);
 template <typename T>
 constexpr int kLd = D + kVec<T>;  // padded row stride of a [rows][D] tile
 
-// q rows a loop step of the dK/dV kernels: 32 in bf16; 16 in fp32, which
-// keeps the fp32 block at 105.5 KB of shared memory, so two fit on an SM
+// q rows a loop step of the fp32 dK/dV kernel: 16, which keeps the block at
+// 105.5 KB of shared memory, so two fit on an SM
 template <typename T>
 constexpr int kKvBq = std::is_same<T, float>::value ? 16 : 32;
 
@@ -153,7 +157,7 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     float* __restrict__ dq_acc, T* __restrict__ dk, T* __restrict__ dv,
                     int reps, int Sq, int Sk, int H, int splits, float qscale,
                     float dqscale, float dkscale) {
-  constexpr bool kBF = std::is_same<T, __nv_bfloat16>::value;
+  static_assert(std::is_same<T, float>::value, "bf16 takes flash_bwd_sm90.cu");
   constexpr int LD = kLd<T>, VEC = kVec<T>;
   constexpr int BQ = kKvBq<T>;
   constexpr int NT = BQ / 8;   // n8 tiles over a q step
@@ -170,7 +174,7 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   T* dSs = reinterpret_cast<T*>(kbias + KV_BK);  // with dQ: [KV_BK][LDS]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3, lm = lane >> 3, lr = lane & 7;
+  const int g = lane >> 2, t4 = lane & 3;
   const int part = blockIdx.x % splits;  // the block's rank in its cluster
   const int k0 = (blockIdx.x / splits) * KV_BK, h = blockIdx.y, b = blockIdx.z;
   const int r0 = warp * 16 + g;  // this thread's keys: r0 and r0 + 8 of the tile
@@ -230,20 +234,10 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     cp_async_wait<0>();
     for (int i = tid; i < BQ * (D / VEC); i += NTHREADS) {
       T* p = &Qb[(i / (D / VEC)) * LD + (i % (D / VEC)) * VEC];
-      if constexpr (kBF) {
-        uint4 x = *reinterpret_cast<uint4*>(p);
-        uint32_t* w = reinterpret_cast<uint32_t*>(&x);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[e]));
-          w[e] = pack_bf16(f.x * qscale, f.y * qscale);
-        }
-        *reinterpret_cast<uint4*>(p) = x;
-      } else {
-        float4 x = *reinterpret_cast<float4*>(p);
-        x = make_float4(x.x * qscale, x.y * qscale, x.z * qscale, x.w * qscale);
-        *reinterpret_cast<float4*>(p) = x;
-      }
+      float4 x = *reinterpret_cast<float4*>(p);
+      x = make_float4(x.x * qscale, x.y * qscale, x.z * qscale, x.w * qscale);
+      *reinterpret_cast<float4*>(p) = x;
+
     }
     __syncthreads();  // the step's tiles are in place, and every thread is done with step it - 1
     // the next step's copies run while this one multiplies; its buffer was
@@ -256,71 +250,50 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    if constexpr (kBF) {
+    // split TF32: the hi*hi products in s and dp, the two small products
+    // of each k step (lo*hi first) in sl and dpl, added before the bias.
+    // Row stride D+4 keeps these 32-bit fragment loads free of bank
+    // conflicts (rows g: banks 4g + t)
+    float sl[NT][4], dpl[NT][4];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        const int ar = warp * 16 + (lane & 15), ac = kk * 16 + (lane >> 4) * 8;
-        ldmatrix_x4(ka, &Ks[ar * LD + ac]);
-        ldmatrix_x4(va, &Vs[ar * LD + ac]);
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          uint32_t qb[4], ob[4];
-          const int br = (j + (lm >> 1)) * 8 + lr, bc = kk * 16 + (lm & 1) * 8;
-          ldmatrix_x4(qb, &Qb[br * LD + bc]);
-          ldmatrix_x4(ob, &dOb[br * LD + bc]);
-          mma_bf16(s[j], ka, qb[0], qb[1]);
-          mma_bf16(s[j + 1], ka, qb[2], qb[3]);
-          mma_bf16(dp[j], va, ob[0], ob[1]);
-          mma_bf16(dp[j + 1], va, ob[2], ob[3]);
-        }
-      }
-    } else {
-      // split TF32: the hi*hi products in s and dp, the two small products
-      // of each k step (lo*hi first) in sl and dpl, added before the bias.
-      // Row stride D+4 keeps these 32-bit fragment loads free of bank
-      // conflicts (rows g: banks 4g + t)
-      float sl[NT][4], dpl[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sl[j][e] = dpl[j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) sl[j][e] = dpl[j][e] = 0.f;
 #pragma unroll 4
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const int c = kk * 8 + t4;
-        uint32_t kh[4], kl[4], vh[4], vl[4];
-        split_tf32_trunc(Ks[r0 * LD + c], kh[0], kl[0]);
-        split_tf32_trunc(Ks[(r0 + 8) * LD + c], kh[1], kl[1]);
-        split_tf32_trunc(Ks[r0 * LD + c + 4], kh[2], kl[2]);
-        split_tf32_trunc(Ks[(r0 + 8) * LD + c + 4], kh[3], kl[3]);
-        split_tf32_trunc(Vs[r0 * LD + c], vh[0], vl[0]);
-        split_tf32_trunc(Vs[(r0 + 8) * LD + c], vh[1], vl[1]);
-        split_tf32_trunc(Vs[r0 * LD + c + 4], vh[2], vl[2]);
-        split_tf32_trunc(Vs[(r0 + 8) * LD + c + 4], vh[3], vl[3]);
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int c = kk * 8 + t4;
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      split_tf32_trunc(Ks[r0 * LD + c], kh[0], kl[0]);
+      split_tf32_trunc(Ks[(r0 + 8) * LD + c], kh[1], kl[1]);
+      split_tf32_trunc(Ks[r0 * LD + c + 4], kh[2], kl[2]);
+      split_tf32_trunc(Ks[(r0 + 8) * LD + c + 4], kh[3], kl[3]);
+      split_tf32_trunc(Vs[r0 * LD + c], vh[0], vl[0]);
+      split_tf32_trunc(Vs[(r0 + 8) * LD + c], vh[1], vl[1]);
+      split_tf32_trunc(Vs[r0 * LD + c + 4], vh[2], vl[2]);
+      split_tf32_trunc(Vs[(r0 + 8) * LD + c + 4], vh[3], vl[3]);
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int o = (j * 8 + g) * LD + c;
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32_trunc(Qb[o], bh0, bl0);
-          split_tf32_trunc(Qb[o + 4], bh1, bl1);
-          mma_tf32(sl[j], kl, bh0, bh1);
-          mma_tf32(sl[j], kh, bl0, bl1);
-          mma_tf32(s[j], kh, bh0, bh1);
-          split_tf32_trunc(dOb[o], bh0, bl0);
-          split_tf32_trunc(dOb[o + 4], bh1, bl1);
-          mma_tf32(dpl[j], vl, bh0, bh1);
-          mma_tf32(dpl[j], vh, bl0, bl1);
-          mma_tf32(dp[j], vh, bh0, bh1);
-        }
+      for (int j = 0; j < NT; ++j) {
+        const int o = (j * 8 + g) * LD + c;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32_trunc(Qb[o], bh0, bl0);
+        split_tf32_trunc(Qb[o + 4], bh1, bl1);
+        mma_tf32(sl[j], kl, bh0, bh1);
+        mma_tf32(sl[j], kh, bl0, bl1);
+        mma_tf32(s[j], kh, bh0, bh1);
+        split_tf32_trunc(dOb[o], bh0, bl0);
+        split_tf32_trunc(dOb[o + 4], bh1, bl1);
+        mma_tf32(dpl[j], vl, bh0, bh1);
+        mma_tf32(dpl[j], vh, bl0, bl1);
+        mma_tf32(dp[j], vh, bh0, bh1);
       }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] += sl[j][e];
-          dp[j][e] += dpl[j][e];
-        }
     }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] += sl[j][e];
+        dp[j][e] += dpl[j][e];
+      }
 
     // P^T = exp2(s2 - lse2) and dS^T = (dP^T - delta) * P^T; s keeps P^T,
     // dp keeps dS^T rounded to the input dtype
@@ -338,162 +311,96 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          T* dst = &dSs[(r0 + hh * 8) * LDS + j * 8 + 2 * t4];
-          if constexpr (kBF)
-            *reinterpret_cast<uint32_t*>(dst) = pack_bf16(dp[j][2 * hh], dp[j][2 * hh + 1]);
-          else
-            *reinterpret_cast<float2*>(dst) = make_float2(dp[j][2 * hh], dp[j][2 * hh + 1]);
-        }
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float2*>(&dSs[(r0 + hh * 8) * LDS + j * 8 + 2 * t4]) =
+              make_float2(dp[j][2 * hh], dp[j][2 * hh + 1]);
     }
 
     // dV += P^T dO and dK += dS^T Q, A fragments straight from the C layout
-    if constexpr (kBF) {
+    // the k step j takes q rows 8j + 2t (index t) and 8j + 2t + 1 (index
+    // t + 4), the columns of s[j] and dp[j] this thread holds; dO's and
+    // q's B fragments read those two rows (banks 8t + g).  A step's
+    // products, the small ones first, go to a fresh accumulator that one
+    // FADD adds to dV or dK, so the tensor cores' additions never run
+    // over the whole q range
+    uint32_t ph[NT][4], pl[NT][4], dsh[NT][4], dsl[NT][4];
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        sa[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-        sa[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-        sa[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-        sa[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+    for (int j = 0; j < NT; ++j) {
+      split_tf32_trunc(s[j][0], ph[j][0], pl[j][0]);
+      split_tf32_trunc(s[j][2], ph[j][1], pl[j][1]);
+      split_tf32_trunc(s[j][1], ph[j][2], pl[j][2]);
+      split_tf32_trunc(s[j][3], ph[j][3], pl[j][3]);
+      split_tf32_trunc(dp[j][0], dsh[j][0], dsl[j][0]);
+      split_tf32_trunc(dp[j][2], dsh[j][1], dsl[j][1]);
+      split_tf32_trunc(dp[j][1], dsh[j][2], dsl[j][2]);
+      split_tf32_trunc(dp[j][3], dsh[j][3], dsl[j][3]);
+    }
 #pragma unroll
-        for (int dt = 0; dt < DT; dt += 2) {
-          uint32_t ob[4], qb[4];
-          const int br = kk * 16 + (lm & 1) * 8 + lr, bc = (dt + (lm >> 1)) * 8;
-          ldmatrix_x4_trans(ob, &dOb[br * LD + bc]);
-          ldmatrix_x4_trans(qb, &Qb[br * LD + bc]);
-          mma_bf16(dva[dt], pa, ob[0], ob[1]);
-          mma_bf16(dva[dt + 1], pa, ob[2], ob[3]);
-          mma_bf16(dka[dt], sa, qb[0], qb[1]);
-          mma_bf16(dka[dt + 1], sa, qb[2], qb[3]);
-        }
-      }
-    } else {
-      // the k step j takes q rows 8j + 2t (index t) and 8j + 2t + 1 (index
-      // t + 4), the columns of s[j] and dp[j] this thread holds; dO's and
-      // q's B fragments read those two rows (banks 8t + g).  A step's
-      // products, the small ones first, go to a fresh accumulator that one
-      // FADD adds to dV or dK, so the tensor cores' additions never run
-      // over the whole q range
-      uint32_t ph[NT][4], pl[NT][4], dsh[NT][4], dsl[NT][4];
+    for (int dt = 0; dt < DT; ++dt) {
+      float tv[4] = {0.f, 0.f, 0.f, 0.f}, tk[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        split_tf32_trunc(s[j][0], ph[j][0], pl[j][0]);
-        split_tf32_trunc(s[j][2], ph[j][1], pl[j][1]);
-        split_tf32_trunc(s[j][1], ph[j][2], pl[j][2]);
-        split_tf32_trunc(s[j][3], ph[j][3], pl[j][3]);
-        split_tf32_trunc(dp[j][0], dsh[j][0], dsl[j][0]);
-        split_tf32_trunc(dp[j][2], dsh[j][1], dsl[j][1]);
-        split_tf32_trunc(dp[j][1], dsh[j][2], dsl[j][2]);
-        split_tf32_trunc(dp[j][3], dsh[j][3], dsl[j][3]);
+        const int o = (j * 8 + 2 * t4) * LD + dt * 8 + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32_trunc(dOb[o], bh0, bl0);
+        split_tf32_trunc(dOb[o + LD], bh1, bl1);
+        mma_3xtf32(tv, ph[j], pl[j], bh0, bh1, bl0, bl1);
+        split_tf32_trunc(Qb[o], bh0, bl0);
+        split_tf32_trunc(Qb[o + LD], bh1, bl1);
+        mma_3xtf32(tk, dsh[j], dsl[j], bh0, bh1, bl0, bl1);
       }
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        float tv[4] = {0.f, 0.f, 0.f, 0.f}, tk[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int o = (j * 8 + 2 * t4) * LD + dt * 8 + g;
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32_trunc(dOb[o], bh0, bl0);
-          split_tf32_trunc(dOb[o + LD], bh1, bl1);
-          mma_3xtf32(tv, ph[j], pl[j], bh0, bh1, bl0, bl1);
-          split_tf32_trunc(Qb[o], bh0, bl0);
-          split_tf32_trunc(Qb[o + LD], bh1, bl1);
-          mma_3xtf32(tk, dsh[j], dsl[j], bh0, bh1, bl0, bl1);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          dva[dt][e] += tv[e];
-          dka[dt][e] += tk[e];
-        }
+      for (int e = 0; e < 4; ++e) {
+        dva[dt][e] += tv[e];
+        dka[dt][e] += tk[e];
       }
     }
 
     if constexpr (WITH_DQ) {
       __syncthreads();  // every warp's dS^T is staged
-      if constexpr (kBF) {
-        // dQ[q, :] += scale * sum over the tile's keys of dS^T[key, q] K[key, :];
-        // warp w: q rows 16 (w & 1) .., head-dim columns 64 (w >> 1) ..
-        const int mt = warp & 1, dh = warp >> 1;
-        float acc[DT / 2][4];
+      // dQ of the step's q rows in split TF32, 16 at a time, warp w:
+      // head-dim columns 32w ..; A = dS [q][key] read from the dS^T stage
+      // (banks 24t + g at BQ 16), K's B fragment at keys 8kk + t and + 4
+      // (banks 4t + g); the 24 products of the tile in one accumulator,
+      // the small ones of each k step first
+      constexpr int NB = DT / 4;
+#pragma unroll 1
+      for (int mt = 0; mt < BQ / 16; ++mt) {
+        float acc[NB][4];
 #pragma unroll
-        for (int dt = 0; dt < DT / 2; ++dt)
+        for (int n = 0; n < NB; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll 2
+        for (int kk = 0; kk < KV_BK / 8; ++kk) {
+          const float* a = &dSs[(kk * 8 + t4) * LDS + mt * 16 + g];
+          uint32_t ah[4], al[4];
+          split_tf32_trunc(a[0], ah[0], al[0]);
+          split_tf32_trunc(a[8], ah[1], al[1]);
+          split_tf32_trunc(a[4 * LDS], ah[2], al[2]);
+          split_tf32_trunc(a[4 * LDS + 8], ah[3], al[3]);
 #pragma unroll
-        for (int kk = 0; kk < KV_BK / 16; ++kk) {
-          uint32_t a[4];
-          // A = dS (rows q, k-dim keys) read transposed from dS^T [key][q]
-          ldmatrix_x4_trans(a, &dSs[(kk * 16 + (lm >> 1) * 8 + lr) * LDS + mt * 16 +
-                                    (lm & 1) * 8]);
-#pragma unroll
-          for (int dt = 0; dt < DT / 2; dt += 2) {
-            uint32_t kb[4];
-            ldmatrix_x4_trans(kb, &Ks[(kk * 16 + (lm & 1) * 8 + lr) * LD + dh * 64 +
-                                      (dt + (lm >> 1)) * 8]);
-            mma_bf16(acc[dt], a, kb[0], kb[1]);
-            mma_bf16(acc[dt + 1], a, kb[2], kb[3]);
+          for (int n = 0; n < NB; ++n) {
+            const float* kb = &Ks[(kk * 8 + t4) * LD + warp * 32 + n * 8 + g];
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32_trunc(kb[0], bh0, bl0);
+            split_tf32_trunc(kb[4 * LD], bh1, bl1);
+            mma_3xtf32(acc[n], ah, al, bh0, bh1, bl0, bl1);
           }
         }
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int qi = q0 + mt * 16 + g + hh * 8;
           if (qi < Sq) {
-            float* dst = dq_acc + (((size_t)b * Sq + qi) * H + h) * D + dh * 64;
+            float* dst = dq_acc + (((size_t)b * Sq + qi) * H + h) * D + warp * 32;
 #pragma unroll
-            for (int dt = 0; dt < DT / 2; ++dt)
-              atomicAdd(reinterpret_cast<float2*>(dst + dt * 8 + 2 * t4),
-                        make_float2(acc[dt][2 * hh] * dqscale, acc[dt][2 * hh + 1] * dqscale));
-          }
-        }
-      } else {
-        // dQ of the step's q rows in split TF32, 16 at a time, warp w:
-        // head-dim columns 32w ..; A = dS [q][key] read from the dS^T stage
-        // (banks 24t + g at BQ 16), K's B fragment at keys 8kk + t and + 4
-        // (banks 4t + g); the 24 products of the tile in one accumulator,
-        // the small ones of each k step first
-        constexpr int NB = DT / 4;
-#pragma unroll 1
-        for (int mt = 0; mt < BQ / 16; ++mt) {
-          float acc[NB][4];
-#pragma unroll
-          for (int n = 0; n < NB; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll 2
-          for (int kk = 0; kk < KV_BK / 8; ++kk) {
-            const float* a = &dSs[(kk * 8 + t4) * LDS + mt * 16 + g];
-            uint32_t ah[4], al[4];
-            split_tf32_trunc(a[0], ah[0], al[0]);
-            split_tf32_trunc(a[8], ah[1], al[1]);
-            split_tf32_trunc(a[4 * LDS], ah[2], al[2]);
-            split_tf32_trunc(a[4 * LDS + 8], ah[3], al[3]);
-#pragma unroll
-            for (int n = 0; n < NB; ++n) {
-              const float* kb = &Ks[(kk * 8 + t4) * LD + warp * 32 + n * 8 + g];
-              uint32_t bh0, bl0, bh1, bl1;
-              split_tf32_trunc(kb[0], bh0, bl0);
-              split_tf32_trunc(kb[4 * LD], bh1, bl1);
-              mma_3xtf32(acc[n], ah, al, bh0, bh1, bl0, bl1);
-            }
-          }
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int qi = q0 + mt * 16 + g + hh * 8;
-            if (qi < Sq) {
-              float* dst = dq_acc + (((size_t)b * Sq + qi) * H + h) * D + warp * 32;
-#pragma unroll
-              for (int n = 0; n < NB; ++n)
-                atomicAdd(reinterpret_cast<float2*>(dst + n * 8 + 2 * t4),
-                          make_float2(acc[n][2 * hh] * dqscale, acc[n][2 * hh + 1] * dqscale));
-            }
+            for (int n = 0; n < NB; ++n)
+              atomicAdd(reinterpret_cast<float2*>(dst + n * 8 + 2 * t4),
+                        make_float2(acc[n][2 * hh] * dqscale, acc[n][2 * hh + 1] * dqscale));
           }
         }
       }
+
     }
     // the next step's lse and delta land in the buffer step it - 1 used
     if (it + 1 < s1 && tid < BQ) {
@@ -861,8 +768,8 @@ extern "C" int rf_flash_bwd_kv(const void* q, const void* k, const void* v, cons
   if (bad_shape(B, reps, Sq, Sk, H, Dh)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return kv_variant<__nv_bfloat16>(has_mask, q, k, v, dout, lse, delta, mask, dq_acc, dk,
-                                     dv, B, reps, Sq, Sk, H, qscale, dqscale, dkscale, s);
+    return flash_bwd_sm90(q, k, v, dout, lse, delta, has_mask ? mask : nullptr, dq_acc, dk, dv,
+                          B, reps, Sq, Sk, H, qscale, dqscale, dkscale, s);
   if (dtype == kF32)
     return kv_variant<float>(has_mask, q, k, v, dout, lse, delta, mask, dq_acc, dk, dv, B,
                              reps, Sq, Sk, H, qscale, dqscale, dkscale, s);
@@ -886,9 +793,17 @@ extern "C" int rf_flash_bwd_dq(const void* q, const void* k, const void* v, cons
 
 // Blocks (one thread block cluster) that share a key tile's q steps in the
 // dK/dV kernel at this grid on the current device (K8's masked
-// instantiation; K9's dK/dV kernel has the same shared memory and grid).
+// instantiation; K9's dK/dV kernel has the same shared memory and grid); the
+// bf16 kernel does not split.
 extern "C" int rf_flash_bwd_splits(int dtype, int B, int Sq, int Sk, int H) {
-  if (dtype == kBF16) return kv_splits<__nv_bfloat16, true, true>(B, Sq, Sk, H);
+  if (dtype == kBF16) return 1;
   if (dtype == kF32) return kv_splits<float, true, true>(B, Sq, Sk, H);
+  return 0;
+}
+
+// Keys a block of the dK/dV kernel owns.
+extern "C" int rf_flash_bwd_keys(int dtype) {
+  if (dtype == kBF16) return FLASH_BWD_SM90_KEYS;
+  if (dtype == kF32) return KV_BK;
   return 0;
 }

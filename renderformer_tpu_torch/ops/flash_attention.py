@@ -142,10 +142,16 @@ def flash_fwd_splits(dtype, b: int, sq: int, sk: int, h: int) -> int:
 def flash_bwd_splits(dtype, b: int, sq: int, sk: int, h: int) -> int:
     """Blocks (one thread block cluster) that share the q steps of a key tile
     of the CUDA flash backward's dK/dV kernel (K8, K9's dK/dV) at this grid
-    on the current card (1 or 2), their partial dK and dV summed through
-    the cluster's shared memory."""
+    on the current card: the fp32 kernel's 1 or 2, their partial dK and dV
+    summed through the cluster's shared memory; 1 in bf16."""
     return _build.library().rf_flash_bwd_splits(
         _build.DTYPE_CODES[str(dtype).split('.')[-1]], b, sq, sk, h)
+
+
+def flash_bwd_keys(dtype) -> int:
+    """Keys that one block of the CUDA flash backward's dK/dV kernel (K8,
+    K9's dK/dV) owns: the bf16 kernel's 128, the fp32 kernel's 64."""
+    return _build.library().rf_flash_bwd_keys(_build.DTYPE_CODES[str(dtype).split('.')[-1]])
 
 
 def _check_kernel_dtype(what, t):

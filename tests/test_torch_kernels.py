@@ -1,6 +1,7 @@
-"""Kernels K5 (resize into space-to-depth layout), K6 (Swin window
-attention), K7 (shifted-window regroup), the forward's logsumexp (K1/K2),
-the flash backward (K8, K9), the transposed resize (K4^T), the flash
+"""Kernels K3 (the K broadcast-rotate), K5 (resize into space-to-depth
+layout), K6 (Swin window attention), K7 (shifted-window regroup), the
+forward's logsumexp (K1/K2), the flash backward (K8, K9; the bf16 kernel at
+its tile edges), the transposed resize (K4^T), the flash
 forward without RoPE (K10), the fp32 flash forward's key splits and tile
 edges, and the fused RMSNorm (K11) against their plain
 versions on a CUDA card, at small sizes, and one tiny-config train step
@@ -161,6 +162,80 @@ def test_flash_lse_and_backward_kernels_match_plain(cuda, dtype, case):
             assert gt.dtype == dtype and gt.shape == wt.shape, name
             err = float((gt.float() - wt.float()).abs().max())
             assert err <= _attn_tol(wt, dtype, ulps=8), (variant, name, err)
+
+
+# the bf16 backward (csrc/flash_bwd_sm90.cu) at its tile edges: b, bkv, sq,
+# sk, h, mask; 2064 keys leave a 16-key last tile of 128, 129 and 1000 q rows
+# ragged 64-row q steps; 'zero_row' masks random keys and all of batch row 1
+BF16_BWD_EDGES = {
+    'tail_129x2064': (1, 1, 129, 2064, 1, 'tail'),
+    'tail_1000x2064_h6': (1, 1, 1000, 2064, 6, 'tail'),
+    'reps4_tail_129x2064_h2': (4, 1, 129, 2064, 2, 'tail'),
+    'zero_row_129x200_h2': (3, 3, 129, 200, 2, 'zero_row'),
+    'unmasked_1000x1000': (1, 1, 1000, 1000, 1, None),
+    'b8_h8_tail_1000x2064': (8, 8, 1000, 2064, 8, 'tail'),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('variant', ['fused', 'dkv'])
+@pytest.mark.parametrize('case', sorted(BF16_BWD_EDGES))
+def test_bf16_backward_kernel_at_tile_edges_matches_plain(cuda, case, variant):
+    """K8 and K9's dK/dV kernel in bf16 against the plain backward, 8 bf16
+    ulps of max|ref| per gradient (chip_smoke.py's bar)."""
+    from renderformer_tpu_torch import _build
+    from renderformer_tpu_torch.ops.flash_attention import fan_out, launch_flash_bwd
+    b, bkv, sq, sk, h, mask_kind = BF16_BWD_EDGES[case]
+    bf = torch.bfloat16
+    q, do = (_randn((b, sq, h, 128), bf, cuda, seed=s) for s in (1, 2))
+    k = _randn((b, sk, h, 128), bf, cuda, seed=3)
+    v = _randn((bkv, sk, h, 128), bf, cuda, seed=4)
+    mask = None
+    if mask_kind == 'tail':
+        mask = torch.ones(b, sk, dtype=torch.bool, device=cuda)
+        mask[:, 1552:] = False
+    elif mask_kind == 'zero_row':
+        mask = torch.from_numpy(np.random.default_rng(5).uniform(size=(b, sk)) > 0.3).to(cuda)
+        mask[:, 0] = True
+        mask[1] = False
+    with torch.no_grad():
+        with reference_kernels():
+            out, lse = flash_fwd(q, k, fan_out(v, b).contiguous(), mask, with_lse=True)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        io = (q, k, v, mask, lse, delta, do)
+        with reference_kernels():
+            want = flash_bwd(*io)
+        got = launch_flash_bwd(_build.library(), variant, *io)
+        torch.cuda.synchronize()
+    for name, gt, wt in zip('qkv', got, want):
+        if gt is None:
+            continue
+        assert gt.dtype == bf and gt.shape == wt.shape, name
+        err = float((gt.float() - wt.float()).abs().max())
+        assert err <= _attn_tol(wt, bf, ulps=8), (name, err)
+
+
+# K3 at the model's head counts, with and without a view fan-out, at ragged
+# key counts: b, bkv, sk, h, d; d 24 and 6 take the element-wise chunks
+ROT_CASES = [(1, 1, 2064, 6, 128), (8, 1, 257, 6, 128), (8, 8, 129, 8, 128),
+             (8, 1, 65, 8, 128), (2, 1, 33, 3, 24), (3, 3, 17, 2, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('case', range(len(ROT_CASES)))
+def test_rot_kv_kernel_matches_plain(cuda, dtype, case):
+    """K3 against its plain version: the same fp32 products and sum, one
+    ulp of max|ref| for a product rounded to its other neighbour."""
+    b, bkv, sk, h, d = ROT_CASES[case]
+    k = _randn((bkv, sk, h, d), dtype, cuda, seed=1)
+    theta = torch.from_numpy(np.random.default_rng(2).uniform(-np.pi, np.pi, size=(b, sk, d)))
+    c, sn = (f(theta).float().to(cuda) for f in (torch.cos, torch.sin))
+    got, want, launched = _both(lambda: rot_kv_broadcast(k, c, sn))
+    assert launched == {'rot_kv_broadcast': 1}
+    tol = float(want.float().abs().max()) * (2.0 ** -7 if dtype == torch.bfloat16
+                                             else 2.0 ** -22)
+    assert float((got.float() - want.float()).abs().max()) <= tol
 
 
 # b, sq, sk, h, masked: ragged q and key tiles, a key count that is no tile

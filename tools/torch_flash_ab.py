@@ -2,6 +2,7 @@
 
     python3 tools/torch_flash_ab.py --parent OLD_DIR [--burst 20] [--fp32] [--sites a,b]
     python3 tools/torch_flash_ab.py --parent OLD_DIR --bwd [--burst 20] [--sites a,b]
+    python3 tools/torch_flash_ab.py --parent OLD_DIR --rot [--burst 20] [--sites a,b]
 
 Builds every ``*.cu`` in ``OLD_DIR`` (a parent's ``flash_attention.cu``,
 with its ``common.cuh``, ``flash_fwd_sm90.cu`` and any other source it
@@ -31,7 +32,18 @@ step's sites have the same shapes): K8 (``'fused'``) and K9's dK/dV kernel
 (``'dkv'``, the same template without dQ), each turn the median of bursts
 checked against the plain backward, beside the autograd of SDPA on the same
 inputs (all three gradients, and dk/dv alone) and the bound (bf16 tensor
-cores; for fp32 split TF32, and scalar fp32 FMAs beside it).
+cores; for fp32 split TF32, and scalar fp32 FMAs beside it).  The bf16
+sites print the bf16 kernel's plan (keys a block, blocks on the card's
+SMs).
+
+With ``--rot`` (``OLD_DIR`` holding a parent's ``rot_kv.cu`` and
+``common.cuh``) the K broadcast-rotate (K3) is timed instead, at every
+RoPE attention site of the v1-base and v1.1-swin-large 512^2 renders and of
+the v1-base 256^2 train step, in the dtype each runs it: each turn the
+device time of a call, a CUDA graph of ``--burst`` calls replayed between
+two CUDA events (the median of ``--iters``) divided by the burst, checked
+against the plain version, beside the bytes bound (K read once for all the
+views of a scene, the fp32 tables, the output written once).
 """
 
 import argparse
@@ -123,7 +135,8 @@ def build_parent(src_dir, out_dir):
                     *sorted(glob.glob(os.path.join(src_dir, '*.cu'))), '-o', so], check=True,
                    stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
     lib = ctypes.CDLL(so)
-    for name in ('rf_flash_fwd_rope', 'rf_flash_fwd', 'rf_flash_bwd_kv', 'rf_flash_bwd_dq'):
+    for name in ('rf_flash_fwd_rope', 'rf_flash_fwd', 'rf_flash_bwd_kv', 'rf_flash_bwd_dq',
+                 'rf_rot_kv_broadcast'):
         if not hasattr(lib, name):
             continue
         fn = getattr(lib, name)
@@ -146,7 +159,7 @@ def bwd_main(args):
     from renderformer_tpu_torch import _build
     from renderformer_tpu_torch.ops import reference_kernels
     from renderformer_tpu_torch.ops.flash_attention import (
-        flash_bwd, flash_bwd_splits, flash_fwd, launch_flash_bwd)
+        flash_bwd, flash_bwd_keys, flash_bwd_splits, flash_fwd, launch_flash_bwd)
 
     if not torch.cuda.is_available():
         sys.exit('needs a CUDA device')
@@ -204,12 +217,89 @@ def bwd_main(args):
         if dt == torch.float32:
             bound = {'bound_ms': round(3 * flops / PEAK_TF32 * 1e3, 4),
                      'bound_simt_ms': round(flops / PEAK_FP32 * 1e3, 4)}
+        plan = {}
+        if dt == torch.bfloat16:
+            keys = flash_bwd_keys(dt)
+            plan = {'keys_a_block': keys, 'q_step': 64,
+                    'blocks': -(-sk // keys) * h,
+                    'sms': torch.cuda.get_device_properties(0).multi_processor_count}
         print(json.dumps({'site': site, 'dtype': dtname,
-                          'splits': flash_bwd_splits(dt, 1, sq, sk, h),
+                          'splits': flash_bwd_splits(dt, 1, sq, sk, h), **plan,
                           'turns (ms, err/bar)': res,
                           'sdpa_bwd_ms': round(sdpa, 4), 'sdpa_bwd_kv_ms': round(sdpa_kv, 4),
                           **bound}), flush=True)
         del q, do, k, v, out, lse, delta, io, ref, qs, ks, vs, y, gy
+        torch.cuda.empty_cache()
+
+
+ROT_SITES = [  # name, dtype name, B, Bkv, Sk, H: every K3 site of the renders and the step
+    ('stage1_self', 'bfloat16', 1, 1, 2064, 6),
+    ('cross', 'bfloat16', 8, 1, 2064, 6),
+    ('ray_self', 'bfloat16', 8, 8, 4096, 6),
+    ('stage1_self_h8', 'bfloat16', 1, 1, 2064, 8),
+    ('cross_h8', 'bfloat16', 8, 1, 2064, 8),
+    ('train_stage1_self', 'bfloat16', 1, 1, 2064, 6),
+    ('train_cross', 'float32', 1, 1, 2064, 6),
+    ('train_ray_self', 'float32', 1, 1, 1024, 6),
+]
+
+
+def rot_main(args):
+    """K3's A/B (``--rot``)."""
+    import torch
+    from renderformer_tpu_torch import _build
+    from renderformer_tpu_torch.encodings.rope import make_cos_sin
+    from renderformer_tpu_torch.ops.flash_attention import rot_kv_broadcast_plain
+    sys.path.insert(0, os.path.join(REPO, 'tools'))
+    from torch_norm_ab import graph_ms
+
+    if not torch.cuda.is_available():
+        sys.exit('needs a CUDA device')
+    os.makedirs(_build.BUILD_ROOT, exist_ok=True)
+    change = _build.library()
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_ROOT) as tmp:
+        parent = build_parent(os.path.abspath(args.parent), tmp)
+    print(subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+        capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    g = torch.Generator(device='cuda').manual_seed(0)
+    d = 128
+    for site, dtname, b, bkv, sk, h in ROT_SITES:
+        if args.sites and site not in args.sites.split(','):
+            continue
+        dt = getattr(torch, dtname)
+        k = torch.randn(bkv, sk, h, d, generator=g, device='cuda').to(dt)
+        c, s = make_cos_sin(torch.randn(b, sk, 9, generator=g, device='cuda') * 0.3, 12, d)
+        c, s = c[:, :, 0].contiguous(), s[:, :, 0].contiguous()
+        out = torch.empty(b, sk, h, d, dtype=dt, device='cuda')
+        it = k.element_size()
+        nbytes = bkv * sk * h * d * it + 2 * b * sk * d * 4 + b * sk * h * d * it
+        bound = nbytes / 3.35e12 * 1e3
+        with torch.inference_mode():
+            ref = rot_kv_broadcast_plain(k, c, s)
+            # k3_tol of chip_smoke.py: one ulp of the largest output
+            tol = float(ref.float().abs().max()) * (2.0 ** -7 if dt == torch.bfloat16
+                                                    else 2.0 ** -22)
+
+            def call(lib):
+                return lambda: _build.check(lib.rf_rot_kv_broadcast(
+                    k.data_ptr(), c.data_ptr(), s.data_ptr(), out.data_ptr(),
+                    _build.DTYPE_CODES[dtname], b, b // bkv, sk, h, d,
+                    torch.cuda.current_stream().cuda_stream), 'rf_rot_kv_broadcast')
+
+            res = {}
+            for name, lib in (('parent', parent), ('change', change),
+                              ('change', change), ('parent', parent)):
+                out.zero_()
+                call(lib)()
+                err = float((out.float() - ref.float()).abs().max())
+                ms = graph_ms(call(lib), args.burst, args.iters)
+                res.setdefault(name, []).append(
+                    {'ms': round(ms, 5), 'bound_share': round(bound / ms, 3),
+                     'err/tol': round(err / tol, 3)})
+        print(json.dumps({'site': site, 'dtype': dtname, 'B': b, 'Bkv': bkv, 'Sk': sk, 'H': h,
+                          'bytes': nbytes, 'bound_ms': round(bound, 5), **res}), flush=True)
+        del k, c, s, out, ref
         torch.cuda.empty_cache()
 
 
@@ -223,10 +313,14 @@ def main():
     ap.add_argument('--fp32', action='store_true', help='also time the fp32 kernel')
     ap.add_argument('--bwd', action='store_true',
                     help="time the backward (K8, K9's dK/dV) instead of the forward")
+    ap.add_argument('--rot', action='store_true',
+                    help='time the K broadcast-rotate (K3) instead of the forward')
     ap.add_argument('--sites', help='comma-separated site names (default: all)')
     args = ap.parse_args()
     if args.bwd:
         return bwd_main(args)
+    if args.rot:
+        return rot_main(args)
     sites = [x for x in SITES if not args.sites or x[0] in args.sites.split(',')]
 
     import torch

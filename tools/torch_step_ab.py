@@ -11,7 +11,8 @@ fused backward (K8), and v1-base nerf with the fused RMSNorm (1 scene x 1
 view x 2048 triangles at 256^2, bf16 stage 1 with an fp32 view stage,
 remat, AdamW): the median wall milliseconds of ``--steps`` steps after a
 warm-up, and the device milliseconds of one profiled step with the rows of
-the flash backward's dK/dV kernel (K8) summed apart.  The batch and the
+the flash backward's dK/dV kernels (K8) and of the K broadcast-rotate (K3)
+summed apart.  The batch and the
 model come from the tree's own ``chip_smoke.py`` (``train_batch``,
 ``seeded_train_state``).  Prints the card's nvidia-smi line, then one JSON
 line a turn.
@@ -24,6 +25,11 @@ import statistics
 import subprocess
 import sys
 import time
+
+
+# the flash backward's dK/dV kernels (K8): fp32 (and, before the bf16 path
+# moved to wgmma, bf16) in flash_bwd.cu, bf16 in flash_bwd_sm90.cu
+BWD_KERNELS = ('flash_bwd_kv_kernel', 'flash_bwd_sm90_kernel')
 
 
 def worker(tree, steps):
@@ -62,7 +68,9 @@ def worker(tree, steps):
             step_ms=round(statistics.median(times[1:]) * 1e3, 2),
             device_ms=round(sum(e.self_device_time_total for e in rows) / 1e3, 3),
             flash_bwd_ms=round(sum(e.self_device_time_total for e in rows
-                                   if 'flash_bwd_kv_kernel' in e.key) / 1e3, 3))
+                                   if any(n in e.key for n in BWD_KERNELS)) / 1e3, 3),
+            rot_kv_ms=round(sum(e.self_device_time_total for e in rows
+                                if 'rot_kv_kernel' in e.key) / 1e3, 3))
         del model, tx, state, step
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
