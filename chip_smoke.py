@@ -12,14 +12,17 @@ Phases, each printing its own lines:
      non-zero, and the TF32 tensor-core instructions (HMMA .TF32) of the
      fp32 flash forward and of the fp32 dK/dV kernels of the flash backward
      (K8, K9's dK/dV), which must be non-zero, with the backward's and the
-     fp32 kernels' spills and registers;
+     fp32 kernels' spills and registers, and those of K11's backward and K5;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      every shape the v1-base, v1.1-swin-large and v1-base nerf 512^2 renders
      give it, in bf16 and fp32 (the flash forward without RoPE, K10, and the
      fused RMSNorm, K11, in the renders' bf16), with kernel, plain, library
-     and bound times (CUDA events, median; K4 also by CUDA graphs of
+     and bound times (CUDA events, median; K4 and K5 also by CUDA graphs of
      calls, beside F.interpolate's; K3 also by CUDA graphs of calls, beside
-     its bytes bound), the tile plan of the bf16 flash
+     its bytes bound; K11's forward and backward also by CUDA graphs, beside
+     F.rms_norm's and its autograd's; K11's backward's ds in the scale's
+     dtype is its checked fp32 sum rounded once, the same bits in two calls
+     and three replays of a CUDA graph), the tile plan of the bf16 flash
      forward at each site, and the flash forward (K1/K2 and K10, with and
      without the logsumexp) at its tile edges: Sq and Sk of 129 and 257, a
      batch row whose mask is all zero, a view fan-out;
@@ -242,23 +245,61 @@ def bound_ms(nbytes, flops, flop_rate):
     return max(tb, tf), ('bytes' if tb >= tf else 'operations')
 
 
-def graph_burst_ms(fn, n=LSE_BURST, iters=10):
+def graph_burst_ms(fn, n=LSE_BURST, iters=10, side=None):
     """Device milliseconds a call of fn() takes: replays of a CUDA graph of n
     calls between two CUDA events, divided by n, so that no host work sits
-    between the launches."""
+    between the launches.  fn is warmed up and captured on ``side`` (a new
+    stream by default)."""
     import torch
-    side = torch.cuda.Stream()
+    side = side or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):  # the stream that warmed fn up
         for _ in range(n):
             fn()
     ms = time_ms(graph.replay, iters=iters) / n
     del graph
+    return ms
+
+
+def graph_replays(fn, n):
+    """fn()'s results after each of n replays of a CUDA graph of one call
+    (cloned), the call warmed up and captured on a stream of its own."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    results = []
+    for _ in range(n):
+        graph.replay()
+        torch.cuda.synchronize()
+        results.append(tuple(t.clone() for t in out))
+    del graph
+    return results
+
+
+def autograd_graph_ms(forward, inputs, grad_out, n=LSE_BURST, iters=10):
+    """Device milliseconds of one torch.autograd.grad of ``forward(*inputs)``
+    for ``grad_out``, as graph_burst_ms times a call: the forward runs once
+    on the capturing stream, so that autograd's backward launches there."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        out = forward(*leaves)
+    ms = graph_burst_ms(lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True),
+                        n, iters, side)
+    del out, leaves
     return ms
 
 
@@ -267,6 +308,15 @@ def burst_ms(fn, n=LSE_BURST):
     two CUDA events, divided by n: the device time where the card outruns
     the host's enqueue."""
     return time_ms(lambda: [fn() for _ in range(n)]) / n
+
+
+def print_profile(name, kernels):
+    """The 25 largest device rows of a profiled run, and below them the rows
+    of the resize (K4, K5, K4^T) and fused RMSNorm (K11) kernels."""
+    for i, e in enumerate(kernels):
+        if i < 25 or 'resize' in e.key or 'rms_norm' in e.key:
+            print(f'profile: {name} {e.self_device_time_total / 1e3:9.3f} ms '
+                  f'{e.count:5d}x {e.key[:100]}', flush=True)
 
 
 def psnr(ref, x):
@@ -383,6 +433,15 @@ def check_resize_s2d(rows, x, hw, per_run):
                    ).permute(0, 2, 3, 1)),
                    b * (n_in * n_in + hw[0] * hw[1]) * c * it, 8 * b * hw[0] * hw[1] * c,
                    PEAK_FP32)
+        row = rows[-1]
+        row['burst_ms'] = graph_burst_ms(lambda: resize_s2d(x, hw))
+        row['library_burst_ms'] = graph_burst_ms(lambda: space_to_depth(F.interpolate(
+            xc, size=hw, mode='bilinear', align_corners=True).permute(0, 2, 3, 1)))
+        print(f'resize: resize_s2d {row["site"]} {row["dtype"]}: single call {row["ms"]:.4f} ms '
+              f'against F.interpolate + space_to_depth {row["library_ms"]:.4f}; device (graph of '
+              f'{LSE_BURST}) {row["burst_ms"]:.4f} ms a call against '
+              f'{row["library_burst_ms"]:.4f} (bound {row["bound_ms"]:.4f}: '
+              f'{row["bound_ms"] / row["burst_ms"]:.3f} of it)', flush=True)
 
 
 def k3_bytes(b, bkv, sk, h, it):
@@ -479,7 +538,8 @@ def sass_check(lib_path):
     each of the fp32 flash forward's and in each fp32 instantiation of the
     flash backward's dK/dV kernel, by cuobjdump; fails unless every one has
     them.  Spills (local loads and stores) and registers of the backward
-    and the fp32 kernels are printed beside them."""
+    and the fp32 kernels, and of K11's backward and K5, are printed beside
+    them."""
     cuobjdump = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     res = subprocess.run([cuobjdump, '-sass', lib_path], capture_output=True, text=True,
                          timeout=300)
@@ -493,7 +553,9 @@ def sass_check(lib_path):
              ''),
             (SASS_F32_KERNEL, 'fp32 flash forward', ('HMMA TF32',), ('LDL', 'STL'), ''),
             (SASS_BWD_KERNEL, 'fp32 flash backward dK/dV', ('HMMA TF32',), ('LDL', 'STL'),
-             'If')):
+             'If'),
+            ('rms_norm_bwd_kernel', 'fused RMSNorm backward (K11)', (), ('LDL', 'STL'), ''),
+            ('resize_s2d_kernel', 'space-to-depth resize (K5)', (), ('LDL', 'STL'), '')):
         counts = {k: c for k, c in sass_counts(res.stdout, kernel, need + seen).items()
                   if k.startswith(only)}
         print(f'build: sass of {len(counts)} {what} kernels ({kernel}): '
@@ -646,20 +708,40 @@ def check_rms_norm(rows, randn, site, r, dtype, eps, per_fwd, per_bwd):
               f'{row["ms"]:.4f} ms against F.rms_norm {row["library_ms"]:.4f}; device (graph of '
               f'{LSE_BURST}) {row["burst_ms"]:.4f} ms a call against {row["library_burst_ms"]:.4f}'
               f' (bound {row["bound_ms"]:.4f})', flush=True)
-        got = rms_norm_bwd(x, ws, g, eps)
+        # checked with the scale's fp32 cast, whose ds is an fp32 sum, against
+        # the plain version's; the path's call writes ds in the scale's dtype:
+        # that sum rounded once, the same bits in every call and in every
+        # replay of a CUDA graph
+        got = rms_norm_bwd(x, ws.float(), g, eps)
         with reference_kernels():
-            ref = rms_norm_bwd(x, ws, g, eps)
+            ref = rms_norm_bwd(x, ws.float(), g, eps)
+        calls = [rms_norm_bwd(x, ws, g, eps) for _ in range(2)]
+        calls += graph_replays(lambda: rms_norm_bwd(x, ws, g, eps), 3)
+        for dxc, dsc in calls:
+            if not (dsc.dtype == ws.dtype and torch.equal(dsc, got[1].to(ws.dtype))
+                    and torch.equal(dxc, got[0])):
+                fail(f'rms_norm_bwd {site}: a call or graph replay differs from the checked '
+                     'call, or ds is not its fp32 sum rounded to the scale\'s dtype')
     xl, wl = x.detach().clone().requires_grad_(True), ws.detach().clone().requires_grad_(True)
     yl = F.rms_norm(xl, (NORM_D,), wl, eps)
     with torch.no_grad():
         record_row(rows, 'rms_norm_bwd', site, dtype, per_bwd, got, ref,
                    (ulp_tol(ref[0]), 1e-5 * float(ref[1].abs().max())),
-                   why + '; ds: per-block partials summed against one sum over the rows, '
-                   '1e-5 of max|ds|',
+                   why + '; ds: sums over warps, blocks and clusters against one sum over the '
+                   'rows, 1e-5 of max|ds|',
                    lambda: rms_norm_bwd(x, ws, g, eps),
                    lambda: torch.autograd.grad(yl, (xl, wl), g, retain_graph=True),
-                   3 * r * NORM_D * it + NORM_D * (ws.element_size() + 4), 10 * r * NORM_D,
+                   3 * r * NORM_D * it + 2 * NORM_D * ws.element_size(), 10 * r * NORM_D,
                    PEAK_FP32)
+        row = rows[-1]
+        row['burst_ms'] = graph_burst_ms(lambda: rms_norm_bwd(x, ws, g, eps))
+    row['library_burst_ms'] = autograd_graph_ms(
+        lambda a, w: F.rms_norm(a, (NORM_D,), w, eps), (x, ws), g)
+    print(f'norm: rms_norm_bwd {site} {row["dtype"]} scale {row["dtype"]}: single call '
+          f'{row["ms"]:.4f} ms against autograd of F.rms_norm {row["library_ms"]:.4f}; device '
+          f'(graph of {LSE_BURST}) {row["burst_ms"]:.5f} ms a call against '
+          f'{row["library_burst_ms"]:.5f} (bound {row["bound_ms"]:.5f}: '
+          f'{row["bound_ms"] / row["burst_ms"]:.3f} of it)', flush=True)
     del x, g, y, ref, got, xl, wl, yl
     torch.cuda.empty_cache()
 
@@ -945,9 +1027,7 @@ def render_checks(card, preset):
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    for e in kernels[:25]:
-        print(f'profile: {preset} {e.self_device_time_total / 1e3:9.3f} ms '
-              f'{e.count:5d}x {e.key[:100]}', flush=True)
+    print_profile(preset, kernels)
     # the profiler slows the host, so the idle share is read against the
     # median unprofiled render; the profiled wall time is printed beside it
     print(f'speed: {preset} device time {dev_ms:.2f} ms a render (profiled), device '
@@ -1325,9 +1405,7 @@ def step_speed(card, name, step, state, batch, agree):
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    for e in kernels[:25]:
-        print(f'profile: {name} {e.self_device_time_total / 1e3:9.3f} ms '
-              f'{e.count:5d}x {e.key[:100]}', flush=True)
+    print_profile(name, kernels)
     # where the host's time goes: ops by self CPU time
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),

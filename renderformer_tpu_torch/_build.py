@@ -27,6 +27,7 @@ NVCC_FLAGS = [*ARCH, '-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v'
 
 _lib = None
 _lock = threading.Lock()
+_functions = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,9 +71,11 @@ SIGNATURES = {
     'rf_swin_window_attention': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, scale, y, dtype, scale dtype, R, D, eps, stream
     'rf_rms_norm_fwd': [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # x, scale, g, dx, ds_part, dtype, scale dtype, R, D, rows_per_block, eps,
-    # stream
-    'rf_rms_norm_bwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # x, scale, g, dx, ds, ds_part, ticket slot, dtype, scale dtype, R, D,
+    # blocks, rows_per_block, eps, stream
+    'rf_rms_norm_bwd': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # dtype, D -> blocks of the backward the card holds at once
+    'rf_rms_norm_bwd_capacity': [_I, _I],
 }
 DTYPE_CODES = {'bfloat16': 0, 'float32': 1}
 
@@ -146,6 +149,19 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def function(name: str):
+    """The C entry point ``name`` of the library, looked up once, as a
+    function object of its own without argtypes: a ctypes call converts the
+    ints and the ``ctypes.c_void_p`` pointers (and ``c_float`` floats) it is
+    given at half the cost of one that checks each against declared
+    argtypes."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = _functions[name] = library()[name]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def check(rc: int, name: str) -> None:

@@ -1,5 +1,6 @@
 // PTX wrappers and host helpers of the port's Hopper (sm_90a) kernels: the
-// bf16 flash forward (flash_fwd_sm90.cu) and backward (flash_bwd_sm90.cu).
+// bf16 flash forward (flash_fwd_sm90.cu) and backward (flash_bwd_sm90.cu),
+// and the mbarrier of the fused RMSNorm backward (fused_norm.cu).
 // mbarriers, TMA loads and stores of 4-D tensor maps, wgmma shared-memory
 // descriptors with the 128-byte swizzle, and the wgmma shapes the two
 // kernels issue.

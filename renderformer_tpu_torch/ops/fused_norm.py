@@ -8,13 +8,15 @@ kernel, so the result is the JAX package's, which casts it first);
 :func:`fused_rms_norm` flattens the leading axes.  The forward's rescale is
 ``x*inv*s`` in fp32 and ``x * bf16(inv)`` then ``* bf16(s)``, each rounded
 to bf16, on a bf16 input.
-The backward recomputes inv from x and writes dx and per-block fp32
-partials of the scale's gradient, which the wrapper sums with one
-``torch.sum``.  The CUDA source is ``csrc/fused_norm.cu``; its note says
-what bounds the kernels on the card.
+The backward recomputes inv from x and writes dx and the scale's gradient
+ds, summed over the rows in fp32 and written in the scale's dtype, in one
+launch.  The CUDA source is ``csrc/fused_norm.cu``; its note says what
+bounds the kernels on the card.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -22,8 +24,9 @@ from renderformer_tpu_torch import _build
 from renderformer_tpu_torch.ops import LAUNCHES, use_plain
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-BLOCK_WARPS = 8    # warps a block in csrc/fused_norm.cu, one row each at a time
-_BWD_BLOCKS = 264  # about two backward blocks an SM of the H100's 132
+BLOCK_WARPS = 8  # warps a block in csrc/fused_norm.cu, one row each at a time
+CLUSTER = 8      # blocks of the backward kernel's thread block clusters
+BWD_D_MULTIPLE = 64  # the backward's slices of D / CLUSTER columns hold whole 16-byte chunks
 
 
 def fused_rms_norm_supported(x, scale) -> bool:
@@ -51,7 +54,7 @@ def rms_norm_fwd_plain(x, scale, eps: float):
 def rms_norm_bwd_plain(x, scale, g, eps: float):
     """The backward kernel's function in torch ops, in fp32: dx = gs*inv -
     x*(inv^3 * sum(gs*x)/D) with gs = g*s, cast to x's dtype, and ds =
-    sum over rows of g*(x*inv), fp32 [D]."""
+    sum over rows of g*(x*inv), fp32 [D] (the wrapper casts it)."""
     xf, gf, s = x.float(), g.float(), scale.float()
     d = x.shape[-1]
     inv = torch.rsqrt((xf * xf).sum(dim=-1, keepdim=True) / d + eps)
@@ -77,15 +80,7 @@ def _check_2d(x, scale, *others):
 
 
 _CODES = {getattr(torch, name): code for name, code in _build.DTYPE_CODES.items()}
-_lib = None
-
-
-def _library():
-    """The kernel library, looked up once."""
-    global _lib
-    if _lib is None:
-        _lib = _build.library()
-    return _lib
+_ptr = ctypes.c_void_p
 
 
 def _kernel_args(x, scale, *others):
@@ -107,10 +102,58 @@ def _kernel_args(x, scale, *others):
     return code, scode, torch._C._cuda_getCurrentRawStream(dev)
 
 
-def bwd_rows_per_block(r: int) -> int:
-    """Rows a block of the backward kernel takes (a multiple of its warps):
-    enough that about _BWD_BLOCKS blocks cover ``r`` rows."""
-    return BLOCK_WARPS * max(1, -(-r // (BLOCK_WARPS * _BWD_BLOCKS)))
+def bwd_plan(r: int, capacity: int):
+    """(blocks, rows a block) of the backward kernel at ``r`` rows, given
+    the blocks the card holds at once (``capacity``, a multiple of CLUSTER):
+    about ``capacity`` blocks with a row for each warp at least, in whole
+    clusters.  Block b owns rows [b * rows, (b + 1) * rows) and its warp w
+    rows b * rows + w + 8k; blocks past the last row (at most CLUSTER - 1,
+    all in the last cluster) add zeros to ds."""
+    if r <= 0 or capacity <= 0 or capacity % CLUSTER:
+        raise ValueError(f'bad backward plan input: {r} rows, capacity {capacity}')
+    want = min(capacity, -(-r // BLOCK_WARPS))
+    rows = -(-r // want)
+    blocks = -(-r // rows)
+    return -(-blocks // CLUSTER) * CLUSTER, rows
+
+
+TICKET_SLOTS = 256  # streams that may run the backward on a device (csrc/fused_norm.cu)
+_capacity = {}
+_slots = {}
+
+
+def bwd_capacity(dtype, d: int, device) -> int:
+    """Blocks of the backward kernel the card holds at once at rows of
+    ``d`` in ``dtype`` (the occupancy API's count, in whole clusters),
+    looked up once a (device, dtype, d)."""
+    key = (device, dtype, d)
+    cap = _capacity.get(key)
+    if cap is None:
+        with torch.cuda.device(device):
+            cap = _build.function('rf_rms_norm_bwd_capacity')(_CODES[dtype], d)
+        if cap <= 0:
+            raise RuntimeError(f'rf_rms_norm_bwd_capacity: no resident cluster at D={d}, '
+                               f'{dtype}')
+        _capacity[key] = cap
+    return cap
+
+
+def _ticket_slot(device, stream: int) -> int:
+    """The backward's slot of tickets for ``stream`` on ``device``: a row of
+    a device variable of the kernel's module, zero when it loads, left at
+    zero by every launch and never freed, so a CUDA graph captured on the
+    stream may use it as long as the graph lives.  The launches on a stream
+    and the replays of the graphs captured on it share the slot, so they
+    must not run at the same time (as with cuBLAS's workspace, which is
+    also one a stream)."""
+    slot = _slots.get((device, stream))
+    if slot is None:
+        slot = sum(1 for dev, _ in _slots if dev == device)
+        if slot >= TICKET_SLOTS:
+            raise RuntimeError(f'rms_norm_bwd: more than {TICKET_SLOTS} streams ran the '
+                               f'backward on device {device}')
+        _slots[device, stream] = slot
+    return slot
 
 
 def rms_norm_fwd(x, scale, eps: float):
@@ -124,36 +167,49 @@ def rms_norm_fwd(x, scale, eps: float):
     code, scode, stream = _kernel_args(x, scale)
     r, d = x.shape
     y = torch.empty_like(x)
-    rc = _library().rf_rms_norm_fwd(x.data_ptr(), scale.data_ptr(), y.data_ptr(), code, scode,
-                                    r, d, eps, stream)
-    _build.check(rc, 'rf_rms_norm_fwd')
+    rc = _build.function('rf_rms_norm_fwd')(
+        _ptr(x.data_ptr()), _ptr(scale.data_ptr()), _ptr(y.data_ptr()), code, scode, r, d,
+        ctypes.c_float(eps), _ptr(stream))
+    if rc:
+        _build.check(rc, 'rf_rms_norm_fwd')
     LAUNCHES['rms_norm_fwd'] += 1
     return y
 
 
 def rms_norm_bwd(x, scale, g, eps: float):
     """K11's backward at x [R, D] for the cotangent g [R, D]: (dx in x's
-    dtype, ds [D] fp32)."""
+    dtype, ds [D] in the scale's), in one launch on the card.  A bf16
+    scale's ds is the fp32 sum that its fp32 cast gives, rounded once."""
     _check_2d(x, scale, ('g', g))
     if use_plain(x):
-        return rms_norm_bwd_plain(x, scale, g, eps)
+        dx, ds = rms_norm_bwd_plain(x, scale, g, eps)
+        return dx, ds.to(scale.dtype)
     code, scode, stream = _kernel_args(x, scale, ('g', g))
     r, d = x.shape
-    rows = bwd_rows_per_block(r)
+    if d % BWD_D_MULTIPLE:
+        raise ValueError(f'the backward kernel takes rows of a multiple of {BWD_D_MULTIPLE} '
+                         f'columns, got {d}')
+    dev = x.get_device()
+    blocks, rows = bwd_plan(r, bwd_capacity(x.dtype, d, dev))
+    # the ds partials, written and read by the launch alone: held to its end
+    # here, then the allocator's, in stream order (in a graph, the graph's)
+    part = torch.empty(blocks // CLUSTER * d, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    part = torch.empty((-(-r // rows), d), dtype=torch.float32, device=x.device)
-    rc = _library().rf_rms_norm_bwd(x.data_ptr(), scale.data_ptr(), g.data_ptr(),
-                                    dx.data_ptr(), part.data_ptr(), code, scode, r, d, rows,
-                                    eps, stream)
-    _build.check(rc, 'rf_rms_norm_bwd')
+    ds = torch.empty_like(scale)
+    rc = _build.function('rf_rms_norm_bwd')(
+        _ptr(x.data_ptr()), _ptr(scale.data_ptr()), _ptr(g.data_ptr()), _ptr(dx.data_ptr()),
+        _ptr(ds.data_ptr()), _ptr(part.data_ptr()), _ticket_slot(dev, stream), code, scode,
+        r, d, blocks, rows, ctypes.c_float(eps), _ptr(stream))
+    if rc:
+        _build.check(rc, 'rf_rms_norm_bwd')
     LAUNCHES['rms_norm_bwd'] += 1
-    return dx, torch.sum(part, dim=0)
+    return dx, ds
 
 
 class _FusedRMSNorm(torch.autograd.Function):
     """The JAX package's ``_fused`` custom VJP: the forward keeps x and the
     scale it was given (a stage's cast one under a train step), the backward
-    runs K11's backward and returns ds in the scale's dtype."""
+    runs K11's backward, whose ds comes in the scale's dtype."""
 
     @staticmethod
     def forward(ctx, x2, scale, eps):
@@ -165,7 +221,7 @@ class _FusedRMSNorm(torch.autograd.Function):
     def backward(ctx, g):
         x2, scale = ctx.saved_tensors
         dx, ds = rms_norm_bwd(x2, scale, g.contiguous(), ctx.eps)
-        return dx, ds.to(scale.dtype), None
+        return dx, ds, None
 
 
 def fused_rms_norm(x, scale, eps: float):

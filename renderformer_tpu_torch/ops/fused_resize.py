@@ -139,20 +139,7 @@ def _check_input(x, out_hw):
 # dtype -> (its code in the C interface, elements in 16 bytes)
 _CODES = {torch.bfloat16: (_build.DTYPE_CODES['bfloat16'], 8),
           torch.float32: (_build.DTYPE_CODES['float32'], 4)}
-_fns = {}
 _ptr = ctypes.c_void_p
-
-
-def _kernel(name):
-    """The C entry point ``name`` of the kernel library, looked up once, as a
-    function object of its own without argtypes: a ctypes call converts the
-    ints and the ``c_void_p`` pointers it is given at half the cost of one
-    that checks each against declared argtypes."""
-    fn = _fns.get(name)
-    if fn is None:
-        fn = _fns[name] = _build.library()[name]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _kernel_args(name, x, c):
@@ -179,7 +166,7 @@ def _resize_fwd(x, oh, ow, s2d=False):
     xp, code, stream = _kernel_args('x', x, c)
     name = 'rf_resize_s2d' if s2d else 'rf_resize_bilinear'
     out = x.new_empty((b, oh // 2, ow // 2, 4 * c) if s2d else (b, oh, ow, c))
-    rc = _kernel(name)(xp, _ptr(out.data_ptr()), code, b, ih, iw, oh, ow, c, stream)
+    rc = _build.function(name)(xp, _ptr(out.data_ptr()), code, b, ih, iw, oh, ow, c, stream)
     if rc:
         _build.check(rc, name)
     LAUNCHES['resize_s2d' if s2d else 'resize_bilinear'] += 1
@@ -197,7 +184,7 @@ def resize_bilinear_t(g, in_hw: Tuple[int, int]):
     span_h, w_h = _device_adjoint_taps(ih, oh, g.device)
     span_w, w_w = _device_adjoint_taps(iw, ow, g.device)
     out = g.new_empty((b, ih, iw, c))
-    rc = _kernel('rf_resize_bilinear_t')(
+    rc = _build.function('rf_resize_bilinear_t')(
         gp, _ptr(out.data_ptr()), _ptr(span_h.data_ptr()), _ptr(w_h.data_ptr()), w_h.shape[1],
         _ptr(span_w.data_ptr()), _ptr(w_w.data_ptr()), w_w.shape[1], code, b, ih, iw, oh, ow,
         c, stream)

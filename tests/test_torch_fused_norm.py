@@ -3,7 +3,9 @@ Function around them) against the JAX package's Pallas kernels
 ``_fwd_kernel`` / ``_bwd_kernel`` in interpret mode on the CPU, as
 ``tests/test_fused_norm.py`` runs them: forward, dx and ds, in fp32 and
 bf16, at row counts that fill a block and that do not, with both eps values
-of the model's norms; and the port's shape gate against the JAX one."""
+of the model's norms; the backward at each (x, scale) dtype pair, with ds
+in the scale's dtype; the backward kernel's grid plan; and the port's shape
+gate against the JAX one."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +17,8 @@ from renderformer_tpu.ops.fused_norm import fused_rms_norm as jax_fused
 from renderformer_tpu.ops.fused_norm import fused_rms_norm_supported as jax_supported
 from renderformer_tpu_torch.nn.core import ATTN_EPS, TORCH_DEFAULT_RMS_EPS, RMSNorm
 from renderformer_tpu_torch.ops.fused_norm import (
-    fused_rms_norm, fused_rms_norm_supported, rms_norm_bwd, rms_norm_fwd, rms_norm_fwd_plain)
+    BLOCK_WARPS, CLUSTER, bwd_plan, fused_rms_norm, fused_rms_norm_supported, rms_norm_bwd,
+    rms_norm_fwd, rms_norm_fwd_plain)
 from test_torch_attention import DTYPES
 
 SHAPES = [(2, 256, 128), (4, 96, 256), (771, 128)]  # 512 and 384 rows; 771 pads in JAX
@@ -83,6 +86,77 @@ def test_autograd_matches_jax_vjp(shape, precision, eps):
         # can land on the other bf16 neighbour: 1 ulp
         assert (np.abs(dx - want_dx) <= _bf16_ulp(want_dx)).all()
         assert (np.abs(ds - want_ds) <= _bf16_ulp(want_ds)).all()
+
+
+DTYPE_PAIRS = [('fp32', 'fp32'), ('fp32', 'bf16'), ('bf16', 'fp32'), ('bf16', 'bf16')]
+
+
+@pytest.mark.parametrize('x_prec,scale_prec', DTYPE_PAIRS)
+@pytest.mark.parametrize('rows', [256, 1000, 2064])
+def test_backward_matches_jax_vjp_at_each_dtype_pair(rows, x_prec, scale_prec):
+    """K11's backward (its plain version, the CPU path of ``rms_norm_bwd``)
+    returns ds in the scale's dtype, as ``jax.vjp`` of the interpret-mode
+    kernel does, at every (x, scale) dtype pair; 1000 rows are no multiple
+    of a block's 8 warps."""
+    (jdt, tdt), (jsdt, tsdt) = DTYPES[x_prec], DTYPES[scale_prec]
+    x, scale, g = _inputs((rows, 256), 3)
+    _, vjp = jax.vjp(lambda a, s: jax_fused(a, s, ATTN_EPS, interpret=True),
+                     jnp.asarray(x, jdt), jnp.asarray(scale, jsdt))
+    want_dx, want_ds = (np.asarray(w.astype(jnp.float32)) for w in vjp(jnp.asarray(g, jdt)))
+    dx, ds = rms_norm_bwd(torch.from_numpy(x).to(tdt), torch.from_numpy(scale).to(tsdt),
+                          torch.from_numpy(g).to(tdt), ATTN_EPS)
+    assert dx.dtype == tdt and ds.dtype == tsdt and ds.shape == (256,)
+    dx, ds = dx.float().numpy(), ds.float().numpy()
+    # fp32: sums in another order, 1e-5 of max|want|; bf16: rounded once,
+    # which can land on the other neighbour, 1 ulp of each ds element and
+    # (chip_smoke.py's bar) of max|dx|: dx = gs*inv - x*coef cancels, so a
+    # dx near zero keeps the fp32 error of its two terms
+    for got, want, prec in ((dx, want_dx, x_prec), (ds, want_ds, scale_prec)):
+        if prec == 'fp32':
+            np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=1e-5)
+        elif got is dx:
+            assert np.abs(got - want).max() <= _bf16_ulp(np.abs(want).max())
+        else:
+            assert (np.abs(got - want) <= _bf16_ulp(want)).all()
+
+
+# the nerf train step's K11 sites (embed, stage 1, rays, tris), the renders'
+# largest, and small row counts
+PLAN_ROWS = [2048, 2064, 1024, 8 * 4096, 1, 7, 257, 1000]
+
+
+def _rows_taken(r, blocks, per_block):
+    """{(block, warp): rows} as the backward kernel's row loop takes them:
+    block b's rows [b * per_block, (b + 1) * per_block), every 8th for a
+    warp (csrc/fused_norm.cu)."""
+    return {(b, w): list(range(b * per_block + w, min(r, (b + 1) * per_block), BLOCK_WARPS))
+            for b in range(blocks) for w in range(BLOCK_WARPS)}
+
+
+@pytest.mark.parametrize('capacity', [8, 128, 264])
+@pytest.mark.parametrize('rows', PLAN_ROWS)
+def test_backward_plan_covers_every_row_once(rows, capacity):
+    """The backward kernel's grid: whole clusters of at most ``capacity``
+    blocks; every row taken by one warp exactly once; the blocks with no
+    row, which add zeros to ds, are fewer than a cluster and all in the
+    last one."""
+    blocks, per_block = bwd_plan(rows, capacity)
+    assert blocks % CLUSTER == 0 and CLUSTER <= blocks <= capacity
+    taken = _rows_taken(rows, blocks, per_block)
+    assert len(taken) == blocks * BLOCK_WARPS
+    flat = sorted(r for rs in taken.values() for r in rs)
+    assert flat == list(range(rows))
+    idle = [b for b in range(blocks) if not any(taken[b, w] for w in range(BLOCK_WARPS))]
+    assert len(idle) < CLUSTER and all(b >= blocks - CLUSTER for b in idle)
+    # no block takes more than its share of the card's
+    assert per_block == -(-rows // min(capacity, -(-rows // BLOCK_WARPS)))
+
+
+def test_backward_plan_refuses_a_capacity_off_the_clusters():
+    with pytest.raises(ValueError):
+        bwd_plan(2064, 132)
+    with pytest.raises(ValueError):
+        bwd_plan(0, 128)
 
 
 @pytest.mark.parametrize('shape', [(4, 256, 768), (2, 16, 768), (4, 100), (300, 128),

@@ -3,7 +3,8 @@ layout), K6 (Swin window attention), K7 (shifted-window regroup), the
 forward's logsumexp (K1/K2), the flash backward (K8, K9; the bf16 kernel at
 its tile edges), the transposed resize (K4^T), the flash
 forward without RoPE (K10), the fp32 flash forward's key splits and tile
-edges, and the fused RMSNorm (K11) against their plain
+edges, and the fused RMSNorm (K11; its backward also at the nerf train
+step's sites, call to call and in a CUDA graph) against their plain
 versions on a CUDA card, at small sizes, and one tiny-config train step
 through them.  They skip without one.  This file imports no JAX, so on
 a machine with a card and no JAX it runs alone:
@@ -58,6 +59,25 @@ def test_resize_s2d_kernel_matches_plain(cuda, dtype):
     got, want, launched = _both(lambda: resize_s2d(x, (24, 40)))
     assert launched == {'resize_s2d': 1}
     # the same fp32 lerps, rounded once: bit for bit
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,x_shape,out_hw', [
+    (torch.bfloat16, (8, 256, 256, 128), (512, 512)),  # the renders' site
+    (torch.float32, (1, 128, 128, 128), (256, 256)),   # the train step's site
+    (torch.bfloat16, (1, 3, 5, 8), (2, 6)),            # OH 2: one s2d row; C 8
+    (torch.float32, (2, 1, 4, 4), (4, 8)),             # IH 1; C 4 in fp32
+    (torch.bfloat16, (3, 7, 9, 8), (10, 14)),          # B 3, downsampled H
+    (torch.float32, (1, 9, 300, 4), (6, 1030)),        # a row of 515 pixels
+    (torch.bfloat16, (2, 5, 7, 24), (6, 10)),          # a block of 252 threads (21 pixels)
+    (torch.float32, (1, 4, 6, 512), (8, 12)),          # a block of 512 threads (1 pixel)
+])
+def test_resize_s2d_kernel_is_bit_exact_at_sites_and_edges(cuda, dtype, x_shape, out_hw):
+    x = _randn(x_shape, dtype, cuda)
+    got, want, launched = _both(lambda: resize_s2d(x, out_hw))
+    assert launched == {'resize_s2d': 1}
+    assert got.shape == (x_shape[0], out_hw[0] // 2, out_hw[1] // 2, 4 * x_shape[3])
     assert torch.equal(got, want)
 
 
@@ -396,7 +416,96 @@ def test_rms_norm_kernels_take_a_bf16_scale_as_its_fp32_cast(cuda, dtype):
     with torch.no_grad():
         assert torch.equal(rms_norm_fwd(x, scale, 1e-6), rms_norm_fwd(x, scale.float(), 1e-6))
         got, want = rms_norm_bwd(x, scale, g, 1e-6), rms_norm_bwd(x, scale.float(), g, 1e-6)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # ds comes in the scale's dtype: the same fp32 sum, rounded once to bf16
+    assert got[1].dtype == torch.bfloat16 and want[1].dtype == torch.float32
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1].bfloat16())
+
+
+# the nerf train step's sites (R rows of 768), a row count one past a block's
+# warps, one that is not a multiple of 8, and the render's largest site
+NORM_ROWS = [2048, 2064, 1024, 257, 1000, 8 * 4096]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('rows', NORM_ROWS)
+def test_rms_norm_bwd_kernel_matches_plain_at_sites(cuda, dtype, rows):
+    """K11's backward with the scale in x's dtype, as the paths give it: dx
+    within the forward's tolerance, ds (of the scale's fp32 cast, an fp32
+    sum) within 1e-5 of max|ds|, and ds in the scale's dtype that sum
+    rounded once."""
+    x = _randn((rows, 768), dtype, cuda, seed=1) * 3
+    scale = (1 + 0.1 * _randn((768,), torch.float32, cuda, seed=2)).to(dtype)
+    g = _randn((rows, 768), dtype, cuda, seed=3)
+    got, want, launched = _both(lambda: rms_norm_bwd(x, scale.float(), g, 1e-6))
+    assert launched == {'rms_norm_bwd': 1}
+    assert float((got[0].float() - want[0].float()).abs().max()) <= _ulp_tol(want[0], dtype)
+    # ds: sums over warps, blocks and clusters, against one sum over the rows
+    assert float((got[1] - want[1]).abs().max()) <= 1e-5 * float(want[1].abs().max())
+    with torch.no_grad():
+        dx, ds = rms_norm_bwd(x, scale, g, 1e-6)
+    assert ds.dtype == dtype and torch.equal(ds, got[1].to(dtype)) and torch.equal(dx, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_rms_norm_bwd_kernel_is_one_deterministic_launch(cuda, dtype):
+    """One launch a call, and two calls give the same bits in dx and ds."""
+    x = _randn((2064, 768), dtype, cuda, seed=1)
+    scale = _randn((768,), dtype, cuda, seed=2)
+    g = _randn((2064, 768), dtype, cuda, seed=3)
+    with torch.no_grad():
+        before = LAUNCHES['rms_norm_bwd']
+        a = rms_norm_bwd(x, scale, g, 1e-6)
+        torch.cuda.synchronize()
+        assert LAUNCHES['rms_norm_bwd'] == before + 1
+        b = rms_norm_bwd(x, scale, g, 1e-6)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_rms_norm_bwd_kernel_refuses_rows_it_does_not_take(cuda):
+    """The backward kernel takes rows of a multiple of 64 columns (its
+    cluster's slices hold whole 16-byte chunks): it raises on 96, no plain
+    fallback."""
+    x = _randn((256, 96), torch.float32, cuda)
+    with torch.no_grad(), pytest.raises(ValueError):
+        rms_norm_bwd(x, _randn((96,), torch.float32, cuda), x, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('warm_capture_stream', [True, False])
+@pytest.mark.parametrize('d,dtype', [(768, torch.float32), (128, torch.bfloat16),
+                                     (128, torch.float32)])
+def test_rms_norm_bwd_kernel_in_a_cuda_graph(cuda, warm_capture_stream, d, dtype):
+    """A CUDA graph of two calls, replayed three times, gives the eager
+    calls' bits each time: captured on a stream that ran the kernel before,
+    and as the usual idiom does, warmed up on a side stream and captured on
+    ``torch.cuda.graph``'s own stream.  At D = 128 ds is as small as the
+    kernel's other allocations of a call, so one block of the allocator
+    given to two of them would show."""
+    x = _randn((1024, d), dtype, cuda, seed=1)
+    scale = _randn((d,), dtype, cuda, seed=2)
+    g1 = _randn((1024, d), dtype, cuda, seed=3)
+    g2 = _randn((1024, d), dtype, cuda, seed=4)
+    with torch.no_grad():
+        eager = [rms_norm_bwd(x, scale, g, 1e-6) for g in (g1, g2)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            rms_norm_bwd(x, scale, g1, 1e-6)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side if warm_capture_stream else None):
+            outs = [rms_norm_bwd(x, scale, g, 1e-6) for g in (g1, g2)]
+        for _ in range(3):
+            for o in outs:
+                o[0].zero_()
+                o[1].zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            for (dx, ds), (edx, eds) in zip(outs, eager):
+                assert torch.equal(dx, edx) and torch.equal(ds, eds)
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""A/B timing of the port's bilinear resize (K4) on one GPU: host and device.
+"""A/B timing of the port's bilinear resize (K4, K5) on one GPU: host and device.
 
     python3 tools/torch_resize_ab.py --parent OLD_DIR [--burst 20] [--iters 10]
 
@@ -20,6 +20,11 @@ align_corners=True) on the same values in NCHW view:
   * device: a CUDA graph of ``--burst`` calls replayed between two events,
     divided by the burst: the device time alone;
   * host_us: host microseconds a call, over 200 calls.
+
+Then the same for K5 (the resize into space-to-depth layout) at its two
+sites, the renders' x [8, 256, 256, 128] bf16 to 512^2 and the train step's
+x [1, 128, 128, 128] fp32 to 256^2, beside F.interpolate followed by
+space_to_depth; its error must be 0 (bit for bit with the plain version).
 
 Prints the card's nvidia-smi line, then one JSON line a site.  Both versions
 run in one process on one card, so their times compare.  Last, one JSON
@@ -48,6 +53,10 @@ SITES = [  # name, batch, n in, dtype name
     ('render_64to128', 8, 64, 'bfloat16'),
     ('render_128to256', 8, 128, 'bfloat16'),
 ]
+S2D_SITES = [  # K5: name, batch, n in, dtype name
+    ('train_128to256_s2d', 1, 128, 'float32'),
+    ('render_256to512_s2d', 8, 256, 'bfloat16'),
+]
 C = 128  # dpt_features of both models
 
 
@@ -64,6 +73,7 @@ def main():
     import torch.nn.functional as F
     from renderformer_tpu_torch import _build
     from renderformer_tpu_torch.ops import fused_resize, reference_kernels
+    from renderformer_tpu_torch.ops.s2d_conv import space_to_depth
 
     if not torch.cuda.is_available():
         sys.exit('needs a CUDA device')
@@ -77,31 +87,38 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
 
     g = torch.Generator(device='cuda').manual_seed(0)
-    for site, b, n, dtname in SITES:
+    for site, b, n, dtname in SITES + S2D_SITES:
+        s2d = (site, b, n, dtname) in S2D_SITES
+        fname = 'resize_s2d' if s2d else 'resize_bilinear'
         dt = getattr(torch, dtname)
         x = torch.randn(b, n, n, C, generator=g, device='cuda').to(dt)
         hw = (2 * n, 2 * n)
         xc = x.permute(0, 3, 1, 2)
         with torch.inference_mode():
             with reference_kernels():
-                ref = fused_resize.resize_bilinear(x, hw)
+                ref = getattr(fused_resize, fname)(x, hw)
             res = {}
             for name, mod in (('parent', parent), ('change', fused_resize),
                               ('change', fused_resize), ('parent', parent)):
-                fn = lambda: mod.resize_bilinear(x, hw)  # noqa: E731
+                fn = lambda: getattr(mod, fname)(x, hw)  # noqa: E731
                 err = float((fn().float() - ref.float()).abs().max())
                 res.setdefault(name, []).append(dict(
                     single=round(event_ms(fn, args.iters), 4),
-                    device=round(graph_ms(fn, args.burst, args.iters), 4),
+                    device=round(graph_ms(fn, args.burst, args.iters), 5),
                     host_us=round(host_us(fn), 2), err=err))
             lib = lambda: F.interpolate(xc, size=hw, mode='bilinear',  # noqa: E731
                                         align_corners=True)
+            if s2d:
+                lib = lambda: space_to_depth(F.interpolate(  # noqa: E731
+                    xc, size=hw, mode='bilinear', align_corners=True).permute(0, 2, 3, 1))
             res['interpolate'] = dict(single=round(event_ms(lib, args.iters), 4),
-                                      device=round(graph_ms(lib, args.burst, args.iters), 4),
+                                      device=round(graph_ms(lib, args.burst, args.iters), 5),
                                       host_us=round(host_us(lib), 2))
         nbytes = b * (n * n + 4 * n * n) * C * x.element_size()
         print(json.dumps({'site': site, 'dtype': dtname, **res,
                           'bound_ms': round(nbytes / 3.35e12 * 1e3, 5)}), flush=True)
+        del x, xc, ref
+        torch.cuda.empty_cache()
 
     host_parts(fused_resize, F)
 
@@ -116,7 +133,7 @@ def host_parts(fr, F):
     xc = x.permute(0, 3, 1, 2)
     out = x.new_empty((1, 32, 32, C))
     xp, code, stream = fr._kernel_args('x', x, C)
-    fn = fr._kernel('rf_resize_bilinear')
+    fn = fr._build.function('rf_resize_bilinear')
     op = fr._ptr(out.data_ptr())
     with torch.inference_mode():
         parts = {

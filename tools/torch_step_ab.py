@@ -11,8 +11,9 @@ fused backward (K8), and v1-base nerf with the fused RMSNorm (1 scene x 1
 view x 2048 triangles at 256^2, bf16 stage 1 with an fp32 view stage,
 remat, AdamW): the median wall milliseconds of ``--steps`` steps after a
 warm-up, and the device milliseconds of one profiled step with the rows of
-the flash backward's dK/dV kernels (K8) and of the K broadcast-rotate (K3)
-summed apart.  The batch and the
+the flash backward's dK/dV kernels (K8), of the K broadcast-rotate (K3) and
+of the fused RMSNorm's forward and backward kernels (K11) summed apart,
+with K11's backward launches and every device operation the step ran.  The batch and the
 model come from the tree's own ``chip_smoke.py`` (``train_batch``,
 ``seeded_train_state``).  Prints the card's nvidia-smi line, then one JSON
 line a turn.
@@ -70,7 +71,13 @@ def worker(tree, steps):
             flash_bwd_ms=round(sum(e.self_device_time_total for e in rows
                                    if any(n in e.key for n in BWD_KERNELS)) / 1e3, 3),
             rot_kv_ms=round(sum(e.self_device_time_total for e in rows
-                                if 'rot_kv_kernel' in e.key) / 1e3, 3))
+                                if 'rot_kv_kernel' in e.key) / 1e3, 3),
+            norm_fwd_ms=round(sum(e.self_device_time_total for e in rows
+                                  if 'rms_norm_fwd_kernel' in e.key) / 1e3, 3),
+            norm_bwd_ms=round(sum(e.self_device_time_total for e in rows
+                                  if 'rms_norm_bwd_kernel' in e.key) / 1e3, 3),
+            norm_bwd_launches=sum(e.count for e in rows if 'rms_norm_bwd_kernel' in e.key),
+            device_ops=sum(e.count for e in rows))
         del model, tx, state, step
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
