@@ -8,11 +8,12 @@ Phases, each printing its own lines:
   2. build: compiles the kernels from renderformer_tpu_torch/csrc, and
      counts the wgmma (HGMMA) and TMA load (UTMALDG) instructions that
      cuobjdump finds in the bf16 flash forward's kernels (K1/K2, K10) and
-     the bf16 flash backward's (K8, K9's dK/dV), which must both be
+     the bf16 flash backward's (K8, K9's dK/dV, K9's dQ), which must both be
      non-zero, and the TF32 tensor-core instructions (HMMA .TF32) of the
-     fp32 flash forward and of the fp32 dK/dV kernels of the flash backward
-     (K8, K9's dK/dV), which must be non-zero, with the backward's and the
-     fp32 kernels' spills and registers, and those of K11's backward and K5;
+     fp32 flash forward and of the fp32 dK/dV and dQ kernels of the flash
+     backward (K8, K9's dK/dV, K9's dQ), which must be non-zero, with the
+     backward's and the fp32 kernels' spills and registers, and those of
+     K11's backward and K5;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      every shape the v1-base, v1.1-swin-large and v1-base nerf 512^2 renders
      give it, in bf16 and fp32 (the flash forward without RoPE, K10, and the
@@ -45,7 +46,10 @@ Phases, each printing its own lines:
      step, q split, blocks on the card's SMs), the flash backward through
      its wrapper (K8 fused; K9 two-kernel, each of its dQ and dK/dV kernels
      timed alone against the plain version of its part; K8 also by bursts
-     of launches beside autograd of SDPA), K4, K5 and the
+     of launches beside autograd of SDPA; K9's dQ kernel also by CUDA graphs
+     of calls beside autograd of SDPA for dq alone, with its tile plan, in
+     both dtypes at every site, where two calls and three replays of a CUDA
+     graph must give the same bits), K4, K5 and the
      transposed resize (K4^T) against their plain versions, at every shape
      of the v1-base train step, in bf16 and fp32, and K10 with its logsumexp
      and K11's forward and backward at the nerf train step's shapes and
@@ -62,7 +66,8 @@ Phases, each printing its own lines:
      the backward must fall outside them; finite
      loss and grad norm over 3 steps; the median step time of 5 steps after a
      warm-up, trained rays/s, peak memory, and the device's idle share from
-     one profiled step.  Then the same workload for v1-base nerf with
+     one profiled step, of the fused and of the two-kernel backward's
+     step.  Then the same workload for v1-base nerf with
      fused_norm=True and the fused backward: exact launch counts of one step,
      the kernel step against the plain step within AGREE_BARS, 3 finite
      steps, and the same timings.
@@ -130,8 +135,11 @@ KERNELS = {
     'flash_bwd_nomask': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd_sm90.cu',
         sources=BWD_SOURCES, replaces='renderformer_tpu/ops/flash_attention.py:425'),
+    # K9's dQ kernel: bf16 in flash_bwd_dq_sm90.cu, fp32 in flash_bwd.cu
     'flash_bwd_dq': dict(
-        route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd.cu',
+        route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd_dq_sm90.cu',
+        sources=['renderformer_tpu_torch/csrc/flash_bwd_dq_sm90.cu',
+                 'renderformer_tpu_torch/csrc/flash_bwd.cu'],
         replaces='renderformer_tpu/ops/flash_attention.py:323'),
     'flash_bwd_dkv': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/flash_bwd_sm90.cu',
@@ -287,17 +295,19 @@ def graph_replays(fn, n):
     return results
 
 
-def autograd_graph_ms(forward, inputs, grad_out, n=LSE_BURST, iters=10):
+def autograd_graph_ms(forward, inputs, grad_out, n=LSE_BURST, iters=10, wrt=None):
     """Device milliseconds of one torch.autograd.grad of ``forward(*inputs)``
-    for ``grad_out``, as graph_burst_ms times a call: the forward runs once
-    on the capturing stream, so that autograd's backward launches there."""
+    for ``grad_out`` (with respect to the inputs at the indices ``wrt``, all
+    by default), as graph_burst_ms times a call: the forward runs once on the
+    capturing stream, so that autograd's backward launches there."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
         out = forward(*leaves)
-    ms = graph_burst_ms(lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True),
+    targets = leaves if wrt is None else [leaves[i] for i in wrt]
+    ms = graph_burst_ms(lambda: torch.autograd.grad(out, targets, grad_out, retain_graph=True),
                         n, iters, side)
     del out, leaves
     return ms
@@ -488,6 +498,8 @@ SASS_KERNEL = 'flash_fwd_sm90_kernel'
 SASS_F32_KERNEL = 'flash_fwd_f32_kernel'
 SASS_BWD_KERNEL = 'flash_bwd_kv_kernel'
 SASS_BWD_BF16_KERNEL = 'flash_bwd_sm90_kernel'
+SASS_DQ_KERNEL = 'flash_bwd_dq_f32_kernel'
+SASS_DQ_BF16_KERNEL = 'flash_bwd_dq_sm90_kernel'
 
 
 def flash_rate(dtype):
@@ -534,12 +546,12 @@ def res_usage(lib_path, kernel):
 def sass_check(lib_path):
     """Phase 2: HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
     of the bf16 flash forward's kernels and of the bf16 flash backward's
-    (K8, and K9's dK/dV), and TF32 HMMA (mma.sync on the tensor cores) in
-    each of the fp32 flash forward's and in each fp32 instantiation of the
-    flash backward's dK/dV kernel, by cuobjdump; fails unless every one has
-    them.  Spills (local loads and stores) and registers of the backward
-    and the fp32 kernels, and of K11's backward and K5, are printed beside
-    them."""
+    (K8, K9's dK/dV and K9's dQ), and TF32 HMMA (mma.sync on the tensor
+    cores) in each of the fp32 flash forward's and in each fp32
+    instantiation of the flash backward's dK/dV and dQ kernels, by
+    cuobjdump; fails unless every one has them.  Spills (local loads and
+    stores) and registers of the backward and the fp32 kernels, and of
+    K11's backward and K5, are printed beside them."""
     cuobjdump = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     res = subprocess.run([cuobjdump, '-sass', lib_path], capture_output=True, text=True,
                          timeout=300)
@@ -554,6 +566,9 @@ def sass_check(lib_path):
             (SASS_F32_KERNEL, 'fp32 flash forward', ('HMMA TF32',), ('LDL', 'STL'), ''),
             (SASS_BWD_KERNEL, 'fp32 flash backward dK/dV', ('HMMA TF32',), ('LDL', 'STL'),
              'If'),
+            (SASS_DQ_KERNEL, 'fp32 flash backward dQ (K9)', ('HMMA TF32',), ('LDL', 'STL'), ''),
+            (SASS_DQ_BF16_KERNEL, 'bf16 flash backward dQ (K9)', ('HGMMA', 'UTMALDG'),
+             ('LDL', 'STL'), ''),
             ('rms_norm_bwd_kernel', 'fused RMSNorm backward (K11)', (), ('LDL', 'STL'), ''),
             ('resize_s2d_kernel', 'space-to-depth resize (K5)', (), ('LDL', 'STL'), '')):
         counts = {k: c for k, c in sass_counts(res.stdout, kernel, need + seen).items()
@@ -1045,6 +1060,54 @@ def render_checks(card, preset):
 # phase 6: the training kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def check_dq(row, lib, io, sdpa_io, site, dtype):
+    """K9's dQ kernel at a train site, beside its checked row: the tile plan
+    (q rows a block, the fp32 key split, blocks on the card's SMs); the
+    device time of a call by CUDA graphs of LSE_BURST calls, beside autograd
+    of SDPA for dq alone timed the same way and the bound; and determinism:
+    two calls and three replays of a CUDA graph of one call give the same
+    bits, or the phase fails."""
+    import torch
+    import torch.nn.functional as F
+    from renderformer_tpu_torch.ops.flash_attention import (
+        flash_bwd_dq_rows, flash_bwd_dq_splits, launch_flash_bwd)
+    q = io[0]
+    b, sq, h, _ = q.shape
+    sk = io[1].shape[1]
+    dt = str(dtype).split('.')[-1]
+    rows = flash_bwd_dq_rows(dtype, b, sq, h)
+    splits = flash_bwd_dq_splits(dtype, b, sq, sk, h)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f'plan: flash_bwd_dq {site} {dt} B {b} x H {h} x Sq {sq} x Sk {sk}: {rows} q rows '
+          f'a block, keys split {splits} ways, {-(-sq // rows) * h * b * splits} blocks on '
+          f'{sms} SMs', flush=True)
+
+    def call():
+        return launch_flash_bwd(lib, 'dq', *io)[0]
+
+    qs, ks, vs, am, gl = sdpa_io
+    with torch.no_grad():
+        row['graph_ms'] = graph_burst_ms(call)
+    with torch.enable_grad():  # the caller checks the kernels under no_grad
+        row['library_graph_ms'] = autograd_graph_ms(
+            lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, attn_mask=am),
+            (qs, ks, vs), gl, wrt=(0,))
+    print(f'dq: {site} {dt}: CUDA graphs of {LSE_BURST} {row["graph_ms"]:.4f} ms a call '
+          f'against autograd of SDPA for dq alone {row["library_graph_ms"]:.4f} '
+          f'({row["graph_ms"] / row["library_graph_ms"]:.3f}x; bound {row["bound_ms"]:.4f}, '
+          f'share {row["bound_ms"] / row["graph_ms"]:.3f}), single calls {row["ms"]:.4f} '
+          f'against {row["library_ms"]:.4f}', flush=True)
+    with torch.no_grad():
+        first, second = call(), call()
+        replays = graph_replays(lambda: (call(),), 3)
+    torch.cuda.synchronize()
+    same = [torch.equal(first, second)] + [torch.equal(first, r[0]) for r in replays]
+    print(f'dq: {site} {dt}: the same bits in two calls and three graph replays: {same}',
+          flush=True)
+    if not all(same):
+        fail(f'flash_bwd_dq {site} {dt}: dq differs between calls or graph replays ({same})')
+
+
 def train_kernel_checks():
     """The forward's logsumexp (K1/K2), K3, K8, K9's two kernels, K4, K5 and
     K4^T at the v1-base train step's shapes, in bf16 and fp32, and K10 with
@@ -1194,6 +1257,7 @@ def train_kernel_checks():
                            ref[0], tols[0], why, lambda: launch_flash_bwd(lib, 'dq', *io),
                            lib_grad(ql), b_in + b_out_q, 6 * H * sq * sk * D,
                            flash_rate(dtype), plain_fn=lambda: flash_bwd_dq_plain(*io))
+                check_dq(rows[-1], lib, io, (qs, ks, vs, am, gl), site, dtype)
                 record_row(rows, 'flash_bwd_dkv', site, dtype, per_step(1, (TRAIN2,)), two[1:],
                            ref[1:], tols[1:], why, lambda: launch_flash_bwd(lib, 'dkv', *io),
                            lib_grad(kl, vl), b_in + b_out_kv, 8 * H * sq * sk * D,
@@ -1475,7 +1539,9 @@ def train_checks(card):
     losses.append(m)
     check_finite('v1-base', losses)
     step_speed(card, 'v1-base', step, state, batch, agree)
-    del state, model, step
+    step2 = ts.make_train_step(model, tx, tcs['twokernel'])[0]
+    step_speed(card, 'v1-base twokernel', step2, state, batch, agree)
+    del state, model, step, step2
     torch.cuda.empty_cache()
     return launches
 

@@ -55,6 +55,10 @@ SIGNATURES = {
     # H, D, qscale, dqscale, stream
     'rf_flash_bwd_dq': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _F, _F, _P],
+    # dtype, B, Sq, H -> rows of q a block of K9's dQ kernel takes
+    'rf_flash_bwd_dq_rows': [_I, _I, _I, _I],
+    # dtype, B, Sq, Sk, H -> blocks that split a q tile's keys (K9's dQ kernel)
+    'rf_flash_bwd_dq_splits': [_I, _I, _I, _I, _I],
     # k, cos, sin, out, dtype, B, reps, Sk, H, D, stream
     'rf_rot_kv_broadcast': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, out, dtype, B, IH, IW, OH, OW, C, stream

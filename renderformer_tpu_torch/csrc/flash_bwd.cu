@@ -20,9 +20,9 @@
 // flops (K9 recomputes S and dP in its dQ kernel: 14*Sq*Sk*D) against
 // ~4*(Sq+Sk)*D elements moved, far above the ~295 flop/byte ridge, so the
 // tensor cores bound it; in fp32 at a third of the TF32 rate, as split TF32.
-// bf16 K8 and K9's bf16 dK/dV kernel run flash_bwd_sm90.cu (TMA and wgmma);
-// this file holds the fp32 dK/dV kernel (K8 and K9's), K9's dQ kernel in both
-// dtypes and the C entry points.
+// bf16 K8 and K9's bf16 dK/dV kernel run flash_bwd_sm90.cu, K9's bf16 dQ
+// kernel flash_bwd_dq_sm90.cu (TMA and wgmma); this file holds the fp32 dK/dV
+// kernel (K8 and K9's), K9's fp32 dQ kernel and the C entry points.
 // Design: the TPU's sequential q-block grid with dK/dV resident in VMEM has no
 // GPU counterpart (blocks run in parallel, in no order).  Here one block of 4
 // warps owns a 64-key tile of one (head, batch) and loops over 16-row q steps:
@@ -39,8 +39,8 @@
 // in shared memory) and adds it into an fp32 scratch with atomics, a float2
 // atomicAdd for the two adjacent columns a thread holds (sm_90), so its sums
 // run in a run-dependent order.  K9's dK/dV kernel is the same kernel without
-// dQ; its dQ kernel owns a 64-row q tile and loops over key tiles, recomputing
-// P, with dQ in registers: no atomics, a deterministic result.
+// dQ; its dQ kernel owns a q tile and loops over key steps, recomputing P,
+// with dQ in registers: no atomics, a deterministic result.
 //
 // The fp32 dK/dV kernel takes all five products on the tensor cores as split
 // TF32 (x = hi + lo with hi truncated to TF32, split_tf32_trunc below; three
@@ -54,15 +54,27 @@
 // t+4; dO's and q's B fragments read those two rows, and dQ reads dS from the
 // fp32 stage.  Row strides of D+4 (K, V, q, dO) and BQ+8 (the stage) keep every
 // fragment load free of bank conflicts.  16-row q steps hold the block at
-// 105.5 KB of shared memory, so two blocks share an SM.  K9's dQ kernel
-// multiplies with mma.sync m16n8k16 in bf16 (common.cuh) and with scalar FMAs
-// in fp32.
+// 105.5 KB of shared memory, so two blocks share an SM.
+//
+// K9's fp32 dQ kernel takes its three products (S, dP, dQ = dS.K; 6*Sq*Sk*D
+// flops) the same way: a block of 4 warps owns 64 q rows (q scaled in place
+// and dO resident, 16 rows a warp), and loops over 16-key steps whose K and V
+// are double-buffered, step j+1's cp.async copies running under step j's
+// products, one barrier a step; dS stays in registers, its C layout renamed
+// into dQ's A layout as above, and each step's dQ products go to a fresh
+// accumulator added by one FADD.  Tiles of 16 keys hold the block at 99.1 KB,
+// so two share an SM.  The train step's grids (96 q tiles) fill less than
+// two waves of the 264 resident blocks, so a q tile's key steps split over
+// the 2 or 4 blocks of a thread block cluster (dq_splits); the partial dQs are
+// summed through distributed shared memory in cluster-rank order, the same
+// sums in the same order on every run.
 #include <cooperative_groups.h>
 #include <math.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "flash_bwd_dq_sm90.cuh"
 #include "flash_bwd_sm90.cuh"
 
 using namespace rf;
@@ -72,8 +84,9 @@ namespace {
 
 constexpr int D = 128;       // the head dim of the released models
 constexpr int KV_BK = 64;    // keys a block owns (dK/dV kernels)
-constexpr int DQ_BQ = 64;    // q rows a block owns (K9 dQ kernel)
-constexpr int DQ_BK = 64;    // keys a loop step (K9 dQ kernel)
+constexpr int DQ_BQ = 64;    // q rows a block owns (K9's fp32 dQ kernel)
+constexpr int DQ_BK = 16;    // keys a loop step (K9's fp32 dQ kernel)
+constexpr int DQ_MAX_SPLITS = 4;  // blocks of a cluster that share a q tile's keys
 constexpr int NTHREADS = 128;
 constexpr float NEG_BIG = -1e30f;
 constexpr float LOG2E_F = 1.4426950408889634f;
@@ -99,11 +112,11 @@ constexpr size_t kv_smem_bytes() {
          (WITH_DQ ? (size_t)KV_BK * (kKvBq<T> + 8) * sizeof(T) : 0);
 }
 
-template <typename T>
+// q and dO; two buffers each of K and V and of the key bias (K9's fp32 dQ
+// kernel): 99.1 KB, two blocks an SM
 constexpr size_t dq_smem_bytes() {
-  return (size_t)(2 * DQ_BQ + 2 * DQ_BK) * kLd<T> * sizeof(T) +
-         (size_t)(2 * DQ_BQ + DQ_BK) * sizeof(float) +
-         (std::is_same<T, float>::value ? (size_t)DQ_BQ * (DQ_BK + 4) * sizeof(float) : 0);
+  return (size_t)(2 * DQ_BQ + 4 * DQ_BK) * kLd<float> * sizeof(float) +
+         (size_t)2 * DQ_BK * sizeof(float);
 }
 
 // copy rows [r0, r0 + rows) of a [*, H, D] tensor at (batch bb, head h) into a
@@ -474,49 +487,80 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 // ---------------------------------------------------------------------------
-// K9 dQ: one block per (64-row q tile, head, batch), a loop over key tiles
+// K9 dQ in fp32: one block per (64-row q tile, head, batch, key part)
 // ---------------------------------------------------------------------------
-template <typename T, bool HAS_MASK>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, const uint8_t* __restrict__ mask,
-                    T* __restrict__ dq, int reps, int Sq, int Sk, int H, float qscale,
-                    float dqscale) {
-  constexpr bool kBF = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int LD = kLd<T>;
-  constexpr int NT = DQ_BK / 8;
-  constexpr int LDP = DQ_BK + 4;
+// Warp w owns q rows 16w..16w+15 of the tile; each loop step takes DQ_BK
+// keys.  S = q_s K^T and dP = dO V^T run as split TF32 (mma.m16n8k8 layouts
+// above: A the q or dO rows, B the step's keys), P and dS on the
+// accumulators; the C layout of dS becomes the A layout of dQ += dS K by
+// naming the keys 8j+2t and 8j+2t+1 of ds[j] the k indices t and t+4, with
+// K's B fragment read at those two keys (banks 8t + g).  dQ stays in
+// registers (16 rows x D a warp); each step's products, the small ones of
+// each k step first, go to a fresh accumulator that one FADD adds to it.
+template <bool HAS_MASK>
+__global__ void __launch_bounds__(NTHREADS, 2)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const uint8_t* __restrict__ mask, float* __restrict__ dq, int reps, int Sq,
+                        int Sk, int H, int splits, float qscale, float dqscale) {
+  constexpr int LD = kLd<float>, VEC = kVec<float>;
+  constexpr int NT = DQ_BK / 8;  // n8 tiles (S, dP) and k steps (dQ) over a key step
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* dOs = Qs + DQ_BQ * LD;
-  T* Ks = dOs + DQ_BQ * LD;
-  T* Vs = Ks + DQ_BK * LD;
-  float* lse2s = reinterpret_cast<float*>(Vs + DQ_BK * LD);
-  float* deltas = lse2s + DQ_BQ;
-  float* kbias = deltas + DQ_BQ;
-  float* DSf = kbias + DQ_BK;  // fp32 only: [DQ_BQ][LDP]
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [DQ_BQ][LD], scaled in place
+  float* dOs = Qs + DQ_BQ * LD;
+  float* Ks = dOs + DQ_BQ * LD;  // [2][DQ_BK][LD]
+  float* Vs = Ks + 2 * DQ_BK * LD;
+  float* kbias = Vs + 2 * DQ_BK * LD;  // [2][DQ_BK]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3, lm = lane >> 3, lr = lane & 7;
-  const int q0 = blockIdx.x * DQ_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int part = blockIdx.x % splits;  // the block's rank in its cluster
+  const int q0 = (blockIdx.x / splits) * DQ_BQ, h = blockIdx.y, b = blockIdx.z;
   const int r0 = warp * 16 + g;  // this thread's q rows: r0 and r0 + 8 of the tile
+  // the block's key steps: a contiguous part of the q tile's, split over the
+  // blocks of its cluster (dq_splits keeps every part non-empty)
+  const int nkt = (Sk + DQ_BK - 1) / DQ_BK;
+  const int kt0 = (int)((long)nkt * part / splits), kt1 = (int)((long)nkt * (part + 1) / splits);
 
   load_rows(Qs, q, b, h, H, q0, DQ_BQ, Sq, tid);
   load_rows(dOs, dout, b, h, H, q0, DQ_BQ, Sq, tid);
   cp_async_commit();
-  if (tid < DQ_BQ) {
-    const int qi = q0 + tid;
+  // K and V of key step kt into buffer buf, one commit group, and its key bias
+  auto load_step = [&](int kt, int buf) {
+    const int k0 = kt * DQ_BK;
+    for (int i = tid; i < DQ_BK * (D / VEC); i += NTHREADS) {
+      const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
+      const bool ok = k0 + r < Sk;
+      const size_t kr = ok ? (size_t)k0 + r : 0;
+      cp_async16(&Ks[(buf * DQ_BK + r) * LD + c], k + (((size_t)b * Sk + kr) * H + h) * D + c,
+                 ok);
+      cp_async16(&Vs[(buf * DQ_BK + r) * LD + c],
+                 v + (((size_t)(b / reps) * Sk + kr) * H + h) * D + c, ok);
+    }
+    cp_async_commit();
+    if (tid < DQ_BK) kbias[buf * DQ_BK + tid] = key_bias<HAS_MASK>(mask, b, k0 + tid, Sk);
+  };
+  load_step(kt0, 0);
+  // this thread's rows' lse * log2(e) (+inf past Sq) and delta
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + r0 + 8 * i;
     const size_t o = ((size_t)b * H + h) * Sq + qi;
-    lse2s[tid] = qi < Sq ? lse[o] * LOG2E_F : INFINITY;
-    deltas[tid] = qi < Sq ? delta[o] : 0.f;
+    lse2[i] = qi < Sq ? lse[o] * LOG2E_F : INFINITY;
+    dlt[i] = qi < Sq ? delta[o] : 0.f;
   }
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int i = tid; i < DQ_BQ * D; i += NTHREADS) {
-    T* p = &Qs[(i / D) * LD + i % D];
-    *p = from_float<T>(to_float(*p) * qscale);
+  // q and dO have landed for this thread: q is scaled by D^-0.5 * log2(e) in
+  // the 16-byte chunks this thread copied, so the scaling needs no barrier of
+  // its own
+  cp_async_wait<1>();
+  for (int i = tid; i < DQ_BQ * (D / VEC); i += NTHREADS) {
+    float4* p = reinterpret_cast<float4*>(&Qs[(i / (D / VEC)) * LD + (i % (D / VEC)) * VEC]);
+    const float4 x = *p;
+    *p = make_float4(__fmul_rn(x.x, qscale), __fmul_rn(x.y, qscale), __fmul_rn(x.z, qscale),
+                     __fmul_rn(x.w, qscale));
   }
 
   float acc[DT][4];
@@ -525,128 +569,140 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
 
-  for (int k0 = 0; k0 < Sk; k0 += DQ_BK) {
-    __syncthreads();  // the last step is done with Ks and Vs (and the q scaling)
-    {
-      const int rows = Sk - k0 < DQ_BK ? Sk - k0 : DQ_BK;
-      constexpr int VEC = kVec<T>;
-      for (int i = tid; i < DQ_BK * (D / VEC); i += NTHREADS) {
-        const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
-        const bool ok = r < rows;
-        const size_t kr = (size_t)k0 + (ok ? r : 0);
-        cp_async16(&Ks[r * LD + c], k + (((size_t)b * Sk + kr) * H + h) * D + c, ok);
-        cp_async16(&Vs[r * LD + c], v + (((size_t)(b / reps) * Sk + kr) * H + h) * D + c, ok);
-      }
-      cp_async_commit();
-      if (tid < DQ_BK) kbias[tid] = key_bias<HAS_MASK>(mask, b, k0 + tid, Sk);
-      cp_async_wait<0>();
-      __syncthreads();
-    }
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int buf = (kt - kt0) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // step kt's tiles are in place, and every warp is done with step kt - 1
+    // the next step's copies run while this one multiplies; its buffer was
+    // last read in step kt - 1
+    if (kt + 1 < kt1) load_step(kt + 1, buf ^ 1);
+    const float* Kb = Ks + buf * DQ_BK * LD;
+    const float* Vb = Vs + buf * DQ_BK * LD;
+    const float* kb = kbias + buf * DQ_BK;
 
-    // S = Q K^T and dP = dO V^T, [16 q rows x DQ_BK keys] a warp
-    float s[NT][4], dp[NT][4];
+    // S = q_s K^T and dP = dO V^T, [16 q rows x DQ_BK keys] a warp: the
+    // hi*hi products in s and dp, the two small products of each k step
+    // (lo*hi first) in sl and dpl, added before the bias.  Row stride D+4:
+    // A reads rows g (banks 4g + t), B reads keys g (banks 4g + t)
+    float s[NT][4], sl[NT][4], dp[NT][4], dpl[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    if constexpr (kBF) {
+      for (int e = 0; e < 4; ++e) s[j][e] = sl[j][e] = dp[j][e] = dpl[j][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int c = kk * 8 + t4;
+      uint32_t ah[4], al[4];
+      split_tf32_trunc(Qs[r0 * LD + c], ah[0], al[0]);
+      split_tf32_trunc(Qs[(r0 + 8) * LD + c], ah[1], al[1]);
+      split_tf32_trunc(Qs[r0 * LD + c + 4], ah[2], al[2]);
+      split_tf32_trunc(Qs[(r0 + 8) * LD + c + 4], ah[3], al[3]);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t qa[4], oa[4];
-        const int ar = warp * 16 + (lane & 15), ac = kk * 16 + (lane >> 4) * 8;
-        ldmatrix_x4(qa, &Qs[ar * LD + ac]);
-        ldmatrix_x4(oa, &dOs[ar * LD + ac]);
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          uint32_t kb[4], vb[4];
-          const int br = (j + (lm >> 1)) * 8 + lr, bc = kk * 16 + (lm & 1) * 8;
-          ldmatrix_x4(kb, &Ks[br * LD + bc]);
-          ldmatrix_x4(vb, &Vs[br * LD + bc]);
-          mma_bf16(s[j], qa, kb[0], kb[1]);
-          mma_bf16(s[j + 1], qa, kb[2], kb[3]);
-          mma_bf16(dp[j], oa, vb[0], vb[1]);
-          mma_bf16(dp[j + 1], oa, vb[2], vb[3]);
-        }
+      for (int j = 0; j < NT; ++j) {
+        const int o = (j * 8 + g) * LD + c;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32_trunc(Kb[o], bh0, bl0);
+        split_tf32_trunc(Kb[o + 4], bh1, bl1);
+        mma_tf32(sl[j], al, bh0, bh1);
+        mma_tf32(sl[j], ah, bl0, bl1);
+        mma_tf32(s[j], ah, bh0, bh1);
       }
-    } else {
-      for (int d = 0; d < D; ++d) {
-        const float q0v = to_float(Qs[r0 * LD + d]), q1v = to_float(Qs[(r0 + 8) * LD + d]);
-        const float o0v = to_float(dOs[r0 * LD + d]), o1v = to_float(dOs[(r0 + 8) * LD + d]);
+      split_tf32_trunc(dOs[r0 * LD + c], ah[0], al[0]);
+      split_tf32_trunc(dOs[(r0 + 8) * LD + c], ah[1], al[1]);
+      split_tf32_trunc(dOs[r0 * LD + c + 4], ah[2], al[2]);
+      split_tf32_trunc(dOs[(r0 + 8) * LD + c + 4], ah[3], al[3]);
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = j * 8 + 2 * t4 + e;
-            const float kv = to_float(Ks[c * LD + d]), vv = to_float(Vs[c * LD + d]);
-            s[j][e] = fmaf(q0v, kv, s[j][e]);
-            s[j][2 + e] = fmaf(q1v, kv, s[j][2 + e]);
-            dp[j][e] = fmaf(o0v, vv, dp[j][e]);
-            dp[j][2 + e] = fmaf(o1v, vv, dp[j][2 + e]);
-          }
+      for (int j = 0; j < NT; ++j) {
+        const int o = (j * 8 + g) * LD + c;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32_trunc(Vb[o], bh0, bl0);
+        split_tf32_trunc(Vb[o + 4], bh1, bl1);
+        mma_tf32(dpl[j], al, bh0, bh1);
+        mma_tf32(dpl[j], ah, bl0, bl1);
+        mma_tf32(dp[j], ah, bh0, bh1);
       }
     }
 
-    // dS = (dP - delta) * exp2(s2 - lse2), rounded to the input dtype
+    // P = exp2(s2 + bias - lse2) and dS = (dP - delta) * P, split into the
+    // A fragments of dQ += dS K (k index t: key 8j + 2t, t + 4: 8j + 2t + 1)
+    uint32_t dsh[NT][4], dsl[NT][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NT; ++j) {
+      const float2 bb = *reinterpret_cast<const float2*>(&kb[j * 8 + 2 * t4]);
+      float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = r0 + (e >> 1) * 8;
-        const float p = exp2f((s[j][e] + kbias[j * 8 + 2 * t4 + (e & 1)]) - lse2s[row]);
-        dp[j][e] = to_float(from_float<T>((dp[j][e] - deltas[row]) * p));
+        const float p = exp2f(((s[j][e] + sl[j][e]) + ((e & 1) ? bb.y : bb.x)) - lse2[e >> 1]);
+        ds[e] = ((dp[j][e] + dpl[j][e]) - dlt[e >> 1]) * p;
       }
+      split_tf32_trunc(ds[0], dsh[j][0], dsl[j][0]);
+      split_tf32_trunc(ds[2], dsh[j][1], dsl[j][1]);
+      split_tf32_trunc(ds[1], dsh[j][2], dsl[j][2]);
+      split_tf32_trunc(ds[3], dsh[j][3], dsl[j][3]);
+    }
+    // dQ += dS K: for each 8 head-dim columns, the step's NT k steps in a
+    // fresh accumulator, added to dQ by one FADD, so the tensor cores'
+    // additions never run over the whole key range
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      float tq[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float* kr = Kb + (j * 8 + 2 * t4) * LD + dt * 8 + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32_trunc(kr[0], bh0, bl0);
+        split_tf32_trunc(kr[LD], bh1, bl1);
+        mma_3xtf32(tq, dsh[j], dsl[j], bh0, bh1, bl0, bl1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dt][e] += tq[e];
+    }
+  }
 
-    // dQ += dS K
-    if constexpr (kBF) {
+  if (splits == 1) {
 #pragma unroll
-      for (int kk = 0; kk < DQ_BK / 16; ++kk) {
-        uint32_t a[4];
-        a[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-        a[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-        a[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-        a[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-#pragma unroll
-        for (int dt = 0; dt < DT; dt += 2) {
-          uint32_t kb[4];
-          ldmatrix_x4_trans(kb, &Ks[(kk * 16 + (lm & 1) * 8 + lr) * LD + (dt + (lm >> 1)) * 8]);
-          mma_bf16(acc[dt], a, kb[0], kb[1]);
-          mma_bf16(acc[dt + 1], a, kb[2], kb[3]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          DSf[(r0 + (e >> 1) * 8) * LDP + j * 8 + 2 * t4 + (e & 1)] = dp[j][e];
-      __syncwarp();
-      for (int kj = 0; kj < DQ_BK; ++kj) {
-        const float a0 = DSf[r0 * LDP + kj], a1 = DSf[(r0 + 8) * LDP + kj];
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + r0 + 8 * i;
+      if (qi < Sq) {
+        float* dst = dq + (((size_t)b * Sq + qi) * H + h) * D + 2 * t4;
 #pragma unroll
         for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float kv = to_float(Ks[kj * LD + dt * 8 + 2 * t4 + e]);
-            acc[dt][e] = fmaf(a0, kv, acc[dt][e]);
-            acc[dt][2 + e] = fmaf(a1, kv, acc[dt][2 + e]);
-          }
+          *reinterpret_cast<float2*>(dst + dt * 8) =
+              make_float2(acc[dt][2 * i] * dqscale, acc[dt][2 * i + 1] * dqscale);
       }
-      __syncwarp();
     }
+    return;
   }
 
+  // the key split: each block leaves its partial dQ in its own shared memory
+  // (the q and dO tiles' place), and after a cluster barrier each block sums
+  // a slice of the q rows over every block's partial, in rank order, through
+  // distributed shared memory: the same sums in the same order on every run
+  constexpr int LDM = D + 4;
+  float* pq = Qs;  // [DQ_BQ][LDM]
+  __syncthreads();  // every warp is done with the q and dO tiles
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int qi = q0 + r0 + hh * 8;
-    if (qi < Sq) {
-      T* dst = dq + (((size_t)b * Sq + qi) * H + h) * D;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          dst[dt * 8 + 2 * t4 + e] = from_float<T>(acc[dt][2 * hh + e] * dqscale);
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<float2*>(&pq[(r0 + 8 * i) * LDM + dt * 8 + 2 * t4]) =
+          make_float2(acc[dt][2 * i], acc[dt][2 * i + 1]);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rows = DQ_BQ / splits;
+  for (int i = tid; i < rows * (D / 4); i += NTHREADS) {
+    const int r = part * rows + i / (D / 4), c = (i % (D / 4)) * 4, qi = q0 + r;
+    if (qi >= Sq) continue;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int cr = 0; cr < splits; ++cr) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(cluster.map_shared_rank(pq, cr) + r * LDM + c);
+      sum = make_float4(sum.x + a.x, sum.y + a.y, sum.z + a.z, sum.w + a.w);
     }
+    *reinterpret_cast<float4*>(dq + (((size_t)b * Sq + qi) * H + h) * D + c) =
+        make_float4(sum.x * dqscale, sum.y * dqscale, sum.z * dqscale, sum.w * dqscale);
   }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
 // Clusters of `splits` blocks of the dK/dV kernel that the current device
@@ -717,22 +773,77 @@ cudaError_t launch_kv(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
-template <typename T, bool HAS_MASK>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, const void* mask, void* dq, int B,
-                      int reps, int Sq, int Sk, int H, float qscale, float dqscale,
-                      cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<T>();
-  auto kern = flash_bwd_dq_kernel<T, HAS_MASK>;
+// Clusters of `splits` blocks of the fp32 dQ kernel that the current device
+// holds at once (cached per device), or 0 where the query fails.
+int dq_cluster_capacity(int splits) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
+  static int cache[64][3] = {};
+  const int slot = splits == 1 ? 0 : splits == 2 ? 1 : 2;
+  if (cache[dev][slot]) return cache[dev][slot];
+  const int n =
+      cluster_capacity(flash_bwd_dq_f32_kernel<true>, NTHREADS, dq_smem_bytes(), splits);
+  if (n <= 0) return 0;
+  cache[dev][slot] = n;
+  return n;
+}
+
+// Blocks a q tile of the fp32 dQ kernel splits its key steps across: where
+// the q tiles fill less than two waves of the blocks the card holds at once,
+// of 2 and 4 (at most the key steps) the count whose grid takes the fewest
+// waves of the card's clusters per unit of work, ceil(tiles / capacity(s))
+// / s; 4 must win by more than 10 %, for the wider merge; else 1.
+int dq_splits(int B, int Sq, int Sk, int H) {
+  const long tiles = (long)((Sq + DQ_BQ - 1) / DQ_BQ) * H * B;
+  const int nkt = (Sk + DQ_BK - 1) / DQ_BK;
+  const int cap1 = dq_cluster_capacity(1);
+  if (cap1 <= 0 || tiles >= 2L * cap1 || nkt < 2) return 1;
+  int best = 1;
+  double best_cost = 0.0;
+  for (int s = 2; s <= DQ_MAX_SPLITS && s <= nkt; s *= 2) {
+    const int cap = dq_cluster_capacity(s);
+    if (cap <= 0) break;
+    const double cost = (double)((tiles + cap - 1) / cap) / s;
+    if (best == 1 || cost < 0.9 * best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <bool HAS_MASK>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, const void* mask, void* dq, int B,
+                          int reps, int Sq, int Sk, int H, float qscale, float dqscale,
+                          cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes();
+  static_assert(smem >= (size_t)DQ_BQ * (D + 4) * sizeof(float),
+                "the key split's partial dQ reuses the q tile's shared memory");
+  auto kern = flash_bwd_dq_f32_kernel<HAS_MASK>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + DQ_BQ - 1) / DQ_BQ, H, B);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask), static_cast<T*>(dq),
-      reps, Sq, Sk, H, qscale, dqscale);
+  const int splits = dq_splits(B, Sq, Sk, H);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Sq + DQ_BQ - 1) / DQ_BQ * splits, H, B);
+  cfg.blockDim = dim3(NTHREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(dq), reps, Sq, Sk, H, splits,
+      qscale, dqscale);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -752,6 +863,8 @@ cudaError_t kv_variant(int has_mask, const void* q, const void* k, const void* v
 bool bad_shape(int B, int reps, int Sq, int Sk, int H, int Dh) {
   return B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || reps <= 0 || B % reps || Dh != D;
 }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
@@ -776,19 +889,43 @@ extern "C" int rf_flash_bwd_kv(const void* q, const void* k, const void* v, cons
   return cudaErrorInvalidValue;
 }
 
-// K9's dQ kernel: the same inputs, dq [B,Sq,H,D] in the input dtype.
+// K9's dQ kernel: the same inputs, dq [B,Sq,H,D] in the input dtype; bf16
+// runs flash_bwd_dq_sm90.cu.
 extern "C" int rf_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* delta, const void* mask, void* dq,
                                int dtype, int has_mask, int B, int reps, int Sq, int Sk, int H,
                                int Dh, float qscale, float dqscale, void* stream) {
   if (bad_shape(B, reps, Sq, Sk, H, Dh)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RF_DQ(T, M) \
-  launch_dq<T, M>(q, k, v, dout, lse, delta, mask, dq, B, reps, Sq, Sk, H, qscale, dqscale, s)
-  if (dtype == kBF16) return has_mask ? RF_DQ(__nv_bfloat16, true) : RF_DQ(__nv_bfloat16, false);
-  if (dtype == kF32) return has_mask ? RF_DQ(float, true) : RF_DQ(float, false);
-#undef RF_DQ
-  return cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    return flash_bwd_dq_sm90(q, k, v, dout, lse, delta, has_mask ? mask : nullptr, dq, B, reps,
+                             Sq, Sk, H, qscale, dqscale, s);
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  // 16-byte copies of q, dO, K and V, and stores of the merged rows
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq))
+    return cudaErrorMisalignedAddress;
+  if (has_mask)
+    return launch_dq_f32<true>(q, k, v, dout, lse, delta, mask, dq, B, reps, Sq, Sk, H, qscale,
+                               dqscale, s);
+  return launch_dq_f32<false>(q, k, v, dout, lse, delta, mask, dq, B, reps, Sq, Sk, H, qscale,
+                              dqscale, s);
+}
+
+// Rows of q one block of K9's dQ kernel takes at this grid on the current
+// device: the bf16 kernel's plan (128 or 64), the fp32 kernel's 64.
+extern "C" int rf_flash_bwd_dq_rows(int dtype, int B, int Sq, int H) {
+  if (dtype == kBF16) return flash_bwd_dq_sm90_rows(B, Sq, H);
+  if (dtype == kF32) return DQ_BQ;
+  return 0;
+}
+
+// Blocks (one thread block cluster) that share the keys of a q tile of K9's
+// dQ kernel at this grid on the current device: the fp32 kernel's 1, 2 or
+// 4, their partial dQ summed in rank order; 1 in bf16.
+extern "C" int rf_flash_bwd_dq_splits(int dtype, int B, int Sq, int Sk, int H) {
+  if (dtype == kBF16) return 1;
+  if (dtype == kF32) return dq_splits(B, Sq, Sk, H);
+  return 0;
 }
 
 // Blocks (one thread block cluster) that share a key tile's q steps in the

@@ -11,8 +11,10 @@ with ``Bkv`` dividing ``B`` (view-major fan-out: batch ``b`` reads scene
 and delta = rowsum(dO * O) are fp32 ``[B, H, Sq]``.  The CUDA sources are
 ``csrc/flash_attention.cu`` (K1/K2 and K10: the entry points and the fp32
 kernel, split TF32 on the tensor cores), ``csrc/flash_fwd_sm90.cu`` (their
-bf16 kernel for Hopper), ``csrc/rot_kv.cu`` and ``csrc/flash_bwd.cu``; their
-notes say what bounds each kernel on the card.
+bf16 kernel for Hopper), ``csrc/rot_kv.cu``, ``csrc/flash_bwd.cu`` (the
+backward's entry points and fp32 kernels), ``csrc/flash_bwd_sm90.cu`` (K8
+and K9's dK/dV in bf16) and ``csrc/flash_bwd_dq_sm90.cu`` (K9's dQ in
+bf16); their notes say what bounds each kernel on the card.
 """
 
 from __future__ import annotations
@@ -145,6 +147,22 @@ def flash_bwd_splits(dtype, b: int, sq: int, sk: int, h: int) -> int:
     on the current card: the fp32 kernel's 1 or 2, their partial dK and dV
     summed through the cluster's shared memory; 1 in bf16."""
     return _build.library().rf_flash_bwd_splits(
+        _build.DTYPE_CODES[str(dtype).split('.')[-1]], b, sq, sk, h)
+
+
+def flash_bwd_dq_rows(dtype, b: int, sq: int, h: int) -> int:
+    """Rows of q that one block of K9's CUDA dQ kernel takes at this grid on
+    the current card: the bf16 kernel's 128 or 64 (the forward's plan), the
+    fp32 kernel's 64."""
+    return _build.library().rf_flash_bwd_dq_rows(_build.DTYPE_CODES[str(dtype).split('.')[-1]],
+                                                 b, sq, h)
+
+
+def flash_bwd_dq_splits(dtype, b: int, sq: int, sk: int, h: int) -> int:
+    """Blocks (one thread block cluster) that share the keys of a q tile of
+    K9's CUDA dQ kernel at this grid on the current card: the fp32 kernel's
+    1, 2 or 4, their partial dQ summed in cluster-rank order; 1 in bf16."""
+    return _build.library().rf_flash_bwd_dq_splits(
         _build.DTYPE_CODES[str(dtype).split('.')[-1]], b, sq, sk, h)
 
 

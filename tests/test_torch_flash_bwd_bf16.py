@@ -1,8 +1,9 @@
 """The arithmetic of the bf16 flash backward (``csrc/flash_bwd_sm90.cu``: K8
-in bf16, and K9's bf16 dK/dV kernel, the same code without dQ), emulated in
-torch on the CPU, against the plain version and the JAX package's fused and
-two-kernel backward (``_flash_bwd_fused``, ``_flash_bwd_twokernel``) run
-through their Pallas kernels in interpret mode.
+in bf16, and K9's bf16 dK/dV kernel, the same code without dQ; and K9's
+bf16 dQ kernel, ``csrc/flash_bwd_dq_sm90.cu``), emulated in torch on the
+CPU, against the plain version and the JAX package's fused and two-kernel
+backward (``_flash_bwd_fused``, ``_flash_bwd_twokernel``) run through their
+Pallas kernels in interpret mode.
 
 The kernel's products are wgmma with bf16 operands and fp32 accumulators.
 The emulation follows it step by step:
@@ -19,7 +20,11 @@ The emulation follows it step by step:
     the end;
   * dQ of each 128-key tile over its keys, 16 a k step, times D^-0.5, summed
     over the key tiles in fp32 in a shuffled order (the kernel's atomics run
-    in no fixed order), then rounded to bf16;
+    in no fixed order), then rounded to bf16; K9's dQ kernel instead takes
+    S and dP with q's rows as the wgmma's rows (the same sums a k step) and
+    adds dQ = dS.K over all the keys in order, 16 a k step, into one
+    running accumulator (a block owns its q rows' whole key range), times
+    D^-0.5, then rounded to bf16;
   * each k step adds the exact sum of its 16 products to its accumulator
     and rounds once, to nearest, or toward zero (``ROUNDINGS``: the tensor
     cores' adder is not specified; truncation is the pessimistic model).
@@ -98,9 +103,15 @@ def _scores(q, k, v, mask, lse, delta, do, rounding):
     return qs, k4, do4, p, bf16((dp - delta[:, :, None, :]) * p)
 
 
-def _dq(ds, k4, rounding, seed):
+def _dq(ds, k4, rounding, seed, twokernel=False):
     """dQ [B, H, Sq, D]: one accumulator a tile of KEYS keys, summed over the
-    tiles in a shuffled order."""
+    tiles in a shuffled order (K8); with ``twokernel``, K9's dQ kernel: one
+    accumulator over every key in order."""
+    if twokernel:
+        pad = -ds.shape[2] % KS  # keys past Sk: dS is 0, K zero-filled
+        acc = _dot(F.pad(ds, (0, 0, 0, pad)).transpose(-1, -2),
+                   F.pad(k4, (0, 0, 0, pad)).transpose(-1, -2), 'bhqk,bhdk->bhqd', rounding)
+        return acc * np.float32(1 / np.sqrt(k4.shape[-1]))
     b, h, sk, sq = ds.shape
     nt = -(-sk // KEYS)
     pad = nt * KEYS - sk
@@ -118,14 +129,15 @@ def _bshd(*xs):
     return tuple(bf16(x).permute(0, 2, 1, 3).contiguous() for x in xs)
 
 
-def emulate(q, k, v, mask, lse, delta, do, rounding='nearest', seed=0):
-    """The bf16 kernel's dq, dk, dv (bf16 values, as fp32) on q and k as the
-    kernel takes them (rotated, unscaled): q, do [B, Sq, H, D]; k [B, Sk, H,
-    D]; v [Bkv, Sk, H, D]; mask [B, Sk] or None; lse, delta [B, H, Sq]."""
+def emulate(q, k, v, mask, lse, delta, do, rounding='nearest', seed=0, twokernel=False):
+    """The bf16 kernels' dq, dk, dv (bf16 values, as fp32) on q and k as the
+    kernels take them (rotated, unscaled): q, do [B, Sq, H, D]; k [B, Sk, H,
+    D]; v [Bkv, Sk, H, D]; mask [B, Sk] or None; lse, delta [B, H, Sq].  K8,
+    or with ``twokernel`` K9 (dq from its dQ kernel)."""
     qs, k4, do4, p, ds = _scores(q, k, v, mask, lse, delta, do, rounding)
     dk = _sum_over_q(ds, qs, rounding) * np.float32(1 / LOG2E)
     dv = _sum_over_q(bf16(p), do4, rounding)
-    return _bshd(_dq(ds, k4, rounding, seed), dk, dv)
+    return _bshd(_dq(ds, k4, rounding, seed, twokernel), dk, dv)
 
 
 def _inputs(b, bkv, sq, sk, h, mask_kind, seed=0):
@@ -198,6 +210,14 @@ def test_bf16_bwd_emulation_at_tile_edges_matches_plain(case, rounding, seed):
     _check(emulate(*io, rounding, seed=seed), flash_bwd_plain(*io))
 
 
+@pytest.mark.parametrize('rounding', ROUNDINGS)
+@pytest.mark.parametrize('case', sorted(EDGE_CASES))
+def test_bf16_twokernel_emulation_at_tile_edges_matches_plain(case, rounding):
+    """K9's dQ kernel: dQ over all 2064 keys in one accumulator."""
+    io = _edge(case)
+    _check(emulate(*io, rounding, twokernel=True), flash_bwd_plain(*io))
+
+
 # b, sq, sk, h, mask: against the JAX kernels (v at the q batch)
 JAX_CASES = {
     'tail_129x2064': (1, 129, 2064, 1, 'tail'),
@@ -210,10 +230,10 @@ JAX_CASES = {
 @pytest.mark.parametrize('variant', ['fused', 'twokernel'])
 @pytest.mark.parametrize('case', sorted(JAX_CASES))
 def test_bf16_bwd_emulation_matches_jax_kernels(case, variant):
-    """Against ``_flash_bwd_fused`` or ``_flash_bwd_twokernel`` (their Pallas
-    kernels in interpret mode, 64-row and 64-key blocks, bf16) on the output
-    and logsumexp of ``_flash_fwd`` in interpret mode, with the pessimistic
-    rounding."""
+    """K8's or K9's emulation against ``_flash_bwd_fused`` or
+    ``_flash_bwd_twokernel`` (their Pallas kernels in interpret mode, 64-row
+    and 64-key blocks, bf16) on the output and logsumexp of ``_flash_fwd``
+    in interpret mode, with the pessimistic rounding."""
     b, sq, sk, h, mask_kind = JAX_CASES[case]
     q, k, v, mask, do = _inputs(b, b, sq, sk, h, mask_kind, seed=7)
     jmask = None if mask is None else jnp.asarray(mask)
@@ -227,5 +247,5 @@ def test_bf16_bwd_emulation_matches_jax_kernels(case, variant):
     got = emulate(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                   None if mask is None else torch.from_numpy(mask),
                   torch.from_numpy(_jax_lse(lse, b, sq, h)), delta.transpose(1, 2).contiguous(),
-                  tdo, 'toward_zero')
+                  tdo, 'toward_zero', twokernel=variant == 'twokernel')
     _check(got, want)

@@ -1,7 +1,9 @@
 """Kernels K3 (the K broadcast-rotate), K5 (resize into space-to-depth
 layout), K6 (Swin window attention), K7 (shifted-window regroup), the
 forward's logsumexp (K1/K2), the flash backward (K8, K9; the bf16 kernel at
-its tile edges), the transposed resize (K4^T), the flash
+its tile edges; K9's dQ kernel at the train step's sites, its tile edges and
+view fan-outs, one deterministic launch a call and in a CUDA graph), the
+transposed resize (K4^T), the flash
 forward without RoPE (K10), the fp32 flash forward's key splits and tile
 edges, and the fused RMSNorm (K11; its backward also at the nerf train
 step's sites, call to call and in a CUDA graph) against their plain
@@ -233,6 +235,122 @@ def test_bf16_backward_kernel_at_tile_edges_matches_plain(cuda, case, variant):
         assert gt.dtype == bf and gt.shape == wt.shape, name
         err = float((gt.float() - wt.float()).abs().max())
         assert err <= _attn_tol(wt, bf, ulps=8), (name, err)
+
+
+# K9's dQ kernel (csrc/flash_bwd.cu in fp32, csrc/flash_bwd_dq_sm90.cu in
+# bf16): b, bkv, sq, sk, h, mask.  The train step's three sites; ragged q
+# tiles (64 or 128 rows) and key steps (16 or 64 keys), with a padded tail or
+# random keys masked ('zero_row': and all of batch row 1); view
+# fan-outs; and a grid of 1024 q tiles, which the fp32 kernel does not split.
+DQ_CASES = {
+    'train_stage1_self': (1, 1, 2064, 2064, 6, 'tail'),
+    'train_cross': (1, 1, 1024, 2064, 6, 'tail'),
+    'train_ray_self': (1, 1, 1024, 1024, 6, None),
+    'tail_129x2064': (1, 1, 129, 2064, 1, 'tail'),
+    'reps4_tail_97x2064_h2': (4, 1, 97, 2064, 2, 'tail'),
+    'reps2_random_65x33_h3': (2, 1, 65, 33, 3, 'random'),
+    'zero_row_129x200_h2': (3, 3, 129, 200, 2, 'zero_row'),
+    'random_33x17': (1, 1, 33, 17, 1, 'random'),
+    'unmasked_1000x1000': (1, 1, 1000, 1000, 1, None),
+    'b8_h8_tail_1000x2064': (8, 8, 1000, 2064, 8, 'tail'),
+}
+
+
+def _dq_io(case, dtype, dev):
+    """The dQ kernel's operands at a case of DQ_CASES, lse and delta from the
+    plain forward: (q, k, v, mask, lse, delta, dO)."""
+    b, bkv, sq, sk, h, mask_kind = DQ_CASES[case]
+    q, do = (_randn((b, sq, h, 128), dtype, dev, seed=s) for s in (1, 2))
+    k = _randn((b, sk, h, 128), dtype, dev, seed=3)
+    v = _randn((bkv, sk, h, 128), dtype, dev, seed=4)
+    mask = None
+    if mask_kind == 'tail':
+        mask = torch.ones(b, sk, dtype=torch.bool, device=dev)
+        mask[:, 1552:] = False
+    elif mask_kind in ('random', 'zero_row'):
+        mask = torch.from_numpy(np.random.default_rng(5).uniform(size=(b, sk)) > 0.3).to(dev)
+        mask[:, 0] = True
+        if mask_kind == 'zero_row':
+            mask[1] = False
+    from renderformer_tpu_torch.ops.flash_attention import fan_out
+    with torch.no_grad(), reference_kernels():
+        out, lse = flash_fwd(q, k, fan_out(v, b).contiguous(), mask, with_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, mask, lse, delta, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('case', sorted(DQ_CASES))
+def test_dq_kernel_matches_plain(cuda, case, dtype):
+    """K9's dQ kernel alone against the plain dq, within chip_smoke.py's bar:
+    8 bf16 ulps / 2^-15 of max|ref|."""
+    from renderformer_tpu_torch import _build
+    from renderformer_tpu_torch.ops.flash_attention import flash_bwd_dq_plain, launch_flash_bwd
+    io = _dq_io(case, dtype, cuda)
+    with torch.no_grad():
+        got = launch_flash_bwd(_build.library(), 'dq', *io)[0]
+        want = flash_bwd_dq_plain(*io)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    amax = float(want.float().abs().max())
+    tol = amax * (8 * 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -15)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_dq_kernel_plans(cuda):
+    """The fp32 kernel splits the keys of the train step's 96 q tiles over a
+    cluster, and not those of 1024 tiles; the bf16 kernel never splits."""
+    from renderformer_tpu_torch.ops.flash_attention import flash_bwd_dq_rows, flash_bwd_dq_splits
+    f32, bf = torch.float32, torch.bfloat16
+    assert flash_bwd_dq_rows(f32, 1, 1024, 6) == 64
+    assert flash_bwd_dq_splits(f32, 1, 1024, 2064, 6) in (2, 4)
+    assert flash_bwd_dq_splits(f32, 1, 1024, 1024, 6) in (2, 4)
+    assert flash_bwd_dq_splits(f32, 8, 1000, 2064, 8) == 1
+    assert flash_bwd_dq_splits(f32, 1, 33, 1, 1) == 1  # one key step
+    assert flash_bwd_dq_rows(bf, 1, 2064, 6) in (64, 128)
+    assert flash_bwd_dq_splits(bf, 1, 2064, 2064, 6) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('case', ['train_stage1_self', 'train_cross', 'train_ray_self',
+                                  'reps4_tail_97x2064_h2'])
+def test_dq_kernel_is_one_deterministic_launch(cuda, case, dtype):
+    """One dQ kernel on the card a call (the profiler's kernels), and the
+    same bits from two calls and from three replays of a CUDA graph of one
+    call, with the keys split over a cluster or not."""
+    from torch.profiler import ProfilerActivity, profile
+    from renderformer_tpu_torch import _build
+    from renderformer_tpu_torch.ops.flash_attention import launch_flash_bwd
+    io = _dq_io(case, dtype, cuda)
+    lib = _build.library()
+    with torch.no_grad():
+        a = launch_flash_bwd(lib, 'dq', *io)[0]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            b = launch_flash_bwd(lib, 'dq', *io)[0]
+            torch.cuda.synchronize()
+        kernels = [e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and 'flash_bwd_dq' in kernels[0], kernels
+        assert sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) == 1
+        assert torch.equal(a, b)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            launch_flash_bwd(lib, 'dq', *io)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = launch_flash_bwd(lib, 'dq', *io)[0]
+        for _ in range(3):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, a)
 
 
 # K3 at the model's head counts, with and without a view fan-out, at ragged

@@ -25,16 +25,22 @@ dtype.  Both versions run in one process on one card, so their times
 compare.
 
 With ``--bwd`` (``OLD_DIR`` holding a parent's ``flash_bwd.cu`` and
-``common.cuh``) the backward is timed instead, at the v1-base and nerf
+``common.cuh``, and where it has them its ``flash_bwd_sm90.cu``/``.cuh``,
+``flash_bwd_dq_sm90.cu``/``.cuh``, ``flash_fwd_sm90.cu``/``.cuh`` and
+``sm90.cuh``) the backward is timed instead, at the v1-base and nerf
 256^2 train step's sites in the dtype the step runs there (the bf16
 stage-1 self-attention, the fp32 cross- and ray self-attention; the nerf
-step's sites have the same shapes): K8 (``'fused'``) and K9's dK/dV kernel
-(``'dkv'``, the same template without dQ), each turn the median of bursts
-checked against the plain backward, beside the autograd of SDPA on the same
-inputs (all three gradients, and dk/dv alone) and the bound (bf16 tensor
-cores; for fp32 split TF32, and scalar fp32 FMAs beside it).  The bf16
-sites print the bf16 kernel's plan (keys a block, blocks on the card's
-SMs).
+step's sites have the same shapes): K8 (``'fused'``), K9's dK/dV kernel
+(``'dkv'``, the same template without dQ) and K9's dQ kernel (``'dq'``),
+each turn checked against the plain backward and timed three ways: the
+median of bursts of launches, the device time of a call by a CUDA graph of
+``--burst`` calls, and one call between two CUDA events.  Beside them:
+autograd of SDPA on the same inputs (all three gradients, dk/dv alone, dq
+alone; dq alone also by CUDA graphs) and each kernel's bound (10, 8 and 6
+Sq*Sk*D flops a head for K8, dK/dV and dQ: bf16 tensor cores; for fp32
+split TF32, and scalar fp32 FMAs beside it).  Each site prints the plans
+(the bf16 dK/dV kernel's keys a block; the dQ kernel's q rows a block and
+key split; blocks on the card's SMs).
 
 With ``--rot`` (``OLD_DIR`` holding a parent's ``rot_kv.cu`` and
 ``common.cuh``) the K broadcast-rotate (K3) is timed instead, at every
@@ -136,7 +142,7 @@ def build_parent(src_dir, out_dir):
                    stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
     lib = ctypes.CDLL(so)
     for name in ('rf_flash_fwd_rope', 'rf_flash_fwd', 'rf_flash_bwd_kv', 'rf_flash_bwd_dq',
-                 'rf_rot_kv_broadcast'):
+                 'rf_flash_bwd_dq_splits', 'rf_rot_kv_broadcast'):
         if not hasattr(lib, name):
             continue
         fn = getattr(lib, name)
@@ -152,6 +158,11 @@ BWD_SITES = [  # name, dtype name, Sq, Sk, masked: the train step's sites, H 6
 ]
 
 
+# Sq*Sk*D flops a head of each backward kernel: K8's five products, the
+# dK/dV kernel's four (S^T, dP^T, dV, dK), the dQ kernel's three (S, dP, dQ)
+BWD_FLOPS = {'fused': 10, 'dkv': 8, 'dq': 6}
+
+
 def bwd_main(args):
     """The backward's A/B (``--bwd``)."""
     import torch
@@ -159,7 +170,10 @@ def bwd_main(args):
     from renderformer_tpu_torch import _build
     from renderformer_tpu_torch.ops import reference_kernels
     from renderformer_tpu_torch.ops.flash_attention import (
-        flash_bwd, flash_bwd_keys, flash_bwd_splits, flash_fwd, launch_flash_bwd)
+        flash_bwd, flash_bwd_dq_rows, flash_bwd_dq_splits, flash_bwd_keys, flash_bwd_splits,
+        flash_fwd, launch_flash_bwd)
+    sys.path.insert(0, os.path.join(REPO, 'tools'))
+    from torch_norm_ab import event_ms, graph_ms
 
     if not torch.cuda.is_available():
         sys.exit('needs a CUDA device')
@@ -172,6 +186,7 @@ def bwd_main(args):
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     g = torch.Generator(device='cuda').manual_seed(0)
     h = 6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for site, dtname, sq, sk, masked in BWD_SITES:
         if args.sites and site not in args.sites.split(','):
             continue
@@ -193,40 +208,64 @@ def bwd_main(args):
             tols = [float(r.float().abs().max()) * (8 * 2.0 ** -8 if dt == torch.bfloat16
                                                     else 2.0 ** -15) for r in ref]
             res = {}
-            for kernels in ('fused', 'dkv'):
+            for kernels in ('fused', 'dkv', 'dq'):
                 for name, lib in (('parent', parent), ('change', change),
                                   ('change', change), ('parent', parent)):
                     got = launch_flash_bwd(lib, kernels, *io)
                     worst = max(float((x.float() - r.float()).abs().max()) / t
                                 for x, r, t in zip(got, ref, tols) if x is not None)
-                    ms = time_ms(lambda: launch_flash_bwd(lib, kernels, *io), args.iters,
-                                 args.burst)
-                    res.setdefault(f'{kernels}_{name}', []).append(
-                        (round(ms, 4), round(worst, 4)))
+
+                    def call():
+                        return launch_flash_bwd(lib, kernels, *io)
+
+                    res.setdefault(f'{kernels}_{name}', []).append(dict(
+                        burst=round(time_ms(call, args.iters, args.burst), 4),
+                        graph=round(graph_ms(call, args.burst, args.iters), 4),
+                        single=round(event_ms(call, args.iters), 4),
+                        err_bar=round(worst, 4)))
         qs, ks, vs = (t.detach().transpose(1, 2).contiguous().requires_grad_(True)
                       for t in (q, k, v))
         am = mask[:, None, None, :] if masked else None
-        y = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # autograd's backward launches on the capturing stream
+            y = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am)
+        torch.cuda.current_stream().wait_stream(side)
         gy = do.transpose(1, 2).contiguous()
-        sdpa = time_ms(lambda: torch.autograd.grad(y, (qs, ks, vs), gy, retain_graph=True),
-                       args.iters, args.burst)
-        sdpa_kv = time_ms(lambda: torch.autograd.grad(y, (ks, vs), gy, retain_graph=True),
-                          args.iters, args.burst)
-        flops = 10 * h * sq * sk * 128
-        bound = {'bound_ms': round(flops / PEAK_BF16_TENSOR * 1e3, 4)}
-        if dt == torch.float32:
-            bound = {'bound_ms': round(3 * flops / PEAK_TF32 * 1e3, 4),
-                     'bound_simt_ms': round(flops / PEAK_FP32 * 1e3, 4)}
-        plan = {}
+
+        def sdpa_grad(*wrt):
+            return lambda: torch.autograd.grad(y, wrt, gy, retain_graph=True)
+
+        sdpa = {'all': time_ms(sdpa_grad(qs, ks, vs), args.iters, args.burst),
+                'kv': time_ms(sdpa_grad(ks, vs), args.iters, args.burst),
+                'q': time_ms(sdpa_grad(qs), args.iters, args.burst),
+                'q_graph': graph_ms(sdpa_grad(qs), args.burst, args.iters, side),
+                'q_single': event_ms(sdpa_grad(qs), args.iters)}
+        bound = {}
+        for kernels, units in BWD_FLOPS.items():
+            flops = units * h * sq * sk * 128
+            bound[f'{kernels}_bound_ms'] = round(
+                flops / (PEAK_BF16_TENSOR if dt == torch.bfloat16 else PEAK_TF32 / 3) * 1e3, 4)
+            if dt == torch.float32:
+                bound[f'{kernels}_bound_simt_ms'] = round(flops / PEAK_FP32 * 1e3, 4)
+        rows = flash_bwd_dq_rows(dt, 1, sq, h)
+        dq_splits = flash_bwd_dq_splits(dt, 1, sq, sk, h)
+        plan = {'dq_rows_a_block': rows, 'dq_splits': dq_splits,
+                'dq_parent_splits': (parent.rf_flash_bwd_dq_splits(_build.DTYPE_CODES[dtname], 1,
+                                                                   sq, sk, h)
+                                     if hasattr(parent, 'rf_flash_bwd_dq_splits') else None),
+                'dq_blocks': -(-sq // rows) * h * dq_splits, 'sms': sms}
         if dt == torch.bfloat16:
             keys = flash_bwd_keys(dt)
-            plan = {'keys_a_block': keys, 'q_step': 64,
-                    'blocks': -(-sk // keys) * h,
-                    'sms': torch.cuda.get_device_properties(0).multi_processor_count}
+            plan.update(keys_a_block=keys, q_step=64, blocks=-(-sk // keys) * h)
         print(json.dumps({'site': site, 'dtype': dtname,
                           'splits': flash_bwd_splits(dt, 1, sq, sk, h), **plan,
                           'turns (ms, err/bar)': res,
-                          'sdpa_bwd_ms': round(sdpa, 4), 'sdpa_bwd_kv_ms': round(sdpa_kv, 4),
+                          'sdpa_bwd_ms': round(sdpa['all'], 4),
+                          'sdpa_bwd_kv_ms': round(sdpa['kv'], 4),
+                          'sdpa_bwd_q_ms': round(sdpa['q'], 4),
+                          'sdpa_bwd_q_graph_ms': round(sdpa['q_graph'], 4),
+                          'sdpa_bwd_q_single_ms': round(sdpa['q_single'], 4),
                           **bound}), flush=True)
         del q, do, k, v, out, lse, delta, io, ref, qs, ks, vs, y, gy
         torch.cuda.empty_cache()
@@ -312,7 +351,7 @@ def main():
     ap.add_argument('--burst', type=int, default=20)
     ap.add_argument('--fp32', action='store_true', help='also time the fp32 kernel')
     ap.add_argument('--bwd', action='store_true',
-                    help="time the backward (K8, K9's dK/dV) instead of the forward")
+                    help="time the backward (K8, K9's dK/dV and dQ) instead of the forward")
     ap.add_argument('--rot', action='store_true',
                     help='time the K broadcast-rotate (K3) instead of the forward')
     ap.add_argument('--sites', help='comma-separated site names (default: all)')

@@ -7,13 +7,15 @@ another commit unpacked into an ignored directory).  For each turn, in the
 order OLD, NEW, NEW, OLD, one process imports ``renderformer_tpu_torch`` from
 that tree (building its kernels there on first use) and runs the train steps
 of ``chip_smoke.py`` phase 7 from one seeded model each: v1-base with the
-fused backward (K8), and v1-base nerf with the fused RMSNorm (1 scene x 1
-view x 2048 triangles at 256^2, bf16 stage 1 with an fp32 view stage,
-remat, AdamW): the median wall milliseconds of ``--steps`` steps after a
-warm-up, and the device milliseconds of one profiled step with the rows of
-the flash backward's dK/dV kernels (K8), of the K broadcast-rotate (K3) and
-of the fused RMSNorm's forward and backward kernels (K11) summed apart,
-with K11's backward launches and every device operation the step ran.  The batch and the
+fused backward (K8), v1-base with the two-kernel backward (K9), and v1-base
+nerf with the fused RMSNorm (1 scene x 1 view x 2048 triangles at 256^2,
+bf16 stage 1 with an fp32 view stage, remat, AdamW): the median wall
+milliseconds of ``--steps`` steps after a warm-up, and the device
+milliseconds of one profiled step with the rows of the flash backward's
+dK/dV kernels (K8, K9's dK/dV), of K9's dQ kernel, of the K
+broadcast-rotate (K3) and of the fused RMSNorm's forward and backward
+kernels (K11) summed apart, with K11's backward launches and every device
+operation the step ran.  The batch and the
 model come from the tree's own ``chip_smoke.py`` (``train_batch``,
 ``seeded_train_state``).  Prints the card's nvidia-smi line, then one JSON
 line a turn.
@@ -47,10 +49,12 @@ def worker(tree, steps):
     torch.backends.cudnn.allow_tf32 = False
     out = {'tree': tree, 'package': os.path.dirname(renderformer_tpu_torch.__file__)}
     batch = train_batch('cuda')
-    for name, cfg, fused_norm in (('v1-base', PRESETS['v1-base'], False),
-                                  ('v1-base nerf', V1_BASE_NERF, True)):
+    for name, cfg, fused_norm, bwd in (('v1-base', PRESETS['v1-base'], False, 'fused'),
+                                       ('v1-base twokernel', PRESETS['v1-base'], False,
+                                        'twokernel'),
+                                       ('v1-base nerf', V1_BASE_NERF, True, 'fused')):
         tc = ts.TrainConfig(precision='bfloat16', resolution=TRAIN_RES, steps_per_epoch=100,
-                            remat=True, flash_bwd='fused', fused_norm=fused_norm)
+                            remat=True, flash_bwd=bwd, fused_norm=fused_norm)
         model, tx, state = seeded_train_state(cfg, tc)
         step = ts.make_train_step(model, tx, tc)[0]
         times = []
@@ -70,6 +74,8 @@ def worker(tree, steps):
             device_ms=round(sum(e.self_device_time_total for e in rows) / 1e3, 3),
             flash_bwd_ms=round(sum(e.self_device_time_total for e in rows
                                    if any(n in e.key for n in BWD_KERNELS)) / 1e3, 3),
+            flash_bwd_dq_ms=round(sum(e.self_device_time_total for e in rows
+                                      if 'flash_bwd_dq' in e.key) / 1e3, 3),
             rot_kv_ms=round(sum(e.self_device_time_total for e in rows
                                 if 'rot_kv_kernel' in e.key) / 1e3, 3),
             norm_fwd_ms=round(sum(e.self_device_time_total for e in rows
