@@ -50,8 +50,10 @@ Phases, each printing its own lines:
      of calls beside autograd of SDPA for dq alone, with its tile plan, in
      both dtypes at every site, where two calls and three replays of a CUDA
      graph must give the same bits), K4, K5 and the
-     transposed resize (K4^T) against their plain versions, at every shape
-     of the v1-base train step, in bf16 and fp32, and K10 with its logsumexp
+     transposed resize (K4^T; also by CUDA graphs of calls beside autograd of
+     F.interpolate's, and on g in space-to-depth layout at K5's VJP) against
+     their plain versions, at every shape of the v1-base train step, in bf16
+     and fp32, and K10 with its logsumexp
      and K11's forward and backward at the nerf train step's shapes and
      dtypes, timed as in phase 3, and the flash forward's tile edges of
      phase 3 with the logsumexp;
@@ -454,6 +456,53 @@ def check_resize_s2d(rows, x, hw, per_run):
               f'{row["bound_ms"] / row["burst_ms"]:.3f} of it)', flush=True)
 
 
+def check_resize_t(rows, g, n_in, s2d, per_run):
+    """K4^T on g [1, 2n, 2n, C] to [1, n, n, C] against its plain version,
+    with s2d on g in space-to-depth layout (K5's VJP) beside autograd of
+    F.interpolate (then space_to_depth) for the same cotangent."""
+    import torch
+    import torch.nn.functional as F
+    from renderformer_tpu_torch.ops import reference_kernels
+    from renderformer_tpu_torch.ops.fused_resize import resize_bilinear_t, resize_s2d_t
+    from renderformer_tpu_torch.ops.s2d_conv import space_to_depth
+    b, n_out, _, c = g.shape
+    hw = (n_in, n_in)
+    if s2d:
+        g = space_to_depth(g).contiguous()
+    fn = (lambda: resize_s2d_t(g, hw)) if s2d else (lambda: resize_bilinear_t(g, hw))
+    with torch.no_grad():
+        out = fn()
+        with reference_kernels():
+            ref = fn()
+    tol = float(ref.float().abs().max()) * (2.0 ** -8 if g.dtype == torch.bfloat16 else 1e-6)
+
+    def interp(xc):
+        y = F.interpolate(xc, size=(n_out, n_out), mode='bilinear', align_corners=True)
+        return space_to_depth(y.permute(0, 2, 3, 1)) if s2d else y
+
+    gl = g if s2d else g.permute(0, 3, 1, 2)
+    xl = torch.zeros(b, c, n_in, n_in, dtype=g.dtype, device=g.device, requires_grad=True)
+    yl = interp(xl)
+
+    def lib_t():
+        return torch.autograd.grad(yl, xl, gl, retain_graph=True)
+
+    with torch.no_grad():
+        record_row(rows, 'resize_bilinear_t', f'{n_out}to{n_in}' + ('_s2d' if s2d else ''),
+                   g.dtype, per_run, out, ref, tol, 'the same nonzero weights in fp32, summed '
+                   'in another order and rounded once: 1 bf16 ulp / 1e-6 of max|ref|', fn, lib_t,
+                   (n_out * n_out + n_in * n_in) * c * g.element_size(),
+                   8 * n_out * n_out * c, PEAK_FP32)
+        row = rows[-1]
+        row['burst_ms'] = graph_burst_ms(fn)
+    row['library_burst_ms'] = autograd_graph_ms(interp, [xl], gl)
+    print(f'resize: resize_bilinear_t {row["site"]} {row["dtype"]}: single call '
+          f'{row["ms"]:.4f} ms against autograd of F.interpolate {row["library_ms"]:.4f}; device '
+          f'(graph of {LSE_BURST}) {row["burst_ms"]:.5f} ms a call against '
+          f'{row["library_burst_ms"]:.5f} (bound {row["bound_ms"]:.5f}: '
+          f'{row["bound_ms"] / row["burst_ms"]:.3f} of it)', flush=True)
+
+
 def k3_bytes(b, bkv, sk, h, it):
     """K3 reads k at the scene batch and the fp32 tables, writes k at the q batch."""
     return bkv * sk * h * D * it + 2 * b * sk * D * 4 + b * sk * h * D * it
@@ -551,7 +600,7 @@ def sass_check(lib_path):
     instantiation of the flash backward's dK/dV and dQ kernels, by
     cuobjdump; fails unless every one has them.  Spills (local loads and
     stores) and registers of the backward and the fp32 kernels, and of
-    K11's backward and K5, are printed beside them."""
+    K11's backward, K4/K5 and K4^T, are printed beside them."""
     cuobjdump = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
     res = subprocess.run([cuobjdump, '-sass', lib_path], capture_output=True, text=True,
                          timeout=300)
@@ -570,7 +619,8 @@ def sass_check(lib_path):
             (SASS_DQ_BF16_KERNEL, 'bf16 flash backward dQ (K9)', ('HGMMA', 'UTMALDG'),
              ('LDL', 'STL'), ''),
             ('rms_norm_bwd_kernel', 'fused RMSNorm backward (K11)', (), ('LDL', 'STL'), ''),
-            ('resize_s2d_kernel', 'space-to-depth resize (K5)', (), ('LDL', 'STL'), '')):
+            ('resize_rows_kernel', 'row-tiled resize (K4, K5)', (), ('LDL', 'STL'), ''),
+            ('resize_t_kernel', 'transposed resize (K4^T)', (), ('LDL', 'STL'), '')):
         counts = {k: c for k, c in sass_counts(res.stdout, kernel, need + seen).items()
                   if k.startswith(only)}
         print(f'build: sass of {len(counts)} {what} kernels ({kernel}): '
@@ -1124,7 +1174,6 @@ def train_kernel_checks():
         flash_bwd, flash_bwd_dkv_plain, flash_bwd_dq_plain, flash_bwd_keys, flash_bwd_splits,
         flash_fwd_rope, launch_flash_bwd, launch_flash_fwd_rope, rot_kv_broadcast,
         rot_kv_broadcast_plain)
-    from renderformer_tpu_torch.ops.fused_resize import resize_bilinear_t
 
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1274,33 +1323,12 @@ def train_kernel_checks():
         check_resize_s2d(rows, randn(1, TRAIN_RES // 2, TRAIN_RES // 2, DPT_C, dtype=dtype),
                          (TRAIN_RES, TRAIN_RES), view_stage)
 
-        # K4^T: the VJP of refinenet4/3/2's upsamples and (after depth_to_space)
-        # of refinenet1's K5, in the fp32 view stage
-        for n_in in (16, 32, 64, 128):
-            n_out = 2 * n_in
-            g = randn(1, n_out, n_out, DPT_C, dtype=dtype)
-            with torch.no_grad():
-                out = resize_bilinear_t(g, (n_in, n_in))
-                with reference_kernels():
-                    ref = resize_bilinear_t(g, (n_in, n_in))
-            amax = float(ref.float().abs().max())
-            tol = amax * (2.0 ** -8 if dtype == torch.bfloat16 else 1e-6)
-            xl = torch.zeros(1, DPT_C, n_in, n_in, dtype=dtype, device=dev,
-                             requires_grad=True)
-            yl = F.interpolate(xl, size=(n_out, n_out), mode='bilinear', align_corners=True)
-            gl = g.permute(0, 3, 1, 2)
-
-            def lib_t():
-                return torch.autograd.grad(yl, xl, gl, retain_graph=True)
-
-            with torch.no_grad():
-                record_row(rows, 'resize_bilinear_t', f'{n_out}to{n_in}', dtype, view_stage, out,
-                           ref, tol, 'the same nonzero weights in fp32, summed in another '
-                           'order and rounded once: 1 bf16 ulp / 1e-6 of max|ref|',
-                           lambda: resize_bilinear_t(g, (n_in, n_in)), lib_t,
-                           (n_out * n_out + n_in * n_in) * DPT_C * it,
-                           8 * n_out * n_out * DPT_C, PEAK_FP32)
-            del g, out, ref, xl, yl
+        # K4^T: the VJP of refinenet4/3/2's upsamples (g NHWC) and of
+        # refinenet1's K5 (g in s2d layout, as the step runs it; at 256 -> 128
+        # also NHWC, off the step's path, to compare), in the fp32 view stage
+        for n_in, s2d in ((16, False), (32, False), (64, False), (128, False), (128, True)):
+            check_resize_t(rows, randn(1, 2 * n_in, 2 * n_in, DPT_C, dtype=dtype), n_in, s2d,
+                           view_stage if s2d or n_in < 128 else {})
         torch.cuda.empty_cache()
 
     # the nerf train step: K10 with the logsumexp twice a site (the forward and

@@ -61,14 +61,14 @@ SIGNATURES = {
     'rf_flash_bwd_dq_splits': [_I, _I, _I, _I, _I],
     # k, cos, sin, out, dtype, B, reps, Sk, H, D, stream
     'rf_rot_kv_broadcast': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, out, dtype, B, IH, IW, OH, OW, C, stream
-    'rf_resize_bilinear': [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # g, out, span_h, w_h, taps_h, span_w, w_w, taps_w, dtype, B, IH, IW, OH,
-    # OW, C, stream
+    # x, out, dtype, B, IH, IW, OH, OW, C, pixels a block, stream
+    'rf_resize_bilinear': [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # g, out, span_h, w_h, taps_h, span_w, w_w, taps_w, dtype, s2d, B, IH, IW,
+    # OH, OW, C, pixels a block, stream
     'rf_resize_bilinear_t': [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _P],
-    # x, out, dtype, B, IH, IW, OH, OW, C, stream
-    'rf_resize_s2d': [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _P],
+    # x, out, dtype, B, IH, IW, OH, OW, C, pixels a block, stream
+    'rf_resize_s2d': [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, table, out, B, nW, ws, row_bytes, stream
     'rf_shifted_regroup': [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, regions, out, dtype, has_mask, BW, nW, H, qscale, stream

@@ -4,9 +4,10 @@ their plain PyTorch versions, and the autograd Functions that join them.
 K4: NHWC ``[B, IH, IW, C] -> [B, OH, OW, C]``; K5: ``[B, IH, IW, C] ->
 [B, OH/2, OW/2, 4C]`` with the packing of ``ops/s2d_conv.py``, the input of
 the composed DPT tail; K4^T: ``[B, OH, OW, C] -> [B, IH, IW, C]``, the VJP
-of K4, and after a ``depth_to_space`` of K5, as in the JAX package.  The
-CUDA source of all three is ``csrc/resize.cu``; its note says what bounds
-them on the card."""
+of K4; K4^T on g ``[B, OH/2, OW/2, 4C]`` in space-to-depth layout, the VJP
+of K5 (the JAX package's ``depth_to_space`` then K4^T, without the copy).
+The CUDA source of all three is ``csrc/resize.cu``; its note says what
+bounds them on the card, and :func:`row_plan` sizes their blocks."""
 
 from __future__ import annotations
 
@@ -158,18 +159,71 @@ def _kernel_args(name, x, c):
     return _ptr(xp), code, _ptr(torch._C._cuda_getCurrentRawStream(x.get_device()))
 
 
+# the row-tiled kernels' plan, as csrc/resize.cu reads it: threads a block
+# (ROW_THREADS rounded down to whole pixels), at most ROW_VPT steps of the
+# block's pixels a block, and at most TAP_SMEM bytes of a block's taps
+ROW_THREADS, ROW_VPT, TAP_SMEM = 256, 16, 32 << 10
+MIN_BLOCKS = 2 * 132  # two blocks an SM of the H100's 132
+MAX_VECTORS = 1024    # 16-byte vectors a pixel: a block's most threads
+
+
+@functools.lru_cache(maxsize=256)
+def row_plan(row_px: int, rows: int, pv: int, tap_bytes: int):
+    """(threads a block, pixels a block) of a row-tiled resize kernel (K4,
+    K5 or K4^T) over ``rows`` rows (of every image) of ``row_px`` pixels of
+    ``pv`` 16-byte vectors, whose taps take ``tap_bytes`` of shared memory a
+    pixel.  Thread t takes vector t % pv of every (threads // pv)-th pixel of
+    the block's chunk of a row; the chunk is the most steps (at most
+    ROW_VPT) that leave the grid MIN_BLOCKS blocks and its taps in
+    TAP_SMEM."""
+    if not 0 < pv <= MAX_VECTORS:
+        raise ValueError(f'resize kernel takes at most {MAX_VECTORS} 16-byte vectors a '
+                         f'pixel, got {pv}')
+    threads = ROW_THREADS // pv * pv if pv < ROW_THREADS else pv
+    dpx = threads // pv
+    vpt = ROW_VPT
+    while vpt > 1 and (-(-row_px // (dpx * vpt)) * rows < MIN_BLOCKS
+                       or dpx * vpt * tap_bytes > TAP_SMEM):
+        vpt //= 2
+    return threads, dpx * vpt
+
+
 def _resize_fwd(x, oh, ow, s2d=False):
     """K4 (or with ``s2d`` K5) on x [B, IH, IW, C], or its plain version."""
     if use_plain(x):
         return resize_s2d_plain(x, (oh, ow)) if s2d else resize_bilinear_plain(x, (oh, ow))
     b, ih, iw, c = x.shape
     xp, code, stream = _kernel_args('x', x, c)
+    s = 2 if s2d else 1
+    # a stored pixel: S x S output pixels; its column taps 16 bytes each
+    _, ppb = row_plan(ow // s, oh // s * b, s * s * c * x.element_size() // 16, 16 * s)
     name = 'rf_resize_s2d' if s2d else 'rf_resize_bilinear'
     out = x.new_empty((b, oh // 2, ow // 2, 4 * c) if s2d else (b, oh, ow, c))
-    rc = _build.function(name)(xp, _ptr(out.data_ptr()), code, b, ih, iw, oh, ow, c, stream)
+    rc = _build.function(name)(xp, _ptr(out.data_ptr()), code, b, ih, iw, oh, ow, c, ppb,
+                               stream)
     if rc:
         _build.check(rc, name)
     LAUNCHES['resize_s2d' if s2d else 'resize_bilinear'] += 1
+    return out
+
+
+def _resize_t(g, ih, iw, oh, ow, s2d):
+    """K4^T on g (NHWC, or with ``s2d`` in space-to-depth layout) of the
+    resize from (ih, iw) to (oh, ow)."""
+    b, c = g.shape[0], g.shape[3] // (4 if s2d else 1)
+    gp, code, stream = _kernel_args('g', g, c)
+    span_h, w_h = _device_adjoint_taps(ih, oh, g.device)
+    span_w, w_w = _device_adjoint_taps(iw, ow, g.device)
+    # a pixel's column taps: 4 of 8 bytes (wider tables read them in the loop)
+    _, ppb = row_plan(iw, ih * b, c * g.element_size() // 16, 32)
+    out = g.new_empty((b, ih, iw, c))
+    rc = _build.function('rf_resize_bilinear_t')(
+        gp, _ptr(out.data_ptr()), _ptr(span_h.data_ptr()), _ptr(w_h.data_ptr()), w_h.shape[1],
+        _ptr(span_w.data_ptr()), _ptr(w_w.data_ptr()), w_w.shape[1], code, int(s2d), b, ih, iw,
+        oh, ow, c, ppb, stream)
+    if rc:
+        _build.check(rc, 'rf_resize_bilinear_t')
+    LAUNCHES['resize_bilinear_t'] += 1
     return out
 
 
@@ -179,19 +233,20 @@ def resize_bilinear_t(g, in_hw: Tuple[int, int]):
     ih, iw = _check_input(g, in_hw)
     if use_plain(g):
         return resize_bilinear_t_plain(g, (ih, iw))
-    b, oh, ow, c = g.shape
-    gp, code, stream = _kernel_args('g', g, c)
-    span_h, w_h = _device_adjoint_taps(ih, oh, g.device)
-    span_w, w_w = _device_adjoint_taps(iw, ow, g.device)
-    out = g.new_empty((b, ih, iw, c))
-    rc = _build.function('rf_resize_bilinear_t')(
-        gp, _ptr(out.data_ptr()), _ptr(span_h.data_ptr()), _ptr(w_h.data_ptr()), w_h.shape[1],
-        _ptr(span_w.data_ptr()), _ptr(w_w.data_ptr()), w_w.shape[1], code, b, ih, iw, oh, ow,
-        c, stream)
-    if rc:
-        _build.check(rc, 'rf_resize_bilinear_t')
-    LAUNCHES['resize_bilinear_t'] += 1
-    return out
+    return _resize_t(g, ih, iw, g.shape[1], g.shape[2], s2d=False)
+
+
+def resize_s2d_t(g, in_hw: Tuple[int, int]):
+    """The VJP of :func:`resize_s2d` from ``in_hw``: g [B, OH/2, OW/2, 4C]
+    -> [B, IH, IW, C] (kernel K4^T reading g in place on the card; the plain
+    version is K4^T's after ``depth_to_space``, the JAX package's
+    ``_resize_s2d_bwd``)."""
+    ih, iw = _check_input(g, in_hw)
+    if g.shape[3] % 4:
+        raise ValueError(f'space-to-depth g needs 4C channels, got {g.shape[3]}')
+    if use_plain(g):
+        return resize_bilinear_t_plain(depth_to_space(g), (ih, iw))
+    return _resize_t(g, ih, iw, 2 * g.shape[1], 2 * g.shape[2], s2d=True)
 
 
 class _Resize(torch.autograd.Function):
@@ -208,7 +263,8 @@ class _Resize(torch.autograd.Function):
 
 
 class _ResizeS2d(torch.autograd.Function):
-    """K5 forward; backward depth_to_space then K4^T (``_resize_s2d_bwd``)."""
+    """K5 forward; backward K4^T on g in space-to-depth layout
+    (``_resize_s2d_bwd``, with no depth_to_space copy on the card)."""
 
     @staticmethod
     def forward(ctx, x, oh, ow):
@@ -217,7 +273,7 @@ class _ResizeS2d(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return resize_bilinear_t(depth_to_space(g).contiguous(), ctx.in_hw), None, None
+        return resize_s2d_t(g.contiguous(), ctx.in_hw), None, None
 
 
 def resize_bilinear(x, out_hw: Tuple[int, int]):
@@ -232,7 +288,7 @@ def resize_bilinear(x, out_hw: Tuple[int, int]):
 def resize_s2d(x, out_hw: Tuple[int, int]):
     """[B, IH, IW, C] -> space_to_depth(resize(x)) = [B, OH/2, OW/2, 4C],
     align_corners=True; OH and OW even; differentiable (backward
-    depth_to_space, then K4^T)."""
+    :func:`resize_s2d_t`)."""
     oh, ow = _check_input(x, out_hw)
     if oh % 2 or ow % 2:
         raise ValueError(f'space-to-depth needs an even output size, got {out_hw}')

@@ -1,15 +1,16 @@
-"""Kernels K3 (the K broadcast-rotate), K5 (resize into space-to-depth
-layout), K6 (Swin window attention), K7 (shifted-window regroup), the
-forward's logsumexp (K1/K2), the flash backward (K8, K9; the bf16 kernel at
-its tile edges; K9's dQ kernel at the train step's sites, its tile edges and
-view fan-outs, one deterministic launch a call and in a CUDA graph), the
-transposed resize (K4^T), the flash
-forward without RoPE (K10), the fp32 flash forward's key splits and tile
-edges, and the fused RMSNorm (K11; its backward also at the nerf train
-step's sites, call to call and in a CUDA graph) against their plain
-versions on a CUDA card, at small sizes, and one tiny-config train step
-through them.  They skip without one.  This file imports no JAX, so on
-a machine with a card and no JAX it runs alone:
+"""Kernels K3 (the K broadcast-rotate), K4 (the bilinear resize, bit for
+bit at its sites and edges), K5 (resize into space-to-depth layout), K6
+(Swin window attention), K7 (shifted-window regroup), the forward's
+logsumexp (K1/K2), the flash backward (K8, K9; the bf16 kernel at its tile
+edges; K9's dQ kernel at the train step's sites, its tile edges and view
+fan-outs, one deterministic launch a call and in a CUDA graph), the
+transposed resize (K4^T, also on g in space-to-depth layout, deterministic
+and one kernel in K5's backward), the flash forward without RoPE (K10), the
+fp32 flash forward's key splits and tile edges, and the fused RMSNorm (K11;
+its backward also at the nerf train step's sites, call to call and in a
+CUDA graph) against their plain versions on a CUDA card, at small sizes,
+and one tiny-config train step through them.  They skip without one.  This
+file imports no JAX, so on a machine with a card and no JAX it runs alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -23,7 +24,9 @@ from renderformer_tpu_torch.encodings.rope import make_cos_sin
 from renderformer_tpu_torch.ops.flash_attention import (
     flash_bwd, flash_fwd, flash_fwd_rope, rot_kv_broadcast)
 from renderformer_tpu_torch.ops.fused_norm import rms_norm_bwd, rms_norm_fwd
-from renderformer_tpu_torch.ops.fused_resize import resize_bilinear, resize_bilinear_t, resize_s2d
+from renderformer_tpu_torch.ops.fused_resize import (
+    resize_bilinear, resize_bilinear_plain, resize_bilinear_t, resize_s2d, resize_s2d_t)
+from renderformer_tpu_torch.ops.s2d_conv import depth_to_space, space_to_depth
 from renderformer_tpu_torch.ops.shifted_regroup import shifted_regroup
 from renderformer_tpu_torch.ops.swin_attention import region_table, swin_window_attention
 
@@ -84,13 +87,131 @@ def test_resize_s2d_kernel_is_bit_exact_at_sites_and_edges(cuda, dtype, x_shape,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('name', ['resize_bilinear', 'resize_s2d', 'resize_bilinear_t'])
+@pytest.mark.parametrize('dtype,x_shape,out_hw', [
+    (torch.bfloat16, (8, 32, 32, 128), (64, 64)),      # the renders' three sites
+    (torch.bfloat16, (8, 64, 64, 128), (128, 128)),
+    (torch.bfloat16, (8, 128, 128, 128), (256, 256)),  # streaming stores
+    (torch.float32, (1, 16, 16, 128), (32, 32)),       # the train step's three sites
+    (torch.float32, (1, 32, 32, 128), (64, 64)),
+    (torch.float32, (1, 64, 64, 128), (128, 128)),
+    (torch.float32, (2, 1, 4, 4), (4, 8)),             # IH 1; C 4 in fp32
+    (torch.bfloat16, (1, 5, 7, 8), (6, 1)),            # OW 1; C 8 in bf16
+    (torch.bfloat16, (3, 9, 11, 16), (5, 6)),          # B 3, downsampled
+    (torch.float32, (1, 9, 300, 4), (6, 2060)),        # a row of more than one block
+    (torch.bfloat16, (2, 5, 7, 24), (6, 10)),          # a block of 255 threads (85 pixels)
+    (torch.float32, (1, 4, 6, 2048), (8, 12)),         # a block of 512 threads (1 pixel)
+])
+def test_resize_kernel_is_bit_exact_at_sites_and_edges(cuda, dtype, x_shape, out_hw):
+    """K4 is the plain resize in fp32 rounded once to x's dtype, bit for bit,
+    in one launch."""
+    x = _randn(x_shape, dtype, cuda)
+    with torch.no_grad():
+        before = LAUNCHES['resize_bilinear']
+        got = resize_bilinear(x, out_hw)
+        torch.cuda.synchronize()
+        assert LAUNCHES['resize_bilinear'] == before + 1
+        want = resize_bilinear_plain(x.float(), out_hw).to(dtype)
+    assert got.shape == (x_shape[0], *out_hw, x_shape[3])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,x_shape,out_hw', [
+    (torch.bfloat16, (8, 256, 256, 128), (512, 512)),  # K5's two sites
+    (torch.float32, (1, 128, 128, 128), (256, 256)),
+    (torch.bfloat16, (3, 7, 9, 8), (10, 14)),
+])
+def test_resize_s2d_is_resize_then_space_to_depth(cuda, dtype, x_shape, out_hw):
+    """depth_to_space of K5's output is K4's output, bit for bit."""
+    x = _randn(x_shape, dtype, cuda)
+    with torch.no_grad():
+        assert torch.equal(depth_to_space(resize_s2d(x, out_hw)), resize_bilinear(x, out_hw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,in_hw,out_hw,c', [
+    (torch.float32, (128, 128), (256, 256), 128),      # the train step's s2d site
+    (torch.bfloat16, (128, 128), (256, 256), 128),
+    (torch.float32, (12, 20), (24, 42), 4),            # C 4 fp32
+    (torch.bfloat16, (7, 9), (10, 14), 8),             # C 8 bf16, downsampled H
+    (torch.float32, (12, 20), (46, 82), 16),           # tables wider than 4 taps
+    (torch.float32, (1, 3), (2, 4), 4),                # IH 1
+])
+def test_resize_transposed_kernel_reads_s2d_in_place(cuda, dtype, in_hw, out_hw, c):
+    """K4^T on g in space-to-depth layout is, bit for bit, K4^T on the
+    depth_to_space copy of g, in one launch."""
+    g = _randn((2, out_hw[0] // 2, out_hw[1] // 2, 4 * c), dtype, cuda)
+    with torch.no_grad():
+        before = dict(LAUNCHES)
+        got = resize_s2d_t(g, in_hw)
+        torch.cuda.synchronize()
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+        assert launched == {'resize_bilinear_t': 1}
+        want = resize_bilinear_t(depth_to_space(g).contiguous(), in_hw)
+    assert got.shape == (2, *in_hw, c)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['resize_bilinear', 'resize_bilinear_t', 'resize_s2d_t'])
+def test_resize_kernels_are_deterministic(cuda, name):
+    """K4 and K4^T (g NHWC or in s2d layout) give the same bits from two
+    calls and from three replays of a CUDA graph of one call."""
+    fn, shape = {
+        'resize_bilinear': (lambda t: resize_bilinear(t, (128, 128)), (8, 64, 64, 128)),
+        'resize_bilinear_t': (lambda t: resize_bilinear_t(t, (128, 128)), (1, 256, 256, 128)),
+        'resize_s2d_t': (lambda t: resize_s2d_t(t, (128, 128)), (1, 128, 128, 512)),
+    }[name]
+    for dtype in DTYPES:
+        x = _randn(shape, dtype, cuda)
+        with torch.no_grad():
+            a = fn(x)
+            assert torch.equal(fn(x), a)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn(x)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                out = fn(x)
+            for _ in range(3):
+                out.zero_()
+                graph.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(out, a)
+
+
+@pytest.mark.cuda
+def test_resize_s2d_backward_is_one_kernel(cuda):
+    """K5's backward launches K4^T once on the space-to-depth cotangent as
+    it comes, and no depth_to_space copy (the profiler's kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    x = _randn((1, 128, 128, 128), torch.float32, cuda).requires_grad_(True)
+    g = _randn((1, 128, 128, 512), torch.float32, cuda, seed=1)
+    y = resize_s2d(x, (256, 256))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gx, = torch.autograd.grad(y, x, g)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert len(kernels) == 1 and 'resize_t_kernel' in next(iter(kernels)), kernels
+    assert sum(kernels.values()) == 1
+    with torch.no_grad():
+        assert torch.equal(gx, resize_bilinear_t(depth_to_space(g).contiguous(), (128, 128)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['resize_bilinear', 'resize_s2d', 'resize_bilinear_t',
+                                  'resize_s2d_t'])
 def test_resize_kernels_refuse_what_they_do_not_take(cuda, name):
-    """K4, K5 and K4^T raise on a CUDA tensor they cannot take: no plain
-    fallback."""
+    """K4, K5 and K4^T (g NHWC or in s2d layout) raise on a CUDA tensor they
+    cannot take: no plain fallback."""
     fn = {'resize_bilinear': lambda x: resize_bilinear(x, (8, 8)),
           'resize_s2d': lambda x: resize_s2d(x, (8, 8)),
-          'resize_bilinear_t': lambda x: resize_bilinear_t(x, (2, 2))}[name]
+          'resize_bilinear_t': lambda x: resize_bilinear_t(x, (2, 2)),
+          'resize_s2d_t': lambda x: resize_s2d_t(x, (2, 2))}[name]
     bad = [_randn((1, 4, 4, 6), torch.float32, cuda),          # C * 4 bytes, not 16-byte vectors
            _randn((1, 4, 4, 8), torch.float16, cuda),          # no fp16 kernel
            _randn((1, 4, 4, 8), torch.float32, cuda).transpose(1, 2),  # not contiguous
@@ -100,7 +221,9 @@ def test_resize_kernels_refuse_what_they_do_not_take(cuda, name):
         for x in bad:
             with pytest.raises(ValueError):
                 fn(x)
-        assert fn(_randn((1, 4, 4, 8), torch.float32, cuda)).is_cuda
+        # s2d g: 4C channels of 16-byte vectors
+        good = (1, 4, 4, 16) if name == 'resize_s2d_t' else (1, 4, 4, 8)
+        assert fn(_randn(good, torch.float32, cuda)).is_cuda
 
 
 @pytest.mark.cuda
@@ -628,17 +751,23 @@ def test_rms_norm_bwd_kernel_in_a_cuda_graph(cuda, warm_capture_stream, d, dtype
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', DTYPES)
-@pytest.mark.parametrize('in_hw,out_hw', [((16, 16), (32, 32)), ((12, 20), (23, 41))])
-def test_resize_transposed_kernel_matches_plain(cuda, dtype, in_hw, out_hw):
+@pytest.mark.parametrize('layout,in_hw,out_hw', [
+    ('nhwc', (16, 16), (32, 32)), ('nhwc', (12, 20), (23, 41)),
+    ('s2d', (16, 16), (32, 32)), ('s2d', (12, 20), (24, 42))])
+def test_resize_transposed_kernel_matches_plain(cuda, dtype, layout, in_hw, out_hw):
     g = _randn((2, *out_hw, 64), dtype, cuda)
-    got, want, launched = _both(lambda: resize_bilinear_t(g, in_hw))
+    fwd, bwd = resize_bilinear, resize_bilinear_t
+    if layout == 's2d':  # K5's VJP, on g in space-to-depth layout
+        g = space_to_depth(g).contiguous()
+        fwd, bwd = resize_s2d, resize_s2d_t
+    got, want, launched = _both(lambda: bwd(g, in_hw))
     assert launched == {'resize_bilinear_t': 1}
     # the same nonzero products in fp32, summed in another order, rounded once
     tol = float(want.float().abs().max()) * (2.0 ** -8 if dtype == torch.bfloat16 else 1e-6)
     assert float((got.float() - want.float()).abs().max()) <= tol
-    # and it is the VJP of K4 and K5
+    # and it is the VJP of K4 (K5)
     x = _randn((2, *in_hw, 64), dtype, cuda).requires_grad_(True)
-    y = resize_bilinear(x, out_hw)
+    y = fwd(x, out_hw)
     gx, = torch.autograd.grad(y, x, g)
     assert torch.equal(gx, got)
 

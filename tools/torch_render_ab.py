@@ -1,14 +1,16 @@
 """A/B timing of the port's bf16 render between two source trees on one GPU.
 
-    python3 tools/torch_render_ab.py --trees OLD NEW [--presets v1-base v1.1-swin-large]
-                                     [--renders 5]
+    python3 tools/torch_render_ab.py --trees OLD NEW [--presets v1-base v1.1-swin-large
+                                     'v1-base nerf'] [--renders 5]
 
 Each tree is a checkout of the repository (for example a ``git archive`` of
 another commit unpacked into an ignored directory).  For each turn, in the
 order OLD, NEW, NEW, OLD, one process imports ``renderformer_tpu_torch`` from
 that tree (building its kernels there on first use) and, for each preset,
 renders the bench.py workload (1 scene x 8 views x 2048 triangles, 512^2,
-bf16, inputs already on the card) from one seeded model: the median wall
+bf16, inputs already on the card) from one seeded model, built as the
+tree's own ``chip_smoke.py`` builds it (``render_pipeline``: 'v1-base nerf'
+is V1_BASE_NERF with the fused RMSNorm): the median wall
 milliseconds of ``--renders`` renders after a warm-up, and the device
 milliseconds of one profiled render.  Prints the card's nvidia-smi line,
 then one JSON line a turn.
@@ -29,14 +31,14 @@ def worker(tree, presets, renders):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import renderformer_tpu_torch
-    from renderformer_tpu_torch import RenderingPipeline
+    from chip_smoke import render_pipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {'tree': tree, 'package': os.path.dirname(renderformer_tpu_torch.__file__)}
     scene = tuple(torch.as_tensor(a, device='cuda') for a in bench_inputs())
     for preset in presets:
-        pipe = RenderingPipeline.from_pretrained(preset, seed=0)
+        pipe = render_pipeline(preset)
 
         def render():
             return pipe.render(*scene, resolution=RES, precision='bf16')

@@ -1,6 +1,6 @@
 """A/B timing of the port's train steps between two source trees on one GPU.
 
-    python3 tools/torch_step_ab.py --trees OLD NEW [--steps 5]
+    python3 tools/torch_step_ab.py --trees OLD NEW [--steps 5] [--rows]
 
 Each tree is a checkout of the repository (for example a ``git archive`` of
 another commit unpacked into an ignored directory).  For each turn, in the
@@ -14,8 +14,10 @@ milliseconds of ``--steps`` steps after a warm-up, and the device
 milliseconds of one profiled step with the rows of the flash backward's
 dK/dV kernels (K8, K9's dK/dV), of K9's dQ kernel, of the K
 broadcast-rotate (K3) and of the fused RMSNorm's forward and backward
-kernels (K11) summed apart, with K11's backward launches and every device
-operation the step ran.  The batch and the
+kernels (K11) summed apart, with K11's backward launches, the rows of the
+resize kernels (K4, K5, K4^T) and of K4^T alone with its launches, and
+every device operation the step ran (with ``--rows``, every device row of the
+profiled step too).  The batch and the
 model come from the tree's own ``chip_smoke.py`` (``train_batch``,
 ``seeded_train_state``).  Prints the card's nvidia-smi line, then one JSON
 line a turn.
@@ -35,7 +37,7 @@ import time
 BWD_KERNELS = ('flash_bwd_kv_kernel', 'flash_bwd_sm90_kernel')
 
 
-def worker(tree, steps):
+def worker(tree, steps, with_rows=False):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import renderformer_tpu_torch
@@ -83,7 +85,15 @@ def worker(tree, steps):
             norm_bwd_ms=round(sum(e.self_device_time_total for e in rows
                                   if 'rms_norm_bwd_kernel' in e.key) / 1e3, 3),
             norm_bwd_launches=sum(e.count for e in rows if 'rms_norm_bwd_kernel' in e.key),
+            resize_t_ms=round(sum(e.self_device_time_total for e in rows
+                                  if 'resize_t_kernel' in e.key) / 1e3, 4),
+            resize_t_launches=sum(e.count for e in rows if 'resize_t_kernel' in e.key),
+            resize_ms=round(sum(e.self_device_time_total for e in rows
+                                if 'resize' in e.key) / 1e3, 4),
             device_ops=sum(e.count for e in rows))
+        if with_rows:  # every device row: name, launches, µs
+            out[name]['rows'] = [[e.key[:120], e.count, round(e.self_device_time_total, 1)]
+                                 for e in rows]
         del model, tx, state, step
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
@@ -93,17 +103,20 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--trees', nargs=2, metavar=('OLD', 'NEW'))
     ap.add_argument('--steps', type=int, default=5)
+    ap.add_argument('--rows', action='store_true',
+                    help="add every device row of the profiled step (name, launches, µs)")
     ap.add_argument('--worker', help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(args.worker, args.steps)
+        return worker(args.worker, args.steps, args.rows)
     print(subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     old, new = args.trees
     for tree in (old, new, new, old):
         res = subprocess.run([sys.executable, os.path.abspath(__file__), '--worker', tree,
-                              '--steps', str(args.steps)], capture_output=True, text=True)
+                              '--steps', str(args.steps)] + ['--rows'] * args.rows,
+                             capture_output=True, text=True)
         lines = [l for l in res.stdout.splitlines() if l.startswith('{')]
         if res.returncode or not lines:
             sys.exit(f'{tree}: rc {res.returncode}\n{res.stdout[-2000:]}\n{res.stderr[-3000:]}')
