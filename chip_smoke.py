@@ -72,7 +72,21 @@ Phases, each printing its own lines:
      step.  Then the same workload for v1-base nerf with
      fused_norm=True and the fused backward: exact launch counts of one step,
      the kernel step against the plain step within AGREE_BARS, 3 finite
-     steps, and the same timings.
+     steps, and the same timings;
+  8. entry points, on v1-base at full width and depth from a seeded init in
+     bf16 on the bench.py scene: the weights written as an HF directory
+     (config.json + model.safetensors in the reference layout) and by
+     export_params (jax_format) into a temporary directory, each loaded by
+     RenderingPipeline.from_pretrained (load seconds printed) and rendered,
+     equal bit for bit to the seeded render where two seeded renders give
+     the same bits (else within their max-abs, stated); render_many over 4
+     chunks of 8 views, with exactly 4 times a render's launch counts
+     (counts set to 0 just before it, read just after), each chunk equal to
+     render of its cameras under the same bar, and its rays/s beside four
+     render calls, in turn (no bar); the infer stage writing 8 EXR and 8 PNG
+     files, view 0's EXR the render's fp32 output; batch_infer's per-batch
+     and video loops with --no_output on in-memory dicts, each printing its
+     rays/s line.
 Then one JSON line with every kernel's numbers per render of each model
 and per train step, the nvidia-smi line, and the result line.  Any failed
 check exits non-zero before the result line.  Imports nothing of JAX.
@@ -1612,6 +1626,190 @@ def train_nerf_checks(card):
     return {TRAIN_NERF: launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the user's entry points
+# ---------------------------------------------------------------------------
+
+ENTRY_K = 4  # camera chunks of render_many, of V views each
+
+
+def max_abs(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def held(name, got, ref, bar):
+    """got against ref: the same bits where two renders gave the same bits
+    (bar 0), else within the max-abs of two renders; fails otherwise."""
+    err = max_abs(got, ref)
+    same = bool(torch_equal(got, ref))
+    print(f'entry: {name}: max-abs {err:.3g} against the seeded render, '
+          f'bit for bit {same} (bar: {"bit for bit" if bar == 0 else f"max-abs <= {bar:.3g}"})',
+          flush=True)
+    if not (same if bar == 0 else err <= bar):
+        fail(f'{name} differs from the seeded render: max-abs {err}')
+
+
+def torch_equal(a, b):
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def entry_cameras():
+    """ENTRY_K chunks of V cameras, each shifted along x: c2w [K, 1, V, 4, 4],
+    fov [K, 1, V, 1]."""
+    c2w = np.tile(np.eye(4, dtype=np.float32), (ENTRY_K, 1, V, 1, 1))
+    c2w[..., 0, 3] = np.linspace(-0.3, 0.3, ENTRY_K * V, dtype=np.float32).reshape(
+        ENTRY_K, 1, V)
+    return c2w, np.full((ENTRY_K, 1, V, 1), 40.0, np.float32)
+
+
+def entry_point_checks(card):
+    """Phase 8 on full-width, full-depth v1-base from the seeded init, bf16,
+    the bench.py scene: (a) from_pretrained on an HF directory and on a
+    jax_format directory renders what the seeded pipeline renders; (b)
+    render_many over ENTRY_K chunks launches ENTRY_K times a render's
+    kernels, each chunk what render gives; (c) the infer stage writes the
+    EXR and PNG files, the EXR the render's fp32 output; (d) both loops of
+    batch_infer run with --no_output on in-memory dicts."""
+    import tempfile
+
+    import torch
+    from renderformer_tpu_torch import RenderingPipeline, batch_infer, export_params, infer
+    from renderformer_tpu_torch.io import safetensors
+    from renderformer_tpu_torch.io.image import read_exr
+    from renderformer_tpu_torch.ops import LAUNCHES, reset_launch_counts
+
+    t0 = time.time()
+    seeded = render_pipeline(BASE)
+    args = bench_inputs()
+    dargs = tuple(torch.as_tensor(a, device='cuda') for a in args)
+
+    def render(pipe, c2w=dargs[4], fov=dargs[5]):
+        return pipe.render(*dargs[:4], c2w, fov, resolution=RES, precision='bf16')
+
+    ref = render(seeded)
+    again = render(seeded)
+    torch.cuda.synchronize()
+    bar = 0.0 if torch_equal(ref, again) else max_abs(ref, again)
+    print(f'entry: {BASE} seeded init in {time.time() - t0:.1f} s; two bf16 {RES}^2 renders '
+          + ('give the same bits, so every check below is bit for bit' if bar == 0 else
+             f'differ by max-abs {bar:.3g}: a kernel on the path sums in an order that varies '
+             f'between calls, so the checks below are held to that'), flush=True)
+
+    with tempfile.TemporaryDirectory(prefix='rf_entry_') as tmp:
+        # (a) loading
+        hf, jx = os.path.join(tmp, 'hf'), os.path.join(tmp, 'jax_format')
+        os.makedirs(hf)
+        seeded.config.save_json(os.path.join(hf, 'config.json'))
+        safetensors.save_file(seeded.model.state_dict(), os.path.join(hf, 'model.safetensors'))
+        export_params(jx, seeded.model, seeded.config)
+        want_sd = seeded.model.state_dict()
+        for name, path in (('HF directory', hf), ('jax_format directory', jx)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pipe = RenderingPipeline.from_pretrained(path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+            sd = pipe.model.state_dict()
+            if sorted(sd) != sorted(want_sd) or not all(torch_equal(sd[k], want_sd[k])
+                                                        for k in want_sd):
+                fail(f'{name}: the loaded weights differ from the seeded weights')
+            mb = os.path.getsize(os.path.join(path, 'model.safetensors')) / 2 ** 20
+            print(f'entry: from_pretrained({name}, {mb:.1f} MiB) in {load_s:.3f} s, '
+                  f'weights bit for bit, on {card}', flush=True)
+            held(f'from_pretrained({name}) render', render(pipe), ref, bar)
+            del pipe, sd
+        torch.cuda.empty_cache()
+
+        # (b) the video path
+        c2w_seq, fov_seq = (torch.as_tensor(a, device='cuda') for a in entry_cameras())
+        reset_launch_counts()
+        many = seeded.render_many(*dargs[:4], c2w_seq, fov_seq, resolution=RES,
+                                  precision='bf16')
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        want = {k: ENTRY_K * n for k, n in EXPECTED_LAUNCHES[BASE].items()}
+        print(f'entry: render_many {ENTRY_K} x {V} views launches ' + json.dumps(launches),
+              flush=True)
+        if launches != want:
+            fail(f'render_many launch counts {launches} != {want}')
+        if tuple(many.shape) != (ENTRY_K, 1, V, RES, RES, 3):
+            fail(f'render_many shape {tuple(many.shape)}')
+        for i in range(ENTRY_K):
+            held(f'render_many chunk {i} against render of its cameras', many[i],
+                 render(seeded, c2w_seq[i], fov_seq[i]), bar)
+
+        def many_s():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            seeded.render_many(*dargs[:4], c2w_seq, fov_seq, resolution=RES, precision='bf16')
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        def four_s():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i in range(ENTRY_K):
+                render(seeded, c2w_seq[i], fov_seq[i])
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        turns = [(many_s(), four_s()) for _ in range(5)]
+        m, f = (statistics.median(x) for x in zip(*turns))
+        rays = ENTRY_K * V * RES * RES
+        print(f'speed: {BASE} bf16 {RES}^2 render_many {ENTRY_K} x {V} views (informational, '
+              f'no bar): {rays / m:.1f} rays/s ({m * 1e3:.2f} ms) against {ENTRY_K} render '
+              f'calls {rays / f:.1f} rays/s ({f * 1e3:.2f} ms), medians of 5 turns '
+              f'{[(round(a * 1e3, 2), round(b * 1e3, 2)) for a, b in turns]} ms, on {card}',
+              flush=True)
+        del many
+
+        # (c) the infer stage
+        scene = dict(triangles=args[0][0], texture=args[1][0], mask=args[2][0], vn=args[3][0],
+                     c2w=args[4][0], fov=args[5][0, :, 0])
+        out_dir = os.path.join(tmp, 'infer')
+        t = time.perf_counter()
+        rendered = infer.render_scene(seeded, scene, out_dir, 'bench', resolution=RES,
+                                      precision='bf16')
+        infer_s = time.perf_counter() - t
+        files = sorted(os.listdir(out_dir))
+        want_files = sorted(f'bench_view_{i}.{e}' for i in range(V) for e in ('exr', 'png'))
+        if files != want_files:
+            fail(f'infer wrote {files}, not {want_files}')
+        exr0 = torch.from_numpy(read_exr(os.path.join(out_dir, 'bench_view_0.exr')).copy())
+        if not torch_equal(exr0, torch.from_numpy(rendered[0, 0])):
+            fail('infer: view 0 read back from its EXR is not the rendered image')
+        held('infer view 0 read back from its EXR', exr0, ref[0, 0].float().cpu(), bar)
+        print(f'entry: infer wrote {V} EXR + {V} PNG files in {infer_s:.2f} s', flush=True)
+
+        # (d) batch_infer's loops, --no_output, in-memory dicts
+        bargs = batch_infer.build_parser().parse_args(
+            ['--h5_folder', tmp, '--no_output', '--resolution', str(RES),
+             '--batch_size', str(V), '--frames_per_call', str(ENTRY_K)])
+        batch = {k: args[i] for i, k in enumerate(('triangles', 'texture', 'mask', 'vn', 'c2w'))}
+        batches = [{**batch, 'fov': args[5][..., 0], 'file_paths': [f'frame_{i}.h5']}
+                   for i in range(4)]
+        c2w_np, fov_np = entry_cameras()
+        chunks = [{'c2w': c2w_np[i % ENTRY_K], 'fov': fov_np[i % ENTRY_K][..., 0],
+                   'entries': [(f'frame_{i}.h5', j) for j in range(V)], 'n_valid': V}
+                  for i in range(3 * ENTRY_K)]
+        for name, run, items in (('per-batch', batch_infer.run_batches, batches),
+                                 ('video', batch_infer.run_video, chunks)):
+            out = batch_infer.Output(bargs, os.path.join(tmp, 'batch'))
+            meter = (run(seeded, items, out, bargs) if name == 'per-batch'
+                     else run(seeded, scene, items, out, bargs))
+            if out.close():
+                fail(f'batch_infer {name} loop kept frames with --no_output')
+            batch_infer.report(meter)
+            s = meter.summary()
+            print(f'speed: batch_infer {name} loop, --no_output, {len(meter._times)} calls of '
+                  f'{meter.rays_per_step} rays: {s["rays_per_s_median"]:.1f} rays/s median '
+                  f'(informational, no bar) on {card}', flush=True)
+    del seeded, dargs, ref, again
+    torch.cuda.empty_cache()
+    print(f'entry: phase 8 in {time.time() - t0:.1f} s', flush=True)
+
+
 def _times(weighted):
     """ms, plain_ms, bound_ms and library_ms of (row, launches) pairs: each
     row's median times its launches, summed; library_ms None where a row has
@@ -1675,6 +1873,7 @@ def main():
     rows += train_kernel_checks()
     launches.update(train_checks(card))
     launches.update(train_nerf_checks(card))
+    entry_point_checks(card)
     for name in KERNELS:
         if not any(launches[p][name] for p in ALL_PATHS):
             fail(f'{name} was launched by no path')

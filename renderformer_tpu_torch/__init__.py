@@ -3,11 +3,16 @@
 The JAX package ``renderformer_tpu`` stays the reference; this package
 imports nothing of it.  Its hand-written kernels (``csrc/``) build at first
 use; on CPU tensors each kernel's plain PyTorch version runs instead.
+``RenderingPipeline.from_pretrained`` loads a local checkpoint directory
+that ``export_params`` (or the JAX package's) wrote, or an HF directory in
+the reference layout; ``python -m renderformer_tpu_torch.infer`` and
+``.batch_infer`` are the command lines.
 """
 
 from renderformer_tpu_torch.config import (
     PRESETS, RenderFormerConfig, RuntimeConfig, V1_1_SWIN_LARGE, V1_BASE, V1_BASE_NERF)
 from renderformer_tpu_torch.pipelines.rendering_pipeline import RenderingPipeline
+from renderformer_tpu_torch.training.checkpoint import export_params
 
 __all__ = ['PRESETS', 'RenderFormerConfig', 'RuntimeConfig', 'RenderingPipeline',
-           'V1_BASE', 'V1_BASE_NERF', 'V1_1_SWIN_LARGE']
+           'V1_BASE', 'V1_BASE_NERF', 'V1_1_SWIN_LARGE', 'export_params']

@@ -67,6 +67,17 @@ class RenderFormerConfig:
     turn_to_cam_coord: bool = True
     use_ldr: bool = False
 
+    def get(self, key, default=None):
+        return getattr(self, key, default)
+
+    @property
+    def head_dim(self) -> int:
+        return self.latent_dim // self.num_heads
+
+    @property
+    def view_head_dim(self) -> int:
+        return self.view_transformer_latent_dim // self.view_transformer_n_heads
+
     @property
     def view_rope_dim(self) -> Optional[int]:
         """rope_dim of the view transformer."""
@@ -95,6 +106,10 @@ class RenderFormerConfig:
         n = self.view_transformer_n_layers
         return list(range(n - 4, n))
 
+    # --- serialization: the JAX package's config.json, byte for byte ---
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
     @classmethod
     def from_dict(cls, d: dict) -> 'RenderFormerConfig':
         names = {f.name for f in dataclasses.fields(cls)}
@@ -104,6 +119,10 @@ class RenderFormerConfig:
     def from_json(cls, path: str) -> 'RenderFormerConfig':
         with open(path) as f:
             return cls.from_dict(json.load(f))
+
+    def save_json(self, path: str) -> None:
+        with open(path, 'w') as f:
+            json.dump(self.to_dict(), f, indent=2)
 
 
 DPT_TAILS = ('composed', 's2d', 'plain')

@@ -17,14 +17,25 @@ round trip), classified by tensor rank:
 
 Both directions take numpy (or CPU torch) arrays and copy no value
 bit-inexactly: the layout changes are transposes only.
+
+On disk (``load_pretrained``, ``import_params``; the writer is
+``training.checkpoint.export_params``) a checkpoint is a directory of
+``config.json`` and ``model.safetensors``: an HF directory holds the
+reference layout, which is the port's state_dict; one with a
+``jax_format.json`` marker holds the JAX tree's leaves under dotted keys
+(list items by index).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import os
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from renderformer_tpu_torch.config import RenderFormerConfig
+from renderformer_tpu_torch.io import safetensors
 
 _CONVT = ('resize_layers.0', 'resize_layers.1')
 _SEQ_OUT = {'conv1': '0', 'conv2': '2'}
@@ -128,3 +139,43 @@ def state_dict_to_jax_params(state_dict: Mapping) -> Dict:
         else:
             raise ValueError(f'unexpected tensor rank for {key}: {value.shape}')
     return _listify(tree)
+
+
+def flatten_jax_params(tree, prefix: str = '') -> Dict[str, np.ndarray]:
+    """A JAX parameter tree -> its leaves under dotted keys, as the JAX
+    package's ``export_params`` names them (an empty item has no key)."""
+    flat: Dict[str, np.ndarray] = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        key = f'{prefix}.{k}' if prefix else str(k)
+        if isinstance(v, (dict, list, tuple)):
+            flat.update(flatten_jax_params(v, key))
+        else:
+            flat[key] = _np(v)
+    return flat
+
+
+def unflatten_jax_params(flat: Mapping) -> Dict:
+    """Dotted keys -> the nested JAX tree (the JAX ``import_params`` rule)."""
+    tree: Dict = {}
+    for key, val in flat.items():
+        _set(tree, tuple(key.split('.')), _np(val))
+    return _listify(tree)
+
+
+def load_pretrained(model_dir: str) -> Tuple[RenderFormerConfig, Dict[str, torch.Tensor]]:
+    """(config, state_dict) of an HF directory: ``config.json`` and
+    ``model.safetensors`` in the reference layout, which the port's modules
+    carry, so no key changes.  The reference rotary embedding's ``dummy``
+    device buffer is dropped, as the JAX converter drops it."""
+    cfg = RenderFormerConfig.from_json(os.path.join(model_dir, 'config.json'))
+    sd = safetensors.load_file(os.path.join(model_dir, 'model.safetensors'))
+    return cfg, {k: v for k, v in sd.items() if k.split('.')[-1] != 'dummy'}
+
+
+def import_params(model_dir: str) -> Tuple[RenderFormerConfig, Dict[str, torch.Tensor]]:
+    """(config, state_dict) of a directory that either package's
+    ``export_params`` wrote (``jax_format.json``: the JAX tree's leaves)."""
+    cfg = RenderFormerConfig.from_json(os.path.join(model_dir, 'config.json'))
+    flat = safetensors.load_file(os.path.join(model_dir, 'model.safetensors'))
+    return cfg, jax_params_to_state_dict(unflatten_jax_params(flat))

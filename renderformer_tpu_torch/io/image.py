@@ -1,0 +1,222 @@
+"""Image and video IO: EXR (HDR), PNG (LDR), MP4.
+
+EXR and PNG are written by numpy, ``struct`` and ``zlib`` alone; MP4 needs
+``cv2``, imported when ``write_video`` is called.  The EXR codec is the JAX
+package's (``renderformer_tpu/io/image.py``), so the two packages write the
+same bytes for the same image: OpenEXR 2.0 single-part scanline, fp32,
+ZIP-compressed by default, readable by any EXR consumer.
+
+The ZIP codec follows OpenEXR's ImfZip.cpp: per 16-scanline block,
+byte-deinterleave (even bytes then odd bytes), delta-predictor mod 256,
+zlib deflate; blocks that don't shrink are stored raw (spec behavior).
+
+The PNG writer (PNG specification, ISO/IEC 15948) writes 8-bit truecolour
+or greyscale, no interlace, filter type 0 (None) on every row, the rows
+deflated at zlib level 1, as the JAX package asks of its encoder.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+from typing import List
+
+import numpy as np
+
+_EXR_MAGIC = 0x01312f76
+_PIXEL_FLOAT = 2  # OpenEXR FLOAT (fp32)
+_ZIP_BLOCK = 16   # scanlines per ZIP_COMPRESSION chunk
+
+_COMPRESSION_IDS = {'none': 0, 'zips': 2, 'zip': 3}
+
+
+def _attr(name: bytes, type_: bytes, value: bytes) -> bytes:
+    return name + b'\x00' + type_ + b'\x00' + struct.pack('<i', len(value)) + value
+
+
+def _zip_compress(raw: bytes, level: int = 1) -> bytes:
+    """OpenEXR zip filter: deinterleave -> delta predictor -> deflate.
+
+    level 1 by default: any zlib level is a spec-valid ZIP stream, and
+    after the delta predictor level 1 keeps ~93% of the default-level
+    ratio at ~6x the speed (measured 40 vs 256 ms per 512^2 frame) —
+    the encode runs on the batch_infer writer pool, which on small
+    hosts is the video pipeline's critical path."""
+    buf = np.frombuffer(raw, np.uint8)
+    n = buf.size
+    half = (n + 1) // 2
+    reordered = np.empty(n, np.uint8)
+    reordered[:half] = buf[0::2]
+    reordered[half:] = buf[1::2]
+    out = np.empty(n, np.uint8)
+    out[0] = reordered[0]
+    # d[i] = t[i] - t[i-1] + 384 (mod 256) on the reordered bytes
+    out[1:] = (reordered[1:].astype(np.int16)
+               - reordered[:-1].astype(np.int16) + 384).astype(np.uint8)
+    packed = zlib.compress(out.tobytes(), level)
+    return packed if len(packed) < n else raw
+
+
+def _zip_decompress(packed: bytes, raw_size: int) -> bytes:
+    if len(packed) == raw_size:  # stored raw (didn't shrink)
+        return packed
+    data = np.frombuffer(zlib.decompress(packed), np.uint8).copy()
+    # undo predictor: t[i] = t[0] + sum(d[k] - 384), mod 256
+    deltas = data.astype(np.int64)
+    deltas[1:] -= 384
+    reordered = np.cumsum(deltas).astype(np.uint8)
+    # undo deinterleave
+    n = reordered.size
+    half = (n + 1) // 2
+    out = np.empty(n, np.uint8)
+    out[0::2] = reordered[:half]
+    out[1::2] = reordered[half:]
+    return out.tobytes()
+
+
+def write_exr(path: str, img: np.ndarray, compression: str = 'zip') -> None:
+    """Write [H, W, 3] float32 RGB as a scanline EXR.
+
+    compression: 'zip' (16-row zlib blocks, default — ~2-3x smaller for
+    rendered HDR), 'zips' (1-row blocks), or 'none'.
+    """
+    img = np.asarray(img, dtype=np.float32)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f'expected [H, W, 3] image, got {img.shape}')
+    if compression not in _COMPRESSION_IDS:
+        raise ValueError(f'compression must be one of {set(_COMPRESSION_IDS)}')
+    h, w, _ = img.shape
+    rows_per_chunk = {'none': 1, 'zips': 1, 'zip': _ZIP_BLOCK}[compression]
+
+    # channel list must be alphabetically sorted: B, G, R
+    chlist = b''
+    for name in (b'B', b'G', b'R'):
+        chlist += (name + b'\x00' + struct.pack('<i', _PIXEL_FLOAT)
+                   + struct.pack('<i', 0)  # pLinear + reserved
+                   + struct.pack('<ii', 1, 1))  # x/y sampling
+    chlist += b'\x00'
+
+    box = struct.pack('<iiii', 0, 0, w - 1, h - 1)
+    header = b''
+    header += _attr(b'channels', b'chlist', chlist)
+    header += _attr(b'compression', b'compression',
+                    bytes([_COMPRESSION_IDS[compression]]))
+    header += _attr(b'dataWindow', b'box2i', box)
+    header += _attr(b'displayWindow', b'box2i', box)
+    header += _attr(b'lineOrder', b'lineOrder', b'\x00')  # INCREASING_Y
+    header += _attr(b'pixelAspectRatio', b'float', struct.pack('<f', 1.0))
+    header += _attr(b'screenWindowCenter', b'v2f', struct.pack('<ff', 0, 0))
+    header += _attr(b'screenWindowWidth', b'float', struct.pack('<f', 1.0))
+    header += b'\x00'
+
+    # scanline chunk payloads: rows in order, each row = B then G then R
+    bgr = img[:, :, ::-1]
+    chunks = []
+    for y0 in range(0, h, rows_per_chunk):
+        rows = bgr[y0:y0 + rows_per_chunk]
+        raw = np.ascontiguousarray(rows.transpose(0, 2, 1)).tobytes()
+        payload = _zip_compress(raw) if compression != 'none' else raw
+        chunks.append((y0, payload))
+
+    preamble = struct.pack('<ii', _EXR_MAGIC, 2)  # magic, version 2
+    offset_table_pos = len(preamble) + len(header)
+    pos = offset_table_pos + 8 * len(chunks)
+    offsets = []
+    for y0, payload in chunks:
+        offsets.append(pos)
+        pos += 8 + len(payload)
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, 'wb') as f:
+        f.write(preamble)
+        f.write(header)
+        f.write(struct.pack(f'<{len(offsets)}Q', *offsets))
+        for y0, payload in chunks:
+            f.write(struct.pack('<ii', y0, len(payload)))
+            f.write(payload)
+
+
+def read_exr(path: str) -> np.ndarray:
+    """Read EXRs produced by :func:`write_exr` (fp32 BGR scanline,
+    none/zips/zip compression)."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    magic, version = struct.unpack_from('<ii', data, 0)
+    if magic != _EXR_MAGIC:
+        raise ValueError('not an EXR file')
+    pos = 8
+    attrs = {}
+    while data[pos] != 0:
+        end = data.index(b'\x00', pos)
+        name = data[pos:end].decode()
+        pos = end + 1
+        end = data.index(b'\x00', pos)
+        type_ = data[pos:end].decode()
+        pos = end + 1
+        size, = struct.unpack_from('<i', data, pos)
+        pos += 4
+        attrs[name] = (type_, data[pos:pos + size])
+        pos += size
+    pos += 1
+    comp_id = attrs['compression'][1][0]
+    if comp_id not in (0, 2, 3):
+        raise NotImplementedError(f'unsupported EXR compression id {comp_id}')
+    rows_per_chunk = _ZIP_BLOCK if comp_id == 3 else 1
+    x0, y0, x1, y1 = struct.unpack('<iiii', attrs['dataWindow'][1])
+    w, h = x1 - x0 + 1, y1 - y0 + 1
+    n_chunks = (h + rows_per_chunk - 1) // rows_per_chunk
+    pos += 8 * n_chunks  # offset table
+    img = np.empty((h, w, 3), np.float32)
+    for _ in range(n_chunks):
+        y, size = struct.unpack_from('<ii', data, pos)
+        pos += 8
+        rows = min(rows_per_chunk, h - y)
+        raw_size = rows * 3 * w * 4
+        payload = data[pos:pos + size]
+        raw = (_zip_decompress(payload, raw_size) if comp_id else payload)
+        block = np.frombuffer(raw, np.float32).reshape(rows, 3, w)
+        img[y:y + rows] = block.transpose(0, 2, 1)
+        pos += size
+    return img[:, :, ::-1]  # BGR -> RGB
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack('>I', len(data)) + tag + data
+            + struct.pack('>I', zlib.crc32(tag + data) & 0xffffffff))
+
+
+def write_png(path: str, img_u8: np.ndarray) -> None:
+    """Write [H, W, 3] RGB or [H, W] grey uint8 as a PNG."""
+    img = np.ascontiguousarray(img_u8)
+    if img.dtype != np.uint8:
+        raise ValueError(f'expected uint8 pixels, got {img.dtype}')
+    if img.ndim == 2:
+        colour = 0
+    elif img.ndim == 3 and img.shape[2] == 3:
+        colour = 2
+    else:
+        raise ValueError(f'expected [H, W, 3] or [H, W] image, got {img.shape}')
+    h, w = img.shape[:2]
+    rows = np.zeros((h, 1 + img[0].size), np.uint8)  # a 0 filter byte a row
+    rows[:, 1:] = img.reshape(h, -1)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, 'wb') as f:
+        f.write(b'\x89PNG\r\n\x1a\n')
+        f.write(_png_chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, colour, 0, 0, 0)))
+        f.write(_png_chunk(b'IDAT', zlib.compress(rows.tobytes(), 1)))
+        f.write(_png_chunk(b'IEND', b''))
+
+
+def write_video(path: str, frames: List[np.ndarray], fps: int = 24) -> None:
+    """Write uint8 RGB frames to an MP4 (mp4v) through cv2's VideoWriter."""
+    import cv2
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    h, w = frames[0].shape[:2]
+    writer = cv2.VideoWriter(
+        path, cv2.VideoWriter_fourcc(*'mp4v'), fps, (w, h))
+    if not writer.isOpened():
+        raise RuntimeError(f'cannot open video writer for {path}')
+    for frame in frames:
+        writer.write(frame[:, :, ::-1])  # RGB -> BGR
+    writer.release()

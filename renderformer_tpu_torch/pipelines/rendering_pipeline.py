@@ -2,7 +2,12 @@
 
 ``render`` runs the whole render step eagerly on the pipeline's device:
 HDR encode, camera-space transform, patch-layout ray generation, both
-transformer stages, HDR decode.
+transformer stages, HDR decode.  ``render_many`` renders K camera chunks
+of one scene, the video path: the scene moves to the device and its
+texture is HDR-encoded once, then each chunk is one ``render_fn``.
+``from_pretrained`` loads a local checkpoint directory (an HF directory in
+the reference layout, or either package's ``export_params``) or builds a
+preset with seeded weights.
 
 Precision map, the JAX package's: ``'bf16'``/``'bfloat16'`` and also
 ``'fp16'``/``'float16'`` compute in bfloat16; ``'fp32'``/``'float32'`` in
@@ -18,12 +23,14 @@ asked for CUDA on a machine without it, they raise.
 from __future__ import annotations
 
 import copy
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from renderformer_tpu_torch.config import PRESETS, RenderFormerConfig, RuntimeConfig
+from renderformer_tpu_torch.convert import import_params, load_pretrained
 from renderformer_tpu_torch.models.renderformer import RenderFormer
 from renderformer_tpu_torch.nn.core import cast_params, init_weights
 from renderformer_tpu_torch.utils.hdr import hdr_decode_image, hdr_encode_texture
@@ -52,12 +59,14 @@ def resolve_device(device=None) -> torch.device:
 
 
 def render_fn(model: RenderFormer, triangles, texture, mask, vn, c2w, fov, *,
-              resolution: int, output_dtype: Optional[torch.dtype] = None):
+              resolution: int, output_dtype: Optional[torch.dtype] = None,
+              texture_encoded: bool = False):
     """One render step on tensors of the model's device.
 
     triangles [bs, N, 3, 3], texture [bs, N, C, ps, ps], mask [bs, N] bool,
     vn [bs, N, 3, 3], c2w [bs, V, 4, 4], fov [bs, V, 1] degrees.  Returns
-    HDR images [bs, V, H, W, 3]."""
+    HDR images [bs, V, H, W, 3].  ``texture_encoded``: the texture is
+    already HDR-encoded (``render_many`` encodes it once for all chunks)."""
     cfg = model.config
     bs, nv = c2w.shape[0], c2w.shape[1]
     if resolution % cfg.patch_size:
@@ -66,7 +75,7 @@ def render_fn(model: RenderFormer, triangles, texture, mask, vn, c2w, fov, *,
     if cfg.texture_encode_patch_size == 1 and texture.dim() == 5:
         texture = texture[:, :, :, 0, 0]
     texture = texture.float()
-    if not cfg.use_ldr:
+    if not cfg.use_ldr and not texture_encoded:
         texture = hdr_encode_texture(texture)
 
     if cfg.turn_to_cam_coord:
@@ -117,12 +126,28 @@ class RenderingPipeline:
 
     @classmethod
     def from_pretrained(cls, model_id: str, seed: int = 0, device=None, **kw):
-        """A named preset with seeded random weights.  Loading a local
-        checkpoint directory is not ported yet."""
+        """A local checkpoint directory (``config.json`` +
+        ``model.safetensors``: with ``jax_format.json`` the JAX tree's
+        leaves, else the reference layout), or a named preset with seeded
+        random weights."""
+        if os.path.isdir(model_id):
+            dev = resolve_device(device)
+            load = (import_params if os.path.exists(os.path.join(model_id, 'jax_format.json'))
+                    else load_pretrained)
+            cfg, sd = load(model_id)
+            # built on meta, so no init runs for weights that are replaced;
+            # the fp32 master moves to the device once, in __init__
+            with torch.device('meta'):
+                model = RenderFormer(cfg)
+            model.load_state_dict({k: v.float() if v.is_floating_point() else v
+                                   for k, v in sd.items()}, strict=True, assign=True)
+            return cls(model, device=dev, **kw)
         if model_id in PRESETS:
             return cls.from_config(PRESETS[model_id], seed=seed, device=device, **kw)
-        raise ValueError(f'{model_id!r} is not a preset name (presets: '
-                         f'{sorted(PRESETS)}); checkpoint loading is not ported yet')
+        raise ValueError(
+            f'{model_id!r} is not a local checkpoint dir or preset name '
+            f'(presets: {sorted(PRESETS)}). Hub download is not supported; '
+            f'pass a directory with config.json and model.safetensors.')
 
     def _model_for(self, dtype, view_dtype) -> RenderFormer:
         key = (dtype, view_dtype)
@@ -142,30 +167,60 @@ class RenderingPipeline:
             m.fused_norm = self.runtime.fused_norm
         return m
 
-    def render(self, triangles, texture, mask, vn, c2w, fov, resolution: int = 512,
-               precision: Optional[str] = None, view_precision: Optional[str] = None,
-               output_dtype: Optional[str] = None) -> torch.Tensor:
-        """Render numpy arrays or tensors; returns HDR [bs, V, H, W, 3] on the
-        pipeline's device."""
+    def _prepare(self, precision, view_precision, output_dtype):
+        """The model cast for a render's dtypes, and its output dtype."""
         if precision is None:
             precision = self.runtime.compute_dtype
             view_precision = view_precision or self.runtime.view_dtype
         dtype = _DTYPES[precision]
         view_dtype = dtype if view_precision is None else _DTYPES[view_precision]
-        out_dt = _OUT_DTYPES[output_dtype] if output_dtype else None
         model = self._model_for(dtype, view_dtype)
         # pipelines may share a model, so the tail is set at every render
         model.view_transformer.out_dpt.tail = self.runtime.dpt_tail
+        return model, (_OUT_DTYPES[output_dtype] if output_dtype else None)
 
-        def arg(x, dt):
-            return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
-                                   device=self.device).to(dt)
+    def _arg(self, x, dtype) -> torch.Tensor:
+        """x on the pipeline's device in ``dtype``; no copy if it is there."""
+        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                               device=self.device).to(dtype)
 
+    def render(self, triangles, texture, mask, vn, c2w, fov, resolution: int = 512,
+               precision: Optional[str] = None, view_precision: Optional[str] = None,
+               output_dtype: Optional[str] = None) -> torch.Tensor:
+        """Render numpy arrays or tensors; returns HDR [bs, V, H, W, 3] on the
+        pipeline's device."""
+        model, out_dt = self._prepare(precision, view_precision, output_dtype)
         with torch.inference_mode():
-            return render_fn(model, arg(triangles, torch.float32),
-                             arg(texture, torch.float32), arg(mask, torch.bool),
-                             arg(vn, torch.float32), arg(c2w, torch.float32),
-                             arg(fov, torch.float32), resolution=resolution,
+            return render_fn(model, self._arg(triangles, torch.float32),
+                             self._arg(texture, torch.float32), self._arg(mask, torch.bool),
+                             self._arg(vn, torch.float32), self._arg(c2w, torch.float32),
+                             self._arg(fov, torch.float32), resolution=resolution,
                              output_dtype=out_dt)
 
     __call__ = render
+
+    def render_many(self, triangles, texture, mask, vn, c2w_seq, fov_seq,
+                    resolution: int = 512, precision: Optional[str] = None,
+                    view_precision: Optional[str] = None,
+                    output_dtype: Optional[str] = None) -> torch.Tensor:
+        """Render K camera chunks of one scene: c2w_seq [K, bs, V, 4, 4],
+        fov_seq [K, bs, V, 1].  Returns HDR [K, bs, V, H, W, 3] on the
+        pipeline's device.  Each chunk is ``render`` of its cameras; the
+        scene moves to the device and the texture is HDR-encoded once."""
+        model, out_dt = self._prepare(precision, view_precision, output_dtype)
+        cfg = model.config
+        with torch.inference_mode():
+            tris, msk, vns = (self._arg(triangles, torch.float32), self._arg(mask, torch.bool),
+                              self._arg(vn, torch.float32))
+            tex = self._arg(texture, torch.float32)
+            if not cfg.use_ldr:
+                tex = hdr_encode_texture(tex)
+            c2w_seq, fov_seq = self._arg(c2w_seq, torch.float32), self._arg(fov_seq, torch.float32)
+            k, bs, nv = c2w_seq.shape[:3]
+            out = torch.empty((k, bs, nv, resolution, resolution, cfg.out_dim),
+                              dtype=out_dt or torch.float32, device=self.device)
+            for i in range(k):
+                out[i] = render_fn(model, tris, tex, msk, vns, c2w_seq[i], fov_seq[i],
+                                   resolution=resolution, output_dtype=out_dt,
+                                   texture_encoded=True)
+            return out

@@ -1,5 +1,6 @@
 """Save and restore a train state: parameters, optimizer state, step, and
-``renderformer_meta.json`` with the model config and caller extras.
+``renderformer_meta.json`` with the model config and caller extras; and
+export inference weights as a directory either package loads.
 
 The counterpart of ``renderformer_tpu/training/checkpoint.py`` (which uses
 orbax) with ``torch.save``: one ``state.pt`` under ``ckpt_dir/tag``.  The
@@ -8,15 +9,16 @@ compute-dtype shadow is not saved; it is rebuilt from the masters.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import shutil
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
 from renderformer_tpu_torch.config import RenderFormerConfig
+from renderformer_tpu_torch.convert import flatten_jax_params, state_dict_to_jax_params
+from renderformer_tpu_torch.io import safetensors
 from renderformer_tpu_torch.training.state import TrainState, sync_shadow
 
 STATE_FILE = 'state.pt'
@@ -41,7 +43,7 @@ def save_checkpoint(ckpt_dir: str, tag: str, state: TrainState,
                              'nu': _cpu(opt['nu'])},
                'step': state.step}
     torch.save(payload, os.path.join(path, STATE_FILE))
-    meta = {'model_config': dataclasses.asdict(model_config), 'extra': extra or {}}
+    meta = {'model_config': model_config.to_dict(), 'extra': extra or {}}
     with open(os.path.join(path, META_FILE), 'w') as f:
         json.dump(meta, f, indent=2, default=float)
     return path
@@ -68,3 +70,20 @@ def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, Dict[str,
         with open(meta_path) as f:
             meta = json.load(f)
     return state, meta
+
+
+def export_params(path: str, state_dict_or_model: Union[Mapping[str, torch.Tensor],
+                                                        torch.nn.Module],
+                  model_config: RenderFormerConfig) -> None:
+    """Write inference weights as the JAX package's ``export_params`` does:
+    ``config.json``, the ``jax_format.json`` marker and ``model.safetensors``
+    with the JAX tree's leaves, so that either package's ``from_pretrained``
+    loads the directory."""
+    sd = (state_dict_or_model.state_dict() if isinstance(state_dict_or_model, torch.nn.Module)
+          else state_dict_or_model)
+    os.makedirs(path, exist_ok=True)
+    model_config.save_json(os.path.join(path, 'config.json'))
+    with open(os.path.join(path, 'jax_format.json'), 'w') as f:
+        json.dump({'format': 'renderformer_tpu', 'version': 1}, f)
+    safetensors.save_file(flatten_jax_params(state_dict_to_jax_params(sd)),
+                          os.path.join(path, 'model.safetensors'))

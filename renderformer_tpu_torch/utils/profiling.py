@@ -1,0 +1,62 @@
+"""Throughput counters of the inference CLIs: rays/s and tokens/s from
+host-clock windows (the JAX package's ``ThroughputMeter``).
+
+A window is what the caller puts between ``start`` and ``stop``; the
+meter synchronises nothing, so a window measures the device only where
+the caller's work ends in a fetch or a synchronise.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+
+@dataclass
+class ThroughputMeter:
+    """Accumulates per-step timings and derives rays/s + tokens/s."""
+
+    resolution: int = 512
+    views_per_step: int = 1
+    batch_size: int = 1
+    triangle_tokens: int = 0
+    _times: List[float] = field(default_factory=list)
+    _t0: Optional[float] = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self):
+        if self._t0 is None:
+            raise RuntimeError('stop() without start()')
+        self._times.append(time.perf_counter() - self._t0)
+        self._t0 = None
+
+    @property
+    def rays_per_step(self) -> int:
+        return self.batch_size * self.views_per_step * self.resolution ** 2
+
+    @property
+    def ray_tokens_per_step(self) -> int:
+        return self.batch_size * self.views_per_step * (self.resolution // 8) ** 2
+
+    def summary(self, warmup: int = 1) -> Dict[str, float]:
+        times = self._times[warmup:] if len(self._times) > warmup else self._times
+        if not times:
+            return {}
+        dt = sum(times) / len(times)
+        # the median is robust to one-time tails the fixed warm-up cannot
+        # know about; statistics.median averages the two middle samples of
+        # an even count (a 3-batch run has 2 windows after the warm-up)
+        med = statistics.median(times)
+        return {
+            'steps': len(times),
+            'mean_step_s': dt,
+            'median_step_s': med,
+            'rays_per_s': self.rays_per_step / dt,
+            'rays_per_s_median': self.rays_per_step / med,
+            'ray_tokens_per_s': self.ray_tokens_per_step / dt,
+            'triangle_tokens_per_s': self.batch_size * self.triangle_tokens / dt,
+        }

@@ -21,12 +21,18 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m.startswith('jaxlib')
              or m == 'renderformer_tpu' or m.startswith('renderformer_tpu.'))
-print(len(names), bad)
+# the packages the card's machine lacks: imported only where they are called
+absent = sorted(m for m in sys.modules
+                if m.split('.')[0] in ('h5py', 'safetensors', 'cv2', 'imageio'))
+print(len(names), bad, absent)
 assert not bad, bad
+assert not absent, absent
 for n in ('nn.swin', 'ops.swin_attention', 'ops.shifted_regroup', 'ops.s2d_conv',
           'ops.dpt_tail', 'ops.fused_resize', 'ops.flash_attention', 'ops.fused_norm',
           'training.state',
-          'training.checkpoint', 'training.trainer'):
+          'training.checkpoint', 'training.trainer', 'io.safetensors', 'io.image',
+          'io.h5', 'utils.tone_map', 'utils.prefetch', 'utils.profiling', 'infer',
+          'batch_infer'):
     assert 'renderformer_tpu_torch.' + n in names, n
 '''
 
@@ -39,6 +45,32 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
     assert n_modules >= 20, res.stdout
+
+
+_HELP = r'''
+import sys
+from renderformer_tpu_torch import {cli}
+try:
+    {cli}.main(['--help'])
+except SystemExit as e:
+    assert e.code == 0, e.code
+else:
+    raise AssertionError('--help did not exit')
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'renderformer_tpu', 'h5py', 'cv2'))
+assert not bad, bad
+'''
+
+
+@pytest.mark.parametrize('cli', ['infer', 'batch_infer'])
+def test_cli_help_exits_0_without_jax(cli):
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    env['PYTHONPATH'] = REPO
+    res = subprocess.run([sys.executable, '-c', _HELP.format(cli=cli)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert '--model_id' in res.stdout and '--cpu' in res.stdout
+    assert '--attn_impl' not in res.stdout and '--shard' not in res.stdout
 
 
 def test_default_device_refuses_missing_cuda(monkeypatch):
