@@ -56,7 +56,13 @@ Phases, each printing its own lines:
      and fp32, and K10 with its logsumexp
      and K11's forward and backward at the nerf train step's shapes and
      dtypes, timed as in phase 3, and the flash forward's tile edges of
-     phase 3 with the logsumexp;
+     phase 3 with the logsumexp; then the v1.1-swin-large train step's
+     shapes in the dtypes it runs them: K3, K1 with the logsumexp and K8 at
+     its 8-head sites, K4, K5 and K4^T at 512^2, K6 and K7 in fp32, K7's VJP
+     (bit for bit the inverse regroup), and K6's backward (K6^T) in fp32 at
+     the step's 64 windows and in bf16 at the 8-view render's 512, shifted
+     and unshifted, the same bits in two launches, by single calls and CUDA
+     graphs beside autograd of SDPA with the boolean window mask;
   7. train: v1-base at full width and depth from a seeded init, the
      train_step_bench.py workload (1 scene x 1 view x 2048 triangles at
      256^2, bf16 stage 1 with an fp32 view stage, remat, AdamW): exact launch
@@ -72,7 +78,13 @@ Phases, each printing its own lines:
      step.  Then the same workload for v1-base nerf with
      fused_norm=True and the fused backward: exact launch counts of one step,
      the kernel step against the plain step within AGREE_BARS, 3 finite
-     steps, and the same timings;
+     steps, and the same timings.  Then v1.1-swin-large at full width and
+     depth, the same workload at 512^2: the kernel step against the plain
+     step within AGREE_BARS, exact launch counts, 3 finite steps and the
+     same timings.  For v1-base and swin-large, two steps with
+     TrainConfig(deterministic=True) (the two-kernel backward, deterministic
+     cuDNN) from the same state and batch give the same bits of the loss,
+     every gradient and every updated parameter;
   8. entry points, on v1-base at full width and depth from a seeded init in
      bf16 on the bench.py scene: the weights written as an HF directory
      (config.json + model.safetensors in the reference layout) and by
@@ -93,6 +105,7 @@ check exits non-zero before the result line.  Imports nothing of JAX.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -122,13 +135,16 @@ NW = (GRID // 8) ** 2   # 8 x 8 windows a view
 BASE, SWIN, NERF = 'v1-base', 'v1.1-swin-large', 'v1-base nerf'
 PATHS = (BASE, SWIN, NERF)
 # the train step at 256^2, 1 view, 2048 triangles: v1-base with the fused and
-# the two-kernel backward, v1-base nerf with the fused backward and K11
+# the two-kernel backward, v1-base nerf with the fused backward and K11; and
+# v1.1-swin-large's at 512^2 with the fused backward
 TRAIN, TRAIN2, TRAIN_NERF = 'train v1-base', 'train v1-base twokernel', 'train v1-base nerf'
+TRAIN_SWIN = 'train v1.1-swin-large'
 ROPE_TRAIN = (TRAIN, TRAIN2)
-TRAIN_PATHS = (TRAIN, TRAIN2, TRAIN_NERF)
+TRAIN_PATHS = (TRAIN, TRAIN2, TRAIN_NERF, TRAIN_SWIN)
 ALL_PATHS = PATHS + TRAIN_PATHS
 TRAIN_RES = 256
 TRAIN_ST = (TRAIN_RES // 8) ** 2   # 1024 ray tokens
+SWIN_TRAIN_RES = 512               # swin-large's step: 4096 ray tokens, 64 windows
 TRAIN_STEPS = 5                    # timed steps after a warm-up
 LSE_BURST = 20                     # launches per timing of the logsumexp A/B
 
@@ -172,6 +188,13 @@ KERNELS = {
     'swin_window_attention': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/swin_attention.cu',
         replaces='renderformer_tpu/ops/swin_attention.py:72'),
+    # K6^T: the TPU package takes this VJP in XLA (_swin_op_bwd, the VJP of
+    # the jnp _ref_paired); no Pallas kernel there
+    'swin_window_attention_bwd': dict(
+        route='cuda', source='renderformer_tpu_torch/csrc/swin_attention_bwd.cu',
+        replaces='renderformer_tpu/ops/swin_attention.py:168'),
+    # K7 forward and inverse, and as its own VJP (the inverse of the direction
+    # it undoes): one kernel, one count
     'shifted_regroup': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/shifted_regroup.cu',
         replaces='renderformer_tpu/ops/shifted_regroup.py:68'),
@@ -215,6 +238,13 @@ def _launches(**nonzero):
 # The nerf train step runs K10 with the logsumexp twice a site and K8 once,
 # and K11's forward at the 102 norms plus again at the 96 inside the
 # recomputed blocks, and its backward at the 102.
+# One swin-large train step: its 12 encoder self-attentions (bf16) and 12
+# decoder cross-attentions (fp32) run K3 three times and K1 twice each, as
+# above, and K8 once; each of the 12 decoder layers runs K6 in the forward and
+# again in the remat recomputation, and K6^T once; each of the 6 shifted
+# layers runs K7 into and out of shifted order in the forward, both again in
+# the recomputation, and both again as their VJPs (the regroup's VJP is the
+# inverse regroup); the same DPT head's K4, K5 and K4^T.
 _TRAIN = dict(flash_fwd_rope_mask=36, flash_fwd_rope_nomask=12, rot_kv_broadcast=72,
               resize_bilinear=3, resize_bilinear_t=4, resize_s2d=1)
 EXPECTED_LAUNCHES = {
@@ -229,6 +259,10 @@ EXPECTED_LAUNCHES = {
     TRAIN_NERF: _launches(flash_fwd_mask=36, flash_fwd_nomask=12, flash_bwd_mask=18,
                           flash_bwd_nomask=6, resize_bilinear=3, resize_bilinear_t=4,
                           resize_s2d=1, rms_norm_fwd=198, rms_norm_bwd=102),
+    TRAIN_SWIN: _launches(flash_fwd_rope_mask=48, rot_kv_broadcast=72, flash_bwd_mask=24,
+                          resize_bilinear=3, resize_bilinear_t=4, resize_s2d=1,
+                          swin_window_attention=24, swin_window_attention_bwd=12,
+                          shifted_regroup=36),
 }
 
 def fail(msg):
@@ -338,9 +372,10 @@ def burst_ms(fn, n=LSE_BURST):
 
 def print_profile(name, kernels):
     """The 25 largest device rows of a profiled run, and below them the rows
-    of the resize (K4, K5, K4^T) and fused RMSNorm (K11) kernels."""
+    of the resize (K4, K5, K4^T), fused RMSNorm (K11), Swin window attention
+    (K6, K6^T) and regroup (K7) kernels."""
     for i, e in enumerate(kernels):
-        if i < 25 or 'resize' in e.key or 'rms_norm' in e.key:
+        if i < 25 or any(w in e.key for w in ('resize', 'rms_norm', 'swin', 'regroup')):
             print(f'profile: {name} {e.self_device_time_total / 1e3:9.3f} ms '
                   f'{e.count:5d}x {e.key[:100]}', flush=True)
 
@@ -1201,15 +1236,24 @@ def train_kernel_checks():
         c, sn = make_cos_sin(randn(b, s, 9) * 0.3, rope_dim=12, head_dim=D)
         return c[:, :, 0].contiguous(), sn[:, :, 0].contiguous()
 
-    H = 6
-    sites = [  # name, Sq, Sk, masked, dtype of the step there, sites a step
-        ('train_stage1_self', SK, SK, True, torch.bfloat16, 12),
-        ('train_cross', TRAIN_ST, SK, True, torch.float32, 6),
-        ('train_ray_self', TRAIN_ST, TRAIN_ST, False, torch.float32, 6),
+    # name, Sq, Sk, heads, masked, dtype of the step there, sites a step, and
+    # the paths that launch K3 and K1/K2 there, K8, and K9; the swin-large
+    # step's sites are checked in the step's dtype only
+    base = (ROPE_TRAIN, (TRAIN, TRAIN_NERF), (TRAIN2,))
+    swin = ((TRAIN_SWIN,), (TRAIN_SWIN,), ())
+    swin_st = (SWIN_TRAIN_RES // 8) ** 2
+    sites = [
+        ('train_stage1_self', SK, SK, 6, True, torch.bfloat16, 12, base),
+        ('train_cross', TRAIN_ST, SK, 6, True, torch.float32, 6, base),
+        ('train_ray_self', TRAIN_ST, TRAIN_ST, 6, False, torch.float32, 6, base),
+        ('swin_train_stage1_self', SK, SK, SWIN_H, True, torch.bfloat16, 12, swin),
+        ('swin_train_cross', swin_st, SK, SWIN_H, True, torch.float32, 12, swin),
     ]
     for dtype in (torch.bfloat16, torch.float32):
         it = 2 if dtype == torch.bfloat16 else 4
-        for site, sq, sk, masked, step_dtype, n in sites:
+        for site, sq, sk, H, masked, step_dtype, n, (rope_paths, k8_paths, k9_paths) in sites:
+            if rope_paths == (TRAIN_SWIN,) and dtype != step_dtype:
+                continue
             if dtype == step_dtype:
                 print_plan('flash_fwd_rope', site, 1, sq, H, dtype, sk)
                 splits = flash_bwd_splits(dtype, 1, sq, sk, H)
@@ -1221,7 +1265,7 @@ def train_kernel_checks():
                       f'{sk}: {keys} keys a block, {step}, q steps split {splits} ways, '
                       f'{-(-sk // keys) * H * splits} blocks on {sms} SMs', flush=True)
 
-            def per_step(k, paths=ROPE_TRAIN):
+            def per_step(k, paths=rope_paths):
                 return {p: k * n for p in paths} if dtype == step_dtype else {}
             q, do = randn(1, sq, H, D, dtype=dtype), randn(1, sq, H, D, dtype=dtype)
             k, v = randn(1, sk, H, D, dtype=dtype), randn(1, sk, H, D, dtype=dtype)
@@ -1299,7 +1343,7 @@ def train_kernel_checks():
                 # timed one at a time, each against the plain version of its part
                 fused = flash_bwd(*io, 'fused')
                 record_row(rows, 'flash_bwd_mask' if masked else 'flash_bwd_nomask', site, dtype,
-                           per_step(1, (TRAIN, TRAIN_NERF)), fused, ref, tols, why,
+                           per_step(1, k8_paths), fused, ref, tols, why,
                            lambda: flash_bwd(*io, 'fused'), lib_grad(ql, kl, vl),
                            b_in + sq * H * D * it + b_out_kv + b_out_q,
                            10 * H * sq * sk * D, flash_rate(dtype))
@@ -1316,12 +1360,12 @@ def train_kernel_checks():
                   f'{row["library_ms"]:.4f}', flush=True)
             with torch.no_grad():
                 two = flash_bwd(*io, 'twokernel')
-                record_row(rows, 'flash_bwd_dq', site, dtype, per_step(1, (TRAIN2,)), two[0],
+                record_row(rows, 'flash_bwd_dq', site, dtype, per_step(1, k9_paths), two[0],
                            ref[0], tols[0], why, lambda: launch_flash_bwd(lib, 'dq', *io),
                            lib_grad(ql), b_in + b_out_q, 6 * H * sq * sk * D,
                            flash_rate(dtype), plain_fn=lambda: flash_bwd_dq_plain(*io))
                 check_dq(rows[-1], lib, io, (qs, ks, vs, am, gl), site, dtype)
-                record_row(rows, 'flash_bwd_dkv', site, dtype, per_step(1, (TRAIN2,)), two[1:],
+                record_row(rows, 'flash_bwd_dkv', site, dtype, per_step(1, k9_paths), two[1:],
                            ref[1:], tols[1:], why, lambda: launch_flash_bwd(lib, 'dkv', *io),
                            lib_grad(kl, vl), b_in + b_out_kv, 8 * H * sq * sk * D,
                            flash_rate(dtype), plain_fn=lambda: flash_bwd_dkv_plain(*io))
@@ -1330,7 +1374,8 @@ def train_kernel_checks():
             torch.cuda.empty_cache()
 
         # K4 and K5 in the fp32 view stage's DPT head (refinenet4/3/2, refinenet1)
-        view_stage = {p: 1 for p in TRAIN_PATHS} if dtype == torch.float32 else {}
+        view_stage = ({p: 1 for p in (TRAIN, TRAIN2, TRAIN_NERF)} if dtype == torch.float32
+                      else {})
         for n_in in (16, 32, 64):
             check_resize(rows, randn(1, n_in, n_in, DPT_C, dtype=dtype), (2 * n_in, 2 * n_in),
                          view_stage)
@@ -1366,15 +1411,164 @@ def train_kernel_checks():
             ('train_tris_2064', SK, f32, 1e-6, 25, 13)):
         check_rms_norm(rows, randn, site, r, dtype, eps, {TRAIN_NERF: n_fwd},
                        {TRAIN_NERF: n_bwd})
+    swin_train_kernel_checks(rows, randn)
     return rows
 
 
+def check_swin_bwd(rows, randn, site, bw, dtype, shift, per_run):
+    """K6^T on [bw, 64, 1024] windows of 8 heads against its plain version;
+    two launches give the same bits, or the phase fails; timed by single
+    calls and by CUDA graphs of LSE_BURST calls, beside autograd of SDPA
+    with the boolean window mask timed the same way."""
+    import torch
+    import torch.nn.functional as F
+    from renderformer_tpu_torch.nn.swin import swin_attn_mask
+    from renderformer_tpu_torch.ops import reference_kernels
+    from renderformer_tpu_torch.ops.swin_attention import region_table, swin_window_attention_bwd
+    dev = torch.device('cuda')
+    it = 2 if dtype == torch.bfloat16 else 4
+    q, k, v, do = (randn(bw, 64, SWIN_C, dtype=dtype) for _ in range(4))
+    regions = region_table(GRID, GRID, 8, shift, dev) if shift else None
+
+    def fn():
+        return swin_window_attention_bwd(q, k, v, do, num_heads=SWIN_H, regions=regions)
+
+    with torch.no_grad():
+        out, again = fn(), fn()
+        with reference_kernels():
+            ref = fn()
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(out, again)]
+    name = 'shifted' if shift else 'unshifted'
+    dt = str(dtype).split('.')[-1]
+    print(f'swin_bwd: {site}_{name} {dt}: the same bits in two launches (dq, dk, dv): {same}',
+          flush=True)
+    if not all(same):
+        fail(f'swin_window_attention_bwd {site}_{name} {dt}: two launches differ ({same})')
+    if dtype == torch.bfloat16:
+        tols = tuple(8 * 2.0 ** -8 * float(r.float().abs().max()) for r in ref)
+        why = ('P and dS round to bf16 in both; a sum in another order can round dS to its '
+               'neighbour: 8 bf16 ulps of max|ref| per output, as K8\'s')
+    else:
+        tols = tuple(2.0 ** -16 * float(r.float().abs().max()) for r in ref)
+        why = 'fp32 sums in another order: 2^-16 of max|ref| per output, as K6\'s'
+    am = None
+    if shift:
+        am = torch.from_numpy(swin_attn_mask(GRID, GRID, 8, shift)).to(dev)
+        am = am.repeat(bw // NW, 1, 1)[:, None]
+    qh, kh, vh, gh = (t.reshape(bw, 64, SWIN_H, D).transpose(1, 2).contiguous()
+                      for t in (q, k, v, do))
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (qh, kh, vh))
+    yl = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=am)
+    with torch.no_grad():
+        # the bytes: q, k, v and dO read, dq, dk and dv written, and the
+        # region table; five 64x64x128 products a (window, head)
+        record_row(rows, 'swin_window_attention_bwd', f'{site}_{name}', dtype, per_run, out, ref,
+                   tols, why, fn,
+                   lambda: torch.autograd.grad(yl, (ql, kl, vl), gh, retain_graph=True),
+                   7 * bw * 64 * SWIN_C * it + (NW * 64 if shift else 0),
+                   5 * 2 * bw * SWIN_H * 64 * 64 * D,
+                   PEAK_BF16_TENSOR if dtype == torch.bfloat16 else PEAK_FP32)
+        row = rows[-1]
+        row['burst_ms'] = graph_burst_ms(fn)
+    row['library_burst_ms'] = autograd_graph_ms(
+        lambda a, b, c: F.scaled_dot_product_attention(a, b, c, attn_mask=am), (qh, kh, vh), gh)
+    print(f'swin_bwd: {row["site"]} {dt}: single call {row["ms"]:.4f} ms against autograd of '
+          f'SDPA {row["library_ms"]:.4f}; device (graph of {LSE_BURST}) {row["burst_ms"]:.5f} ms '
+          f'a call against {row["library_burst_ms"]:.5f} (bound {row["bound_ms"]:.5f} by '
+          f'{row["bound_by"]}: {row["bound_ms"] / row["burst_ms"]:.3f} of it)', flush=True)
+    del q, k, v, do, out, again, ref, qh, kh, vh, gh, ql, kl, vl, yl
+    torch.cuda.empty_cache()
+
+
+def swin_train_kernel_checks(rows, randn):
+    """The swin-large train step's Swin and DPT kernels at its shapes, fp32
+    (the view stage): K4, K5 and K4^T at 512^2; K7 on the [1, 4096, 1024]
+    stream, and its VJP against the plain inverse regroup, bit for bit; K6
+    on its 64 windows; K6^T there, and in bf16 at the 8-view render's 512
+    windows (view_precision='bfloat16')."""
+    import torch
+    import torch.nn.functional as F
+    from renderformer_tpu_torch.nn.swin import swin_attn_mask
+    from renderformer_tpu_torch.ops import reference_kernels
+    from renderformer_tpu_torch.ops.shifted_regroup import regroup_index, shifted_regroup
+    from renderformer_tpu_torch.ops.swin_attention import region_table, swin_window_attention
+    dev = torch.device('cuda')
+    f32 = torch.float32
+    on_step = {TRAIN_SWIN: 1}
+    for n_in in (32, 64, 128):
+        check_resize(rows, randn(1, n_in, n_in, DPT_C), (2 * n_in, 2 * n_in), on_step)
+    check_resize_s2d(rows, randn(1, SWIN_TRAIN_RES // 2, SWIN_TRAIN_RES // 2, DPT_C),
+                     (SWIN_TRAIN_RES, SWIN_TRAIN_RES), on_step)
+    for n_in, s2d in ((32, False), (64, False), (128, False), (256, True)):
+        check_resize_t(rows, randn(1, 2 * n_in, 2 * n_in, DPT_C), n_in, s2d, on_step)
+    torch.cuda.empty_cache()
+
+    # K7: 6 shifted layers a step, each direction 3 times (forward, remat
+    # recomputation, and as the VJP of the other direction)
+    x = randn(1, ST, SWIN_C)
+    g = randn(1, ST, SWIN_C)
+    for inverse in (False, True):
+        with torch.no_grad():
+            out = shifted_regroup(x, (GRID, GRID), 8, inverse=inverse)
+            with reference_kernels():
+                ref = shifted_regroup(x, (GRID, GRID), 8, inverse=inverse)
+            idx = torch.from_numpy(regroup_index(GRID, GRID, 8, inverse)).to(dev)
+            record_row(rows, 'shifted_regroup', 'swin_train_' + ('inverse' if inverse
+                                                                  else 'forward'),
+                       f32, {TRAIN_SWIN: 18}, out, ref, 0.0, 'a permutation: exact',
+                       lambda: shifted_regroup(x, (GRID, GRID), 8, inverse=inverse),
+                       lambda: x.index_select(1, idx), 2 * ST * SWIN_C * 4, 0, PEAK_FP32)
+        xl = x.detach().clone().requires_grad_(True)
+        gx, = torch.autograd.grad(shifted_regroup(xl, (GRID, GRID), 8, inverse=inverse), xl, g)
+        with torch.no_grad(), reference_kernels():
+            want = shifted_regroup(g, (GRID, GRID), 8, inverse=not inverse)
+        same = torch.equal(gx, want)
+        print(f'regroup: VJP of the {"inverse" if inverse else "forward"} regroup at the '
+              f'swin train step\'s [1, {ST}, {SWIN_C}] fp32 is the plain '
+              f'{"forward" if inverse else "inverse"} regroup bit for bit: {same}', flush=True)
+        if not same:
+            fail(f'shifted_regroup VJP inverse={inverse} differs from the inverse regroup')
+    del x, g, out, ref, xl, gx, want
+
+    # K6 on the step's 64 windows, fp32: 6 layers a shift, twice each (the
+    # forward and the remat recomputation)
+    q, k, v = (randn(NW, 64, SWIN_C) for _ in range(3))
+    qh, kh, vh = (t.reshape(NW, 64, SWIN_H, D).transpose(1, 2).contiguous() for t in (q, k, v))
+    for shift in (0, 4):
+        regions = region_table(GRID, GRID, 8, shift, dev) if shift else None
+        am = (torch.from_numpy(swin_attn_mask(GRID, GRID, 8, shift)).to(dev)[:, None]
+              if shift else None)
+        with torch.no_grad():
+            out = swin_window_attention(q, k, v, num_heads=SWIN_H, regions=regions)
+            with reference_kernels():
+                ref = swin_window_attention(q, k, v, num_heads=SWIN_H, regions=regions)
+            tol, why = attention_tol(ref, f32, 'sums of e and P.V in another order')
+            record_row(rows, 'swin_window_attention',
+                       'swin_train_' + ('shifted' if shift else 'unshifted'), f32,
+                       {TRAIN_SWIN: 12}, out, ref, tol, why,
+                       lambda: swin_window_attention(q, k, v, num_heads=SWIN_H,
+                                                     regions=regions),
+                       lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am),
+                       4 * NW * 64 * SWIN_C * 4 + (NW * 64 if shift else 0),
+                       4 * NW * SWIN_H * 64 * 64 * D, PEAK_FP32)
+    del q, k, v, qh, kh, vh, out, ref
+    torch.cuda.empty_cache()
+
+    # K6^T: once a layer, 6 layers a shift, fp32 at the step's 64 windows;
+    # bf16 at the 8-view render's 512 windows, launched by no path here
+    for shift in (0, 4):
+        check_swin_bwd(rows, randn, 'swin_train', NW, f32, shift, {TRAIN_SWIN: 6})
+    for shift in (0, 4):
+        check_swin_bwd(rows, randn, 'swin_8views', V * NW, torch.bfloat16, shift, {})
+
+
 # ---------------------------------------------------------------------------
-# phase 7: the v1-base train step
+# phase 7: the train steps
 # ---------------------------------------------------------------------------
 
-def train_batch(device):
-    """tools/train_step_bench.py's batch, made from numpy seed 0."""
+def train_batch(device, res=TRAIN_RES):
+    """tools/train_step_bench.py's batch at res^2, made from numpy seed 0."""
     import torch
     rng = np.random.default_rng(0)
     b = {'triangles': rng.normal(size=(1, NTRI, 3, 3)).astype(np.float32) * 0.3,
@@ -1383,7 +1577,7 @@ def train_batch(device):
          'vn': rng.normal(size=(1, NTRI, 3, 3)).astype(np.float32),
          'c2w': np.tile(np.eye(4, dtype=np.float32), (1, 1, 1, 1)),
          'fov': np.full((1, 1, 1), 40.0, np.float32),
-         'gt': rng.uniform(0, 1, (1, 1, TRAIN_RES, TRAIN_RES, 3)).astype(np.float32)}
+         'gt': rng.uniform(0, 1, (1, 1, res, res, 3)).astype(np.float32)}
     return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
 
@@ -1481,10 +1675,10 @@ def check_finite(name, losses):
         fail(f'train: {name} non-finite loss or grad norm')
 
 
-def step_speed(card, name, step, state, batch, agree):
-    """The median step of TRAIN_STEPS after a warm-up, trained rays/s, peak
-    memory and the device's idle share from one profiled step; printed, with
-    the agreement measures, as one 'train' JSON line."""
+def step_speed(card, name, step, state, batch, agree, res=TRAIN_RES):
+    """The median step of TRAIN_STEPS after a warm-up, trained rays/s (res^2
+    a step), peak memory and the device's idle share from one profiled step;
+    printed, with the agreement measures, as one 'train' JSON line."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -1498,8 +1692,8 @@ def step_speed(card, name, step, state, batch, agree):
     med = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f'train: {name} step {med * 1e3:.2f} ms median of {len(times)} '
-          f'({[round(x * 1e3, 2) for x in times]} ms), {TRAIN_RES ** 2 / med:.1f} trained '
-          f'rays/s, peak memory {peak:.2f} GiB, on {card}', flush=True)
+          f'({[round(x * 1e3, 2) for x in times]} ms), {res ** 2 / med:.1f} trained '
+          f'rays/s at {res}^2, peak memory {peak:.2f} GiB, on {card}', flush=True)
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1524,9 +1718,58 @@ def step_speed(card, name, step, state, batch, agree):
           f'({1 - dev_ms / (wall * 1e3):.3f} of the {wall * 1e3:.2f} ms profiled step)',
           flush=True)
     print('train ' + json.dumps({'path': name, 'step_ms': med * 1e3,
-                                 'rays_per_s': TRAIN_RES ** 2 / med, 'peak_gib': peak,
+                                 'rays_per_s': res ** 2 / med, 'peak_gib': peak,
                                  'device_ms': dev_ms, 'idle_share': 1 - dev_ms / (med * 1e3),
                                  **agree}), flush=True)
+
+
+def deterministic_check(name, model, tx, state, batch, tc):
+    """Two steps of ``tc`` with deterministic=True (and flash_bwd left to it:
+    the two-kernel backward) from the same state and batch: the loss, every
+    gradient and every updated parameter the same bits, or the phase fails.
+    The state is put back as it was."""
+    import torch
+    from renderformer_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from renderformer_tpu_torch.training import state as ts
+    tcd = dataclasses.replace(tc, flash_bwd='', deterministic=True)
+    grads = ts.make_loss_fns(model, tcd)[1]
+    reset_launch_counts()
+    (l1, g1), (l2, g2) = grads(state, batch), grads(state, batch)
+    torch.cuda.synchronize()
+    k8, k9 = LAUNCHES['flash_bwd_mask'] + LAUNCHES['flash_bwd_nomask'], LAUNCHES['flash_bwd_dq']
+    same_grads = bool(torch.equal(l1, l2)) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+    del g1, g2
+    # what a step updates in place: the masters, AdamW's moments, the RoPE
+    # base frequencies it decays, and the counters
+    params = list(model.parameters())
+    moved = params + [t for k in ('mu', 'nu') for t in state.opt_state[k].values()] + list(
+        ts.decayed_buffers(model).values())
+    snap = [t.detach().clone() for t in moved], state.opt_state['count'], state.step
+
+    def restore():
+        with torch.no_grad():
+            torch._foreach_copy_(moved, snap[0])
+        state.opt_state['count'], state.step = snap[1], snap[2]
+
+    step = ts.make_train_step(model, tx, tcd)[0]
+    _, m1 = step(state, batch)
+    after = [p.detach().clone() for p in params]
+    restore()
+    _, m2 = step(state, batch)
+    torch.cuda.synchronize()
+    same_params = all(torch.equal(a, p) for a, p in zip(after, params))
+    restore()
+    del after, snap
+    torch.cuda.empty_cache()
+    print(f'train: {name} deterministic=True: two loss-and-gradient passes ({k8} K8 and {k9} K9 '
+          f'dQ launches) give the same bits of the loss ({float(l1):.7f}) and all '
+          f'{len(params)} gradients: {same_grads}; two steps from the same state give the '
+          f'same loss and grad norm ({m1} vs {m2}) and the same bits of every updated '
+          f'parameter: {same_params}', flush=True)
+    if k8 or not k9:
+        fail(f'{name} deterministic=True ran K8 ({k8} launches) or no K9 ({k9})')
+    if not (same_grads and same_params and m1 == m2):
+        fail(f'{name} deterministic=True: two runs differ')
 
 
 def train_checks(card):
@@ -1583,6 +1826,7 @@ def train_checks(card):
     step_speed(card, 'v1-base', step, state, batch, agree)
     step2 = ts.make_train_step(model, tx, tcs['twokernel'])[0]
     step_speed(card, 'v1-base twokernel', step2, state, batch, agree)
+    deterministic_check('v1-base', model, tx, state, batch, tcs['fused'])
     del state, model, step, step2
     torch.cuda.empty_cache()
     return launches
@@ -1624,6 +1868,47 @@ def train_nerf_checks(card):
     del state, model, step
     torch.cuda.empty_cache()
     return {TRAIN_NERF: launches}
+
+
+def train_swin_checks(card):
+    """Phase 7 for v1.1-swin-large at 512^2 with the fused backward; returns
+    the launch counts of one step."""
+    import torch
+    from renderformer_tpu_torch.config import PRESETS
+    from renderformer_tpu_torch.ops import reference_kernels
+    from renderformer_tpu_torch.training import state as ts
+
+    t0 = time.time()
+    batch = train_batch('cuda', SWIN_TRAIN_RES)
+    tc = ts.TrainConfig(precision='bfloat16', resolution=SWIN_TRAIN_RES, steps_per_epoch=100,
+                        remat=True, flash_bwd='fused')
+    model, tx, state = seeded_train_state(PRESETS[SWIN], tc)
+    print(f'train: v1.1-swin-large seeded init, {sum(p.numel() for p in model.parameters())} '
+          f'parameters; dtypes {ts.resolve_dtypes(tc)}, remat, {SWIN_TRAIN_RES}^2, 1 view, '
+          f'{NTRI} tris, fused backward ({time.time() - t0:.1f} s)', flush=True)
+    names = [n for n, _ in model.named_parameters()]
+    grads = ts.make_loss_fns(model, tc)[1]
+    with reference_kernels():
+        plain = grads(state, batch)
+    agree = {'swin_vs_plain': grad_agreement('swin-large kernels vs plain', grads(state, batch),
+                                             plain, names)}
+    if not within_bars(agree['swin_vs_plain']):
+        fail(f'train swin-large: {agree["swin_vs_plain"]} past the bars {AGREE_BARS}')
+    del plain
+    torch.cuda.empty_cache()
+
+    step = ts.make_train_step(model, tx, tc)[0]
+    state, m, launches = step_launches(TRAIN_SWIN, step, state, batch)
+    losses = [m]
+    for _ in range(2):
+        state, m = step(state, batch)
+        losses.append(m)
+    check_finite('v1.1-swin-large', losses)
+    step_speed(card, 'v1.1-swin-large', step, state, batch, agree, SWIN_TRAIN_RES)
+    deterministic_check('v1.1-swin-large', model, tx, state, batch, tc)
+    del state, model, step
+    torch.cuda.empty_cache()
+    return {TRAIN_SWIN: launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1873,6 +2158,7 @@ def main():
     rows += train_kernel_checks()
     launches.update(train_checks(card))
     launches.update(train_nerf_checks(card))
+    launches.update(train_swin_checks(card))
     entry_point_checks(card)
     for name in KERNELS:
         if not any(launches[p][name] for p in ALL_PATHS):

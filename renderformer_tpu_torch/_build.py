@@ -73,6 +73,9 @@ SIGNATURES = {
     'rf_shifted_regroup': [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, regions, out, dtype, has_mask, BW, nW, H, qscale, stream
     'rf_swin_window_attention': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, dout, regions, dq, dk, dv, dtype, has_mask, BW, nW, H, qscale, stream
+    'rf_swin_window_attention_bwd': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _F, _P],
     # x, scale, y, dtype, scale dtype, R, D, eps, stream
     'rf_rms_norm_fwd': [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     # x, scale, g, dx, ds, ds_part, ticket slot, dtype, scale dtype, R, D,

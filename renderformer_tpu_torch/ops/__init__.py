@@ -28,6 +28,7 @@ LAUNCHES = {
     'resize_bilinear_t': 0,
     'resize_s2d': 0,
     'swin_window_attention': 0,
+    'swin_window_attention_bwd': 0,
     'shifted_regroup': 0,
     'rms_norm_fwd': 0,
     'rms_norm_bwd': 0,
@@ -63,17 +64,11 @@ def use_plain(t: torch.Tensor) -> bool:
     raise ValueError(f'no kernel for device {t.device}')
 
 
-SWIN_NO_GRAD = ('Swin training is not ported yet: window attention and the shifted '
-                'regroup are forward-only; call under torch.no_grad() or '
-                'torch.inference_mode()')
-
-
-def check_no_grad(*tensors, why: str = SWIN_NO_GRAD) -> None:
+def check_no_grad(*tensors, why: str) -> None:
     """Refuse inputs that autograd tracks, for a wrapper whose result would
-    be cut off from the graph: window attention (K6) and the shifted regroup
-    (K7), which have no backward yet, and the raw forward kernels that
-    ``flash_attention_rope``, ``flash_attention`` and ``fused_rms_norm``
-    differentiate.  ``why`` is the error message."""
+    be cut off from the graph: the raw forward kernels that
+    ``flash_attention_rope`` and ``flash_attention`` differentiate.
+    ``why`` is the error message."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(why)

@@ -17,6 +17,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from renderformer_tpu_torch import _build
 from renderformer_tpu_torch.ops import LAUNCHES, use_plain
@@ -89,14 +90,53 @@ def _device_adjoint_taps(n_in: int, n_out: int, device: torch.device):
         return torch.from_numpy(span).to(device), torch.from_numpy(w).to(device)
 
 
-def resize_axis(x, axis: int, n_out: int):
-    """Resize one axis of ``x`` to ``n_out`` (align_corners=True), in x's
-    dtype."""
+def _lerp_axis(x, axis: int, n_out: int):
     i0, i1, frac = _device_taps(x.shape[axis], n_out, x.device, x.dtype)
     shape = [1] * x.dim()
     shape[axis] = n_out
     f = frac.reshape(shape)
     return x.index_select(axis, i0) * (1 - f) + x.index_select(axis, i1) * f
+
+
+@functools.lru_cache(maxsize=128)
+def _device_adjoint(n_in: int, n_out: int, device: torch.device, dtype: torch.dtype):
+    """[n_in, n_out] fp32 transpose of the resize's matrix with the weights
+    1 - f and f that the lerp takes in ``dtype``, on ``device``."""
+    i0, i1, frac = interp_gather(n_in, n_out)
+    f = torch.from_numpy(frac).to(dtype)
+    m = torch.zeros(n_in, n_out)
+    rows = torch.arange(n_out)
+    m.index_put_((torch.from_numpy(i0), rows), (1 - f).float(), accumulate=True)
+    m.index_put_((torch.from_numpy(i1), rows), f.float(), accumulate=True)
+    with torch.inference_mode(False):  # cached: usable later under autograd
+        return m.to(device)
+
+
+class _ResizeAxis(torch.autograd.Function):
+    """The lerp of one axis; its VJP is one product with the transposed
+    resize matrix, where index_select's VJP would add the terms of a
+    repeated index by atomics, in a run-dependent order on the card."""
+
+    @staticmethod
+    def forward(ctx, x, axis, n_out):
+        ctx.axis, ctx.n_in, ctx.dtype = axis, x.shape[axis], x.dtype
+        return _lerp_axis(x, axis, n_out)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        m = _device_adjoint(ctx.n_in, g.shape[ctx.axis], g.device, ctx.dtype)
+        gx = torch.matmul(m, g.movedim(ctx.axis, -2).float()).movedim(-2, ctx.axis)
+        return gx.to(g.dtype), None, None
+
+
+def resize_axis(x, axis: int, n_out: int):
+    """Resize one axis of ``x`` to ``n_out`` (align_corners=True), in x's
+    dtype; differentiable, with the same VJP on every run."""
+    axis = axis % x.dim()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ResizeAxis.apply(x, axis, n_out)
+    return _lerp_axis(x, axis, n_out)
 
 
 def resize_bilinear_plain(x, out_hw: Tuple[int, int]):

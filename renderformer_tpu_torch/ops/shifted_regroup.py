@@ -11,7 +11,8 @@ four quadrant blocks of four source windows:
 with s = ws/2 and ``tbl`` from :func:`window_table`; the inverse uses the
 inverse table.  The CUDA source is ``csrc/shifted_regroup.cu``.  The plain
 version is the slice/roll/concat of :func:`renderformer_tpu_torch.nn.swin.
-shifted_regroup`.
+shifted_regroup`.  The regroup is a permutation, so its VJP is the inverse
+regroup: K7 again with ``inverse`` flipped.
 """
 
 from __future__ import annotations
@@ -21,11 +22,11 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from renderformer_tpu_torch import _build
 from renderformer_tpu_torch.nn.swin import shifted_regroup as shifted_regroup_plain
-from renderformer_tpu_torch.ops import (
-    LAUNCHES, check_cuda_tensor, check_no_grad, use_plain)
+from renderformer_tpu_torch.ops import LAUNCHES, check_cuda_tensor, use_plain
 
 
 @functools.lru_cache(maxsize=64)
@@ -69,21 +70,10 @@ def regroup_kernel_applicable(seq: int, grid_hw: Tuple[int, int], ws: int,
             and seq == h * w)
 
 
-def shifted_regroup(x, grid_hw: Tuple[int, int], ws: int, inverse: bool = False):
-    """x [B, S, C] in unshifted-window order (shifted order when
-    ``inverse``) -> the other order; the shift is ws // 2."""
-    if x.dim() != 3:
-        raise ValueError('x must be [B, S, C]')
-    b, seq, c = x.shape
-    h, w = int(grid_hw[0]), int(grid_hw[1])
-    if not regroup_kernel_applicable(seq, (h, w), ws, ws // 2):
-        raise ValueError(f'regroup takes a {h}x{w} grid of whole {ws}x{ws} windows '
-                         f'with S = h*w, got S={seq}')
-    if not x.is_contiguous():
-        raise ValueError('x: expected a contiguous tensor')
-    check_no_grad(x)
+def _regroup(x, h: int, w: int, ws: int, inverse: bool):
     if use_plain(x):
         return shifted_regroup_plain(x, h, w, ws, ws // 2, inverse)
+    b, seq, c = x.shape
     if (c * x.element_size()) % 16:
         raise ValueError(f'regroup kernel needs C*itemsize % 16 == 0, got C={c}')
     check_cuda_tensor('x', x, x.dtype, (b, seq, c))
@@ -96,3 +86,36 @@ def shifted_regroup(x, grid_hw: Tuple[int, int], ws: int, inverse: bool = False)
     _build.check(rc, 'rf_shifted_regroup')
     LAUNCHES['shifted_regroup'] += 1
     return out
+
+
+class _ShiftedRegroup(torch.autograd.Function):
+    """The regroup, and as its VJP the inverse regroup of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, h, w, ws, inverse):
+        ctx.args = (h, w, ws, inverse)
+        return _regroup(x, h, w, ws, inverse)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        h, w, ws, inverse = ctx.args
+        return _regroup(g.contiguous(), h, w, ws, not inverse), None, None, None, None
+
+
+def shifted_regroup(x, grid_hw: Tuple[int, int], ws: int, inverse: bool = False):
+    """x [B, S, C] in unshifted-window order (shifted order when
+    ``inverse``) -> the other order; the shift is ws // 2.  Differentiable
+    in x."""
+    if x.dim() != 3:
+        raise ValueError('x must be [B, S, C]')
+    seq = x.shape[1]
+    h, w = int(grid_hw[0]), int(grid_hw[1])
+    if not regroup_kernel_applicable(seq, (h, w), ws, ws // 2):
+        raise ValueError(f'regroup takes a {h}x{w} grid of whole {ws}x{ws} windows '
+                         f'with S = h*w, got S={seq}')
+    if not x.is_contiguous():
+        raise ValueError('x: expected a contiguous tensor')
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ShiftedRegroup.apply(x, h, w, ws, bool(inverse))
+    return _regroup(x, h, w, ws, bool(inverse))

@@ -20,10 +20,20 @@ the gradients reach the masters; with ``bf16_shadow_params`` it instead
 differentiates a copy kept in the compute dtypes and casts the gradients.
 Updates run in place on the masters, the optimizer moments and the shadow:
 no second copy of the 205M parameters is made.
+
+``TrainConfig.deterministic`` makes a step give the same bits on every run
+on one card: the attention backward runs K9 (``'twokernel'``, no atomics)
+in place of K8, whose dQ sums by atomics, and cuDNN takes deterministic
+algorithms for the DPT convs (its default input gradient sums in a
+run-dependent order).  The rest of the step gives the same bits anyway:
+the hand-written kernels write each output once in a fixed order, and the
+DPT tail's border lerp has a VJP by one matrix product
+(``ops/fused_resize.py:resize_axis``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import math
@@ -58,8 +68,9 @@ class TrainConfig:
     seed: int = 0              # dropout seed of the JAX package (dropout is not ported)
     skip_nonfinite: bool = True
     debug_nans: bool = False       # not ported
-    deterministic: bool = False    # not ported; 'twokernel' gives a deterministic attention
-    flash_bwd: str = 'fused'   # attention backward: K8 'fused' or K9 'twokernel'
+    deterministic: bool = False    # the same bits every run: K9 and deterministic cuDNN
+    flash_bwd: str = ''        # attention backward: K8 'fused' or K9 'twokernel';
+    #                            '' -> 'fused', or 'twokernel' under deterministic
     fused_norm: bool = False   # RMSNorms through K11 (forward and backward) where the gate passes
 
 
@@ -255,14 +266,43 @@ class _RenderStep(nn.Module):
                          resolution=self.resolution)
 
 
+def flash_bwd_variant(tc: TrainConfig) -> str:
+    """The attention backward a step of ``tc`` runs: ``tc.flash_bwd``, or
+    when it is empty K8 (``'fused'``), K9 (``'twokernel'``) under
+    ``deterministic``.  Raises for a name that is neither, and for
+    ``'fused'`` under ``deterministic``: K8 sums dQ by atomics."""
+    if tc.flash_bwd and tc.flash_bwd not in BWD_VARIANTS:
+        raise ValueError(f'flash_bwd {tc.flash_bwd!r} is not one of {BWD_VARIANTS}')
+    if tc.deterministic:
+        if tc.flash_bwd == 'fused':
+            raise ValueError("deterministic=True takes flash_bwd='twokernel' (or ''): the "
+                             "fused backward K8 sums dQ by atomics in a run-dependent order")
+        return 'twokernel'
+    return tc.flash_bwd or 'fused'
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(on: bool):
+    """cuDNN's deterministic algorithms, and no benchmarking, inside the
+    block when ``on``; the flags as they were after it."""
+    if not on:
+        yield
+        return
+    flags = torch.backends.cudnn
+    prev = flags.deterministic, flags.benchmark
+    flags.deterministic, flags.benchmark = True, False
+    try:
+        yield
+    finally:
+        flags.deterministic, flags.benchmark = prev
+
+
 def _check_trainable(model: nn.Module, tc: TrainConfig) -> None:
     if model.config.dropout > 0.0:
         raise NotImplementedError('dropout is not ported: a config with dropout > 0 would '
                                   'train a different function from the JAX package')
-    if tc.debug_nans or tc.deterministic:
-        raise NotImplementedError('TrainConfig.debug_nans and .deterministic are not ported')
-    if tc.flash_bwd not in BWD_VARIANTS:
-        raise ValueError(f'flash_bwd {tc.flash_bwd!r} is not one of {BWD_VARIANTS}')
+    if tc.debug_nans:
+        raise NotImplementedError('TrainConfig.debug_nans is not ported')
 
 
 def make_loss_fns(model: nn.Module, tc: TrainConfig):
@@ -271,6 +311,7 @@ def make_loss_fns(model: nn.Module, tc: TrainConfig):
     and ``loss_and_grads(state, batch) -> (loss, grads)``: the MSE loss and
     its fp32 gradients in the order of ``state.model.parameters()``."""
     _check_trainable(model, tc)
+    variant = flash_bwd_variant(tc)
     dtype, view_dtype = resolve_dtypes(tc)
     use_shadow = _uses_shadow(tc)
     step_module = _RenderStep(model, tc.resolution)
@@ -289,7 +330,7 @@ def make_loss_fns(model: nn.Module, tc: TrainConfig):
         return functional_call(step_module, cast, (batch,))
 
     def loss_and_grads(state: TrainState, batch):
-        with flash_backward(tc.flash_bwd):
+        with flash_backward(variant), cudnn_deterministic(tc.deterministic):
             imgs = images(state, batch)
             loss = torch.mean(torch.square(imgs - batch['gt'].to(imgs.dtype)))
             wrt = list((state.shadow if use_shadow else state.model).parameters())

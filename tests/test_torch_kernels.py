@@ -1,6 +1,7 @@
 """Kernels K3 (the K broadcast-rotate), K4 (the bilinear resize, bit for
 bit at its sites and edges), K5 (resize into space-to-depth layout), K6
-(Swin window attention), K7 (shifted-window regroup), the forward's
+(Swin window attention) and its backward K6^T (deterministic), K7
+(shifted-window regroup) and its VJP, the forward's
 logsumexp (K1/K2), the flash backward (K8, K9; the bf16 kernel at its tile
 edges; K9's dQ kernel at the train step's sites, its tile edges and view
 fan-outs, one deterministic launch a call and in a CUDA graph), the
@@ -9,7 +10,8 @@ and one kernel in K5's backward), the flash forward without RoPE (K10), the
 fp32 flash forward's key splits and tile edges, and the fused RMSNorm (K11;
 its backward also at the nerf train step's sites, call to call and in a
 CUDA graph) against their plain versions on a CUDA card, at small sizes,
-and one tiny-config train step through them.  They skip without one.  This
+one tiny-config train step through them, and a tiny Swin train step under
+``deterministic=True``, the same bits in two runs.  They skip without one.  This
 file imports no JAX, so on a machine with a card and no JAX it runs alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -28,7 +30,8 @@ from renderformer_tpu_torch.ops.fused_resize import (
     resize_bilinear, resize_bilinear_plain, resize_bilinear_t, resize_s2d, resize_s2d_t)
 from renderformer_tpu_torch.ops.s2d_conv import depth_to_space, space_to_depth
 from renderformer_tpu_torch.ops.shifted_regroup import shifted_regroup
-from renderformer_tpu_torch.ops.swin_attention import region_table, swin_window_attention
+from renderformer_tpu_torch.ops.swin_attention import (
+    region_table, swin_window_attention, swin_window_attention_bwd)
 
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -252,6 +255,57 @@ def test_swin_kernel_matches_plain(cuda, dtype, shift):
     # fp32: summation order, 2^-16 of max|ref|
     tol = amax * (4 * 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -16)
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shift', [0, 4])
+def test_swin_bwd_kernel_matches_plain(cuda, dtype, shift):
+    """K6^T against its plain version, the same bits in two launches, and
+    the gradient that autograd of K6 takes."""
+    h, w, b, c = 16, 24, 2, 256           # 6 windows a view, 2 heads of 128
+    bw = b * (h // 8) * (w // 8)
+    q, k, v, do = (_randn((bw, 64, c), dtype, cuda, seed=i) for i in range(4))
+    regions = region_table(h, w, 8, shift, cuda) if shift else None
+
+    def bwd():
+        return swin_window_attention_bwd(q, k, v, do, num_heads=2, regions=regions)
+
+    got, want, launched = _both(bwd)
+    assert launched == {'swin_window_attention_bwd': 1}
+    for g, r in zip(got, want):
+        amax = float(r.float().abs().max())
+        # bf16: P and dS round in both, a sum in another order can round dS
+        # to its neighbour: 8 ulps of max|ref|, as K8's; fp32: summation
+        # order, 2^-16 of max|ref|
+        tol = amax * (8 * 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -16)
+        assert float((g.float() - r.float()).abs().max()) <= tol
+    with torch.no_grad():
+        again = bwd()
+    assert all(torch.equal(a, g) for a, g in zip(again, got))  # no atomics
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(LAUNCHES)
+    out = swin_window_attention(*leaves, num_heads=2, regions=regions)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert {n: LAUNCHES[n] - before[n] for n in LAUNCHES if LAUNCHES[n] != before[n]} == {
+        'swin_window_attention': 1, 'swin_window_attention_bwd': 1}
+    assert all(torch.equal(a, g) for a, g in zip(grads, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('inverse', [False, True])
+def test_regroup_vjp_is_the_inverse_regroup(cuda, dtype, inverse):
+    x = _randn((2, 32 * 16, 256), dtype, cuda).requires_grad_(True)
+    g = _randn((2, 32 * 16, 256), dtype, cuda, seed=1)
+    before = LAUNCHES['shifted_regroup']
+    gx, = torch.autograd.grad(shifted_regroup(x, (32, 16), 8, inverse=inverse), x, g)
+    torch.cuda.synchronize()
+    assert LAUNCHES['shifted_regroup'] == before + 2  # the regroup and its VJP
+    with torch.no_grad(), reference_kernels():
+        want = shifted_regroup(g, (32, 16), 8, inverse=not inverse)
+    assert torch.equal(gx, want)  # a permutation
 
 
 def _tables(b, s, dev, seed):
@@ -824,3 +878,61 @@ def test_tiny_train_step_on_the_card(cuda):
             # bf16 stage 1: the kernels and the plain versions round at other points
             assert got['loss'] == pytest.approx(want['loss'], rel=1e-2)
             assert got['grad_norm'] == pytest.approx(want['grad_norm'], rel=5e-2)
+
+
+@pytest.mark.cuda
+def test_tiny_swin_train_step_is_deterministic(cuda):
+    """A tiny Swin model (head dim 128, a 16x16 grid of 2x2 windows) under
+    deterministic=True: K6, K6^T, K7 and K9 launch, two steps from the same
+    state give the same bits, and the step is the plain versions' step."""
+    from renderformer_tpu_torch import RenderFormerConfig
+    from renderformer_tpu_torch.models.renderformer import RenderFormer
+    from renderformer_tpu_torch.nn.core import init_weights
+    from renderformer_tpu_torch.training import state as ts
+
+    cfg = RenderFormerConfig(latent_dim=256, num_layers=2, num_heads=2, dim_feedforward=256,
+                             num_register_tokens=4, view_transformer_latent_dim=256,
+                             view_transformer_ffn_hidden_dim=256, view_transformer_n_heads=2,
+                             view_transformer_n_layers=4, view_transformer_use_swin_attn=True,
+                             dpt_features=128, dpt_out_channels=[32, 64, 128, 128])
+    rng = np.random.default_rng(0)
+    n, res = 40, 128
+    batch = {'triangles': rng.normal(size=(1, n, 3, 3)).astype(np.float32) * 0.3,
+             'texture': rng.uniform(0, 1, (1, n, 13, 32, 32)).astype(np.float32),
+             'mask': np.ones((1, n), bool), 'vn': rng.normal(size=(1, n, 3, 3)).astype(
+                 np.float32),
+             'c2w': np.tile(np.eye(4, dtype=np.float32), (1, 1, 1, 1)),
+             'fov': np.full((1, 1, 1), 40.0, np.float32),
+             'gt': rng.uniform(0, 1, (1, 1, res, res, 3)).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}
+    tc = ts.TrainConfig(resolution=res, learning_rate=1e-4, remat=True, deterministic=True)
+    runs = []
+    for plain in (False, False, True):
+        model = init_weights(RenderFormer(cfg), torch.Generator().manual_seed(0)).to(cuda)
+        tx = ts.make_optimizer(tc)
+        state = ts.TrainState.create(model, tx, tc)
+        step, _ = ts.make_train_step(model, tx, tc)
+        before = dict(LAUNCHES)
+        if plain:
+            with reference_kernels():
+                metrics = step(state, batch)[1]
+        else:
+            metrics = step(state, batch)[1]
+        torch.cuda.synchronize()
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES if LAUNCHES[k] != before[k]}
+        if not plain:
+            # 4 decoder layers, 2 of them shifted: K6 twice a layer (the
+            # forward and the remat recomputation), K6^T once; K7 twice a
+            # shifted layer in the forward, again recomputed, again as its
+            # VJP; K9 at the 2 encoder and 4 decoder attention sites
+            assert launched['swin_window_attention'] == 8
+            assert launched['swin_window_attention_bwd'] == 4
+            assert launched['shifted_regroup'] == 12
+            assert launched['flash_bwd_dq'] == 6 and 'flash_bwd_mask' not in launched
+        runs.append((metrics, [p.detach().clone() for p in model.parameters()]))
+    (m0, p0), (m1, p1), (mp, _) = runs
+    assert m0 == m1 and all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert np.isfinite(m0['loss']) and np.isfinite(m0['grad_norm'])
+    # bf16 stage 1: the kernels and the plain versions round at other points
+    assert m0['loss'] == pytest.approx(mp['loss'], rel=1e-2)
+    assert m0['grad_norm'] == pytest.approx(mp['grad_norm'], rel=5e-2)

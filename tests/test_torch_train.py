@@ -319,13 +319,14 @@ def test_unported_training_options_raise():
     tc = tstate.TrainConfig(**FP32)
     with pytest.raises(NotImplementedError, match='dropout'):
         tstate.make_train_step(model, tstate.make_optimizer(tc), tc)
-    for bad in ({'deterministic': True}, {'debug_nans': True}):
-        tcb = tstate.TrainConfig(**FP32, **bad)
-        with pytest.raises(NotImplementedError):
-            tstate.make_train_step(_model(), tstate.make_optimizer(tcb), tcb)
-    tcb = tstate.TrainConfig(**FP32, flash_bwd='atomic')
-    with pytest.raises(ValueError):
+    tcb = tstate.TrainConfig(**FP32, debug_nans=True)
+    with pytest.raises(NotImplementedError):
         tstate.make_train_step(_model(), tstate.make_optimizer(tcb), tcb)
+    # an unknown backward, and K8 (dQ by atomics) under deterministic
+    for bad in ({'flash_bwd': 'atomic'}, {'flash_bwd': 'fused', 'deterministic': True}):
+        tcb = tstate.TrainConfig(**FP32, **bad)
+        with pytest.raises(ValueError):
+            tstate.make_train_step(_model(), tstate.make_optimizer(tcb), tcb)
 
 
 def test_twokernel_backward_is_the_same_step_on_cpu():
