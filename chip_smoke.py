@@ -10,8 +10,9 @@ Phases, each printing its own lines:
      cuobjdump finds in the bf16 flash forward's kernels (K1/K2, K10) and
      the bf16 flash backward's (K8, K9's dK/dV, K9's dQ), which must both be
      non-zero, and the TF32 tensor-core instructions (HMMA .TF32) of the
-     fp32 flash forward and of the fp32 dK/dV and dQ kernels of the flash
-     backward (K8, K9's dK/dV, K9's dQ), which must be non-zero, with the
+     fp32 flash forward, of the fp32 dK/dV and dQ kernels of the flash
+     backward (K8, K9's dK/dV, K9's dQ) and of the fp32 Swin window
+     attention and its backward (K6, K6^T), which must be non-zero, with the
      backward's and the fp32 kernels' spills and registers, and those of
      K11's backward and K5;
   3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -58,7 +59,8 @@ Phases, each printing its own lines:
      dtypes, timed as in phase 3, and the flash forward's tile edges of
      phase 3 with the logsumexp; then the v1.1-swin-large train step's
      shapes in the dtypes it runs them: K3, K1 with the logsumexp and K8 at
-     its 8-head sites, K4, K5 and K4^T at 512^2, K6 and K7 in fp32, K7's VJP
+     its 8-head sites, K4, K5 and K4^T at 512^2, K6 (also by CUDA graphs of
+     calls beside SDPA's) and K7 in fp32, K7's VJP
      (bit for bit the inverse regroup), and K6's backward (K6^T) in fp32 at
      the step's 64 windows and in bf16 at the 8-view render's 512, shifted
      and unshifted, the same bits in two launches, by single calls and CUDA
@@ -150,6 +152,9 @@ LSE_BURST = 20                     # launches per timing of the logsumexp A/B
 
 BWD_SOURCES = ['renderformer_tpu_torch/csrc/flash_bwd_sm90.cu',
                'renderformer_tpu_torch/csrc/flash_bwd.cu']
+# K6 and K6^T: bf16 in their own files, fp32 in one file of both
+SWIN_SOURCES = ['renderformer_tpu_torch/csrc/swin_attention.cu',
+                'renderformer_tpu_torch/csrc/swin_attention_f32.cu']
 KERNELS = {
     'flash_fwd_rope_mask': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/flash_fwd_sm90.cu',
@@ -187,11 +192,12 @@ KERNELS = {
         replaces='renderformer_tpu/ops/fused_resize.py:229'),
     'swin_window_attention': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/swin_attention.cu',
-        replaces='renderformer_tpu/ops/swin_attention.py:72'),
+        sources=SWIN_SOURCES, replaces='renderformer_tpu/ops/swin_attention.py:72'),
     # K6^T: the TPU package takes this VJP in XLA (_swin_op_bwd, the VJP of
     # the jnp _ref_paired); no Pallas kernel there
     'swin_window_attention_bwd': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/swin_attention_bwd.cu',
+        sources=['renderformer_tpu_torch/csrc/swin_attention_bwd.cu', SWIN_SOURCES[1]],
         replaces='renderformer_tpu/ops/swin_attention.py:168'),
     # K7 forward and inverse, and as its own VJP (the inverse of the direction
     # it undoes): one kernel, one count
@@ -408,8 +414,8 @@ def record_row(rows, kernel, site, dtype, per_run, out, ref, tol, why, fn, lib_f
                max_abs_err=max(errs), errs=errs, tol=list(tols), tol_reason=why, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
     if flop_rate == SPLIT_TF32:
-        # the fp32 flash forward: its bound as split TF32 on the tensor cores,
-        # and beside it the bound of the same flops as scalar fp32 FMAs
+        # an fp32 attention kernel: its bound as split TF32 on the tensor
+        # cores, and beside it the bound of the same flops as scalar fp32 FMAs
         row['bound_simt_ms'] = bound_ms(nbytes, flops, PEAK_FP32)[0]
     row['bound_share'] = bms / ms
     print('kernel ' + json.dumps(row), flush=True)
@@ -597,6 +603,8 @@ SASS_F32_KERNEL = 'flash_fwd_f32_kernel'
 SASS_BWD_KERNEL = 'flash_bwd_kv_kernel'
 SASS_BWD_BF16_KERNEL = 'flash_bwd_sm90_kernel'
 SASS_DQ_KERNEL = 'flash_bwd_dq_f32_kernel'
+SASS_SWIN_F32_KERNEL = 'swin_fwd_f32_kernel'
+SASS_SWIN_BWD_F32_KERNEL = 'swin_bwd_f32_kernel'
 SASS_DQ_BF16_KERNEL = 'flash_bwd_dq_sm90_kernel'
 
 
@@ -665,6 +673,10 @@ def sass_check(lib_path):
             (SASS_BWD_KERNEL, 'fp32 flash backward dK/dV', ('HMMA TF32',), ('LDL', 'STL'),
              'If'),
             (SASS_DQ_KERNEL, 'fp32 flash backward dQ (K9)', ('HMMA TF32',), ('LDL', 'STL'), ''),
+            (SASS_SWIN_F32_KERNEL, 'fp32 Swin window attention (K6)', ('HMMA TF32',),
+             ('LDL', 'STL'), ''),
+            (SASS_SWIN_BWD_F32_KERNEL, 'fp32 Swin window attention backward (K6^T)',
+             ('HMMA TF32',), ('LDL', 'STL'), ''),
             (SASS_DQ_BF16_KERNEL, 'bf16 flash backward dQ (K9)', ('HGMMA', 'UTMALDG'),
              ('LDL', 'STL'), ''),
             ('rms_norm_bwd_kernel', 'fused RMSNorm backward (K11)', (), ('LDL', 'STL'), ''),
@@ -995,7 +1007,7 @@ def kernel_checks():
                                                      regions=regions),
                        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am),
                        4 * bw * 64 * SWIN_C * it + (NW * 64 if shift else 0),
-                       4 * bw * SWIN_H * 64 * 64 * D, flop_rate)
+                       4 * bw * SWIN_H * 64 * 64 * D, flash_rate(dtype))
             del out, ref
         del q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
@@ -1467,8 +1479,7 @@ def check_swin_bwd(rows, randn, site, bw, dtype, shift, per_run):
                    tols, why, fn,
                    lambda: torch.autograd.grad(yl, (ql, kl, vl), gh, retain_graph=True),
                    7 * bw * 64 * SWIN_C * it + (NW * 64 if shift else 0),
-                   5 * 2 * bw * SWIN_H * 64 * 64 * D,
-                   PEAK_BF16_TENSOR if dtype == torch.bfloat16 else PEAK_FP32)
+                   5 * 2 * bw * SWIN_H * 64 * 64 * D, flash_rate(dtype))
         row = rows[-1]
         row['burst_ms'] = graph_burst_ms(fn)
     row['library_burst_ms'] = autograd_graph_ms(
@@ -1532,26 +1543,38 @@ def swin_train_kernel_checks(rows, randn):
     del x, g, out, ref, xl, gx, want
 
     # K6 on the step's 64 windows, fp32: 6 layers a shift, twice each (the
-    # forward and the remat recomputation)
+    # forward and the remat recomputation); also timed by CUDA graphs of
+    # LSE_BURST calls, beside SDPA timed the same way
     q, k, v = (randn(NW, 64, SWIN_C) for _ in range(3))
     qh, kh, vh = (t.reshape(NW, 64, SWIN_H, D).transpose(1, 2).contiguous() for t in (q, k, v))
     for shift in (0, 4):
         regions = region_table(GRID, GRID, 8, shift, dev) if shift else None
         am = (torch.from_numpy(swin_attn_mask(GRID, GRID, 8, shift)).to(dev)[:, None]
               if shift else None)
+
+        def fn():
+            return swin_window_attention(q, k, v, num_heads=SWIN_H, regions=regions)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
+
         with torch.no_grad():
-            out = swin_window_attention(q, k, v, num_heads=SWIN_H, regions=regions)
+            out = fn()
             with reference_kernels():
-                ref = swin_window_attention(q, k, v, num_heads=SWIN_H, regions=regions)
+                ref = fn()
             tol, why = attention_tol(ref, f32, 'sums of e and P.V in another order')
             record_row(rows, 'swin_window_attention',
                        'swin_train_' + ('shifted' if shift else 'unshifted'), f32,
-                       {TRAIN_SWIN: 12}, out, ref, tol, why,
-                       lambda: swin_window_attention(q, k, v, num_heads=SWIN_H,
-                                                     regions=regions),
-                       lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am),
+                       {TRAIN_SWIN: 12}, out, ref, tol, why, fn, sdpa,
                        4 * NW * 64 * SWIN_C * 4 + (NW * 64 if shift else 0),
-                       4 * NW * SWIN_H * 64 * 64 * D, PEAK_FP32)
+                       4 * NW * SWIN_H * 64 * 64 * D, SPLIT_TF32)
+            row = rows[-1]
+            row['burst_ms'] = graph_burst_ms(fn)
+            row['library_burst_ms'] = graph_burst_ms(sdpa)
+        print(f'swin: {row["site"]} fp32: single call {row["ms"]:.4f} ms against SDPA '
+              f'{row["library_ms"]:.4f}; device (graph of {LSE_BURST}) {row["burst_ms"]:.5f} ms '
+              f'a call against {row["library_burst_ms"]:.5f} (bound {row["bound_ms"]:.5f} by '
+              f'{row["bound_by"]}: {row["bound_ms"] / row["burst_ms"]:.3f} of it)', flush=True)
     del q, k, v, qh, kh, vh, out, ref
     torch.cuda.empty_cache()
 

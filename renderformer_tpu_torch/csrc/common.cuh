@@ -52,6 +52,18 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi))) & 0xFFFFE000u;
 }
 
+// x = hi + lo in two instructions: hi is x truncated to TF32 (its low 13
+// bits cleared, exact as a TF32 operand), lo = x - hi is exact in fp32 and
+// is passed as it is, the tensor cores reading a .tf32 operand's upper 19
+// bits.  |x - hi - lo| < 2^-20 |x|, twice split_tf32's (hi rounded to
+// nearest, two instructions more), which the emulations in
+// tests/test_torch_flash_bwd_fp32.py and tests/test_torch_swin_fp32.py hold
+// to the fp32 bars of the flash backward and of K6 and K6^T.
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xFFFFE000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
 // D(16x8, fp32) += A(16x8, tf32, row-major) * B(8x8, tf32, col-major).
 // Fragments (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g+8, t), a2 (g, t+4),
 // a3 (g+8, t+4); b0 (k t, n g), b1 (k t+4, n g); C as mma.m16n8k16.

@@ -43,8 +43,8 @@
 // with dQ in registers: no atomics, a deterministic result.
 //
 // The fp32 dK/dV kernel takes all five products on the tensor cores as split
-// TF32 (x = hi + lo with hi truncated to TF32, split_tf32_trunc below; three
-// mma.m16n8k8.tf32 a product, the small ones first, fp32 accumulators), with
+// TF32 (x = hi + lo with hi truncated to TF32, common.cuh's split_tf32_trunc;
+// three mma.m16n8k8.tf32 a product, the small ones first, fp32 accumulators), with
 // the operands split in registers as their fragments are loaded: S^T and dP^T
 // keep the large products and the small ones in accumulators of their own,
 // added before the bias; each q step's dV and dK products go to a fresh
@@ -130,17 +130,6 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int bb, int h, i
     const bool ok = ri < n;
     cp_async16(&dst[r * LD + c], src + (((size_t)bb * n + (ok ? ri : 0)) * H + h) * D + c, ok);
   }
-}
-
-// x = hi + lo in two instructions: hi is x truncated to TF32 (its low 13
-// bits cleared, exact as a TF32 operand), lo = x - hi is exact in fp32 and
-// is passed as it is, the tensor cores reading a .tf32 operand's upper 19
-// bits.  |x - hi - lo| < 2^-20 |x|, twice split_tf32's (common.cuh: hi
-// rounded to nearest, two instructions more), which the emulation in
-// tests/test_torch_flash_bwd_fp32.py holds to the fp32 bar.
-__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xFFFFE000u;
-  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
 }
 
 // the key bias of keys [k0, k0 + n): -inf past Sk, -1e30 where masked, else 0

@@ -26,11 +26,12 @@
 // m16n8k16 with fp32 accumulators (ldmatrix for K, ldmatrix.trans for V);
 // the whole key set is resident, so the softmax is one straight pass in
 // registers; the output is staged in shared memory and written with 16-byte
-// stores.  The fp32 instantiation (precision='fp32') uses the same layout
-// with scalar fp32 FMAs, exact like the plain version's products.
+// stores.  fp32 (precision='fp32', the train step's view stage) takes
+// swin_attention_f32.cu: split TF32 on the tensor cores, a persistent grid.
 #include <type_traits>
 
 #include "common.cuh"
+#include "swin_attention_f32.cuh"
 
 using namespace rf;
 
@@ -46,11 +47,10 @@ constexpr float NEG_BIG = -1e30f;
 template <typename T>
 constexpr int LD_OF = D + 16 / (int)sizeof(T);
 
-// q, k and v tiles, the window's region row, and (fp32 only) the P tile
+// q, k and v tiles, the window's region row
 template <typename T>
 constexpr size_t smem_bytes() {
-  return (size_t)3 * S * LD_OF<T> * sizeof(T) + S +
-         (std::is_same<T, float>::value ? (size_t)S * (S + 4) * sizeof(float) : 0);
+  return (size_t)3 * S * LD_OF<T> * sizeof(T) + S;
 }
 
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
@@ -63,19 +63,17 @@ __global__ void __launch_bounds__(NTHREADS)
 swin_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const uint8_t* __restrict__ regions, T* __restrict__ out, int nW, int H,
             float qscale) {
-  constexpr bool kBF = std::is_same<T, __nv_bfloat16>::value;
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "fp32 takes swin_attention_f32.cu");
   constexpr int VEC = 16 / sizeof(T);
   constexpr int LD = LD_OF<T>;
   constexpr int NT = S / 8;  // n8 tiles over the keys
   constexpr int DT = D / 8;  // n8 tiles over the head dim
-  constexpr int LDP = S + 4;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
   T* Ks = Qs + S * LD;
   T* Vs = Ks + S * LD;
   uint8_t* reg = reinterpret_cast<uint8_t*>(Vs + S * LD);
-  float* Ps = reinterpret_cast<float*>(smem_raw + 3 * S * LD * sizeof(T) + S);  // fp32
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3;
@@ -113,7 +111,7 @@ swin_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  if constexpr (kBF) {
+  {
     const int lm = lane >> 3, lr = lane & 7;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -131,20 +129,6 @@ swin_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
         ldmatrix_x4(kb, &Ks[((j + (lm >> 1)) * 8 + lr) * LD + kk * 16 + (lm & 1) * 8]);
         mma_bf16(s[j], qa, kb[0], kb[1]);
         mma_bf16(s[j + 1], qa, kb[2], kb[3]);
-      }
-    }
-  } else {
-    for (int d = 0; d < D; ++d) {
-      const float qa0 = to_float(Qs[r0 * LD + d]);
-      const float qa1 = to_float(Qs[(r0 + 8) * LD + d]);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float kv = to_float(Ks[(j * 8 + 2 * t4 + e) * LD + d]);
-          s[j][e] = fmaf(qa0, kv, s[j][e]);
-          s[j][2 + e] = fmaf(qa1, kv, s[j][2 + e]);
-        }
       }
     }
   }
@@ -190,7 +174,7 @@ swin_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
-  if constexpr (kBF) {
+  {
     const int lm = lane >> 3, lr = lane & 7;
 #pragma unroll
     for (int kk = 0; kk < S / 16; ++kk) {
@@ -209,24 +193,6 @@ swin_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
         mma_bf16(o[dt], pa, vb[0], vb[1]);
         mma_bf16(o[dt + 1], pa, vb[2], vb[3]);
       }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        Ps[(r0 + (e >> 1) * 8) * LDP + j * 8 + 2 * t4 + (e & 1)] = s[j][e];
-    __syncwarp();
-    for (int kj = 0; kj < S; ++kj) {
-      const float p0 = Ps[r0 * LDP + kj], p1 = Ps[(r0 + 8) * LDP + kj];
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float vv = to_float(Vs[kj * LD + dt * 8 + 2 * t4 + e]);
-          o[dt][e] = fmaf(p0, vv, o[dt][e]);
-          o[dt][2 + e] = fmaf(p1, vv, o[dt][2 + e]);
-        }
     }
   }
 
@@ -288,6 +254,8 @@ extern "C" int rf_swin_window_attention(const void* q, const void* k, const void
     return launch_mask<__nv_bfloat16>(has_mask, q, k, v, regions, out, BW, nW, H, qscale,
                                       s);
   if (dtype == kF32)
-    return launch_mask<float>(has_mask, q, k, v, regions, out, BW, nW, H, qscale, s);
+    return swin_fwd_f32(has_mask != 0, static_cast<const float*>(q), static_cast<const float*>(k),
+                        static_cast<const float*>(v), static_cast<const uint8_t*>(regions),
+                        static_cast<float*>(out), BW, nW, H, qscale, s);
   return cudaErrorInvalidValue;
 }

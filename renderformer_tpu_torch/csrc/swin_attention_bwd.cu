@@ -18,11 +18,11 @@
 //     each accumulated in fp32 and rounded once.
 //
 // Bound on this card: per (window, head) it reads q, k, v and dO (64x128
-// each) and writes dq, dk and dv: 7 x 32 KB in fp32 against five 64x64x128
-// products, 5.24 MFLOP, ~23 flop/byte; in bf16 half the bytes.  The fp32
-// instantiation runs scalar FMAs (exact like the plain version's products),
-// so its ridge is 67 TFLOP/s / 3.35 TB/s = 20 flop/byte and it sits at it;
-// bf16 on the tensor cores is bandwidth-bound.  Design, simple first: one
+// each) and writes dq, dk and dv: 7 x 16 KB in bf16 against five 64x64x128
+// products, 5.24 MFLOP, ~47 flop/byte, so on the tensor cores the bytes
+// bound it.  fp32 takes swin_attention_f32.cu (split TF32 on the tensor
+// cores, a persistent grid whose next tile loads under this one's
+// products).  Design of the bf16 kernel, simple first: one
 // block of 4 warps per (window, head); the four input tiles go to shared
 // memory (cp.async, q scaled on its way in); each warp recomputes S and
 // P for its 16 query rows, forms dP and dS in registers and writes P, then
@@ -30,13 +30,14 @@
 // and dK = dS^T Q (the tile read transposed) and its 16 query rows for
 // dQ = dS K.  Every output element is written once by one thread: no
 // atomics, the same bits every run.  The outputs are staged in the input
-// tiles that are no longer read, then stored as 16-byte rows.  bf16 runs
-// the products as mma.sync m16n8k16 with fp32 accumulators (ldmatrix,
-// .trans for the transposed operands), the forward's fragment layout.  The
-// fp32 tiles need 153 KB of shared memory, one block an SM; bf16 79 KB.
+// tiles that are no longer read, then stored as 16-byte rows.  The products
+// run as mma.sync m16n8k16 with fp32 accumulators (ldmatrix, .trans for the
+// transposed operands), the forward's fragment layout; the tiles take 79 KB
+// of shared memory, two blocks an SM.
 #include <type_traits>
 
 #include "common.cuh"
+#include "swin_attention_f32.cuh"
 
 using namespace rf;
 
@@ -75,7 +76,7 @@ __device__ __forceinline__ void rows_by_keys(float (&acc)[NT][4], const T* A, co
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  {
     const int lm = lane >> 3, lr = lane & 7;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -93,18 +94,6 @@ __device__ __forceinline__ void rows_by_keys(float (&acc)[NT][4], const T* A, co
         mma_bf16(acc[j + 1], a, b[2], b[3]);
       }
     }
-  } else {
-    for (int d = 0; d < D; ++d) {
-      const float a0 = A[r0 * LD + d], a1 = A[(r0 + 8) * LD + d];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float b = B[(j * 8 + 2 * t4 + e) * LD + d];
-          acc[j][e] = fmaf(a0, b, acc[j][e]);
-          acc[j][2 + e] = fmaf(a1, b, acc[j][2 + e]);
-        }
-    }
   }
 }
 
@@ -121,7 +110,7 @@ __device__ __forceinline__ void keys_by_dim(float (&acc)[DT][4], const T* P, con
   for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  {
     const int lm = lane >> 3, lr = lane & 7;
 #pragma unroll
     for (int kk = 0; kk < S / 16; ++kk) {
@@ -138,19 +127,6 @@ __device__ __forceinline__ void keys_by_dim(float (&acc)[DT][4], const T* P, con
         mma_bf16(acc[dt], a, b[0], b[1]);
         mma_bf16(acc[dt + 1], a, b[2], b[3]);
       }
-    }
-  } else {
-    const int k0 = warp * 16 + (lane >> 2);
-    for (int qi = 0; qi < S; ++qi) {
-      const float p0 = P[qi * LDP + k0], p1 = P[qi * LDP + k0 + 8];
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float b = B[qi * LD + dt * 8 + 2 * t4 + e];
-          acc[dt][e] = fmaf(p0, b, acc[dt][e]);
-          acc[dt][2 + e] = fmaf(p1, b, acc[dt][2 + e]);
-        }
     }
   }
 }
@@ -187,7 +163,7 @@ swin_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 const T* __restrict__ dout, const uint8_t* __restrict__ regions,
                 T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int nW, int H,
                 float qscale) {
-  constexpr bool kBF = std::is_same<T, __nv_bfloat16>::value;
+  static_assert(std::is_same<T, __nv_bfloat16>::value, "fp32 takes swin_attention_f32.cu");
   constexpr int VEC = 16 / sizeof(T);
   constexpr int LD = LD_OF<T>;
 
@@ -313,7 +289,7 @@ swin_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  if constexpr (kBF) {
+  {
     const int lm = lane >> 3, lr = lane & 7;
 #pragma unroll
     for (int kk = 0; kk < S / 16; ++kk) {
@@ -329,19 +305,6 @@ swin_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
         mma_bf16(acc[dt], a, b[0], b[1]);
         mma_bf16(acc[dt + 1], a, b[2], b[3]);
       }
-    }
-  } else {
-    constexpr int LDP = LDP_OF<T>;
-    for (int kj = 0; kj < S; ++kj) {
-      const float d0 = Ps[r0 * LDP + kj], d1 = Ps[(r0 + 8) * LDP + kj];
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float b = Ks[kj * LD + dt * 8 + 2 * t4 + e];
-          acc[dt][e] = fmaf(d0, b, acc[dt][e]);
-          acc[dt][2 + e] = fmaf(d1, b, acc[dt][2 + e]);
-        }
     }
   }
   __syncthreads();  // the q tile is read no more
@@ -398,7 +361,9 @@ extern "C" int rf_swin_window_attention_bwd(const void* q, const void* k, const 
     return launch_mask<__nv_bfloat16>(has_mask, q, k, v, dout, regions, dq, dk, dv, BW, nW, H,
                                       qscale, s);
   if (dtype == kF32)
-    return launch_mask<float>(has_mask, q, k, v, dout, regions, dq, dk, dv, BW, nW, H, qscale,
-                              s);
+    return swin_bwd_f32(has_mask != 0, static_cast<const float*>(q), static_cast<const float*>(k),
+                        static_cast<const float*>(v), static_cast<const float*>(dout),
+                        static_cast<const uint8_t*>(regions), static_cast<float*>(dq),
+                        static_cast<float*>(dk), static_cast<float*>(dv), BW, nW, H, qscale, s);
   return cudaErrorInvalidValue;
 }

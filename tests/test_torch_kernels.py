@@ -1,6 +1,7 @@
 """Kernels K3 (the K broadcast-rotate), K4 (the bilinear resize, bit for
 bit at its sites and edges), K5 (resize into space-to-depth layout), K6
-(Swin window attention) and its backward K6^T (deterministic), K7
+(Swin window attention) and its backward K6^T (deterministic; in fp32 also
+at the edges of their persistent grids), K7
 (shifted-window regroup) and its VJP, the forward's
 logsumexp (K1/K2), the flash backward (K8, K9; the bf16 kernel at its tile
 edges; K9's dQ kernel at the train step's sites, its tile edges and view
@@ -16,6 +17,8 @@ file imports no JAX, so on a machine with a card and no JAX it runs alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -293,6 +296,44 @@ def test_swin_bwd_kernel_matches_plain(cuda, dtype, shift):
     assert all(torch.equal(a, g) for a, g in zip(grads, got))
 
 
+# window counts around the fp32 kernels' persistent grids (K6: two blocks an
+# SM, K6^T: one), in SMs: (SMs multiplied, tiles added)
+SWIN_GRID_EDGES = {'one': (0, 1), 'sms-1': (1, -1), 'sms': (1, 0), 'sms+1': (1, 1),
+                   '2sms-1': (2, -1), '2sms': (2, 0), '2sms+1': (2, 1), '4sms+3': (4, 3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shift', [0, 4])
+@pytest.mark.parametrize('edge', sorted(SWIN_GRID_EDGES))
+def test_swin_fp32_kernels_at_grid_edges_match_plain(cuda, edge, shift):
+    """The fp32 K6 and K6^T walk the (window, head) tiles over a persistent
+    grid of the blocks the card holds at once: at one head of 128, tile
+    counts just below, at and above one and two SMs' worth of blocks, and
+    a ragged count of several rounds, against their plain versions (2^-16
+    of max|ref|), with the two launches of K6^T the same bits.  Shifted:
+    one 8 x 8 window shifted by 4, whose four regions repeat in every
+    window of the batch."""
+    mul, add = SWIN_GRID_EDGES[edge]
+    bw = mul * torch.cuda.get_device_properties(cuda).multi_processor_count + add
+    q, k, v, do = (_randn((bw, 64, 128), torch.float32, cuda, seed=i) for i in range(4))
+    regions = region_table(8, 8, 8, shift, cuda) if shift else None
+    got, want, launched = _both(
+        lambda: swin_window_attention(q, k, v, num_heads=1, regions=regions))
+    assert launched == {'swin_window_attention': 1}
+    assert float((got - want).abs().max()) <= 2.0 ** -16 * float(want.abs().max())
+
+    def bwd():
+        return swin_window_attention_bwd(q, k, v, do, num_heads=1, regions=regions)
+
+    got, want, launched = _both(bwd)
+    assert launched == {'swin_window_attention_bwd': 1}
+    for g, r in zip(got, want):
+        assert float((g - r).abs().max()) <= 2.0 ** -16 * float(r.abs().max())
+    with torch.no_grad():
+        again = bwd()
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('inverse', [False, True])
@@ -494,35 +535,34 @@ def test_dq_kernel_plans(cuda):
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('case', ['train_stage1_self', 'train_cross', 'train_ray_self',
                                   'reps4_tail_97x2064_h2'])
-def test_dq_kernel_is_one_deterministic_launch(cuda, case, dtype):
-    """One dQ kernel on the card a call (the profiler's kernels), and the
-    same bits from two calls and from three replays of a CUDA graph of one
-    call, with the keys split over a cluster or not."""
-    from torch.profiler import ProfilerActivity, profile
+def test_dq_kernel_is_one_deterministic_launch(cuda, case, dtype, tmp_path):
+    """One dQ kernel on the card a call (the one node of a CUDA graph of a
+    call, read from the graph's DOT dump), and the same bits from two calls
+    and from three replays of that graph, with the keys split over a
+    cluster or not."""
     from renderformer_tpu_torch import _build
     from renderformer_tpu_torch.ops.flash_attention import launch_flash_bwd
     io = _dq_io(case, dtype, cuda)
     lib = _build.library()
     with torch.no_grad():
         a = launch_flash_bwd(lib, 'dq', *io)[0]
+        b = launch_flash_bwd(lib, 'dq', *io)[0]
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            b = launch_flash_bwd(lib, 'dq', *io)[0]
-            torch.cuda.synchronize()
-        kernels = [e.key for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        assert len(kernels) == 1 and 'flash_bwd_dq' in kernels[0], kernels
-        assert sum(e.count for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) == 1
         assert torch.equal(a, b)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             launch_flash_bwd(lib, 'dq', *io)
         torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, stream=side):
             out = launch_flash_bwd(lib, 'dq', *io)[0]
+        dot = tmp_path / 'dq.dot'
+        graph.debug_dump(str(dot))
+        text = dot.read_text()
+        nodes = set(re.findall(r'"(graph_\d+_node_\d+)"', text))
+        assert len(nodes) == 1 and 'flash_bwd_dq' in text, text[:3000]
+        graph.instantiate()
         for _ in range(3):
             out.zero_()
             graph.replay()
