@@ -100,7 +100,29 @@ Phases, each printing its own lines:
      render calls, in turn (no bar); the infer stage writing 8 EXR and 8 PNG
      files, view 0's EXR the render's fp32 output; batch_infer's per-batch
      and video loops with --no_output on in-memory dicts, each printing its
-     rays/s line.
+     rays/s line;
+  9. fine-tuning through the training entry point: train.build with
+     configs/config.yml's settings (v1-base at full width and depth from a
+     seeded init, bf16 stage 1, remat, 256^2, batch 1, lr 5e-6) on the
+     port's RenderFormerDataset over 5 in-memory scenes of 1,900-2,048
+     triangles (a subclass replaces only the H5 read; 4 compact textures,
+     1 full; 512^2 ground-truth PNGs written by io/image.write_png, read and
+     downsized by the dataset), 2 epochs with a checkpoint every epoch:
+     exactly phase 7's fused launch counts in one step, finite losses, grad
+     norms and validation losses, the validation scene counted once, the
+     checkpoints best, epoch_0, epoch_1 and final; under deterministic=True
+     a resume from epoch_0 the bits of every parameter of the uninterrupted
+     run, and a compact batch the bits of its full texture; dropout 0.1: a
+     finite step, two steps at one (seed, step) from the same state the same
+     bits, the kernel pass within AGREE_BARS of the plain one with the same
+     masks;
+     debug_nans: a NaN in the ground truth and one made in a backward raise
+     FloatingPointError, a clean step does not, and without the flag the
+     NaN skip leaves every parameter as it was; the linear head
+     (use_dpt_decoder=False: K1 18 / K2 6 / K3 24) and vdir_num_freqs=6 (and
+     K4 3 / K5 1) rendered at 512^2 x 8 views in bf16, >= 40 dB against the
+     plain versions; and, informational, the fit loop's trained rays/s
+     beside the bare step's.
 Then one JSON line with every kernel's numbers per render of each model
 and per train step, the nvidia-smi line, and the result line.  Any failed
 check exits non-zero before the result line.  Imports nothing of JAX.
@@ -2118,6 +2140,336 @@ def entry_point_checks(card):
     print(f'entry: phase 8 in {time.time() - t0:.1f} s', flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: fine-tuning through the training entry point
+# ---------------------------------------------------------------------------
+
+FIT_SCENES = 5          # numpy seeds 0-4; 4 train, 1 validation
+FIT_GT_RES = 512        # the ground truth's PNGs, downsized by the dataset
+FIT_RES = 256
+# configs/config.yml as a dict: the card's machine has no PyYAML
+FIT_CONFIG = {
+    'training': {'num_epochs': 2, 'learning_rate': 5e-6, 'weight_decay': 1e-4,
+                 'max_grad_norm': 1.0, 'batch_size': 1},
+    'data': {'max_resolution': FIT_RES, 'train_val_split': 0.8},
+    'model': {'model_id': 'v1-base'},
+    'output': {'save_interval': 1},
+    'memory': {'autocast_dtype': 'bfloat16', 'use_gradient_checkpointing': True},
+}
+# the two view-stage variants rendered at 512^2 x 8 views: the linear head
+# (no DPT: no K4, no K5) and the NeRF-encoded 2-D ray map with the DPT head;
+# 6 frequencies, the encoder's default for vertex normals, as no released
+# model sets vdir_num_freqs
+LINEAR, VDIR = 'v1-base linear head', 'v1-base vdir_num_freqs=6'
+FIT_RENDERS = {
+    LINEAR: (dict(use_dpt_decoder=False),
+             _launches(flash_fwd_rope_mask=18, flash_fwd_rope_nomask=6, rot_kv_broadcast=24)),
+    VDIR: (dict(vdir_num_freqs=6), EXPECTED_LAUNCHES[BASE]),
+}
+
+
+def fit_scenes():
+    """FIT_SCENES scenes of 1,900-2,048 triangles and one view from numpy seeds
+    0-4: the first four textured as the scene converter writes them (a
+    per-face constant times the patch mask), the last with random patches."""
+    from renderformer_tpu_torch.training.dataset import texture_patch_mask
+    scenes = []
+    for seed in range(FIT_SCENES):
+        rng = np.random.default_rng(seed)
+        n = int(rng.integers(1900, 2049))
+        if seed < FIT_SCENES - 1:
+            flat = rng.uniform(0, 1, (n, 13)).astype(np.float16).astype(np.float32)
+            tex = flat[..., None, None] * texture_patch_mask(32)
+        else:
+            tex = rng.uniform(0, 1, (n, 13, 32, 32)).astype(np.float32)
+        scenes.append({'triangles': rng.normal(size=(n, 3, 3)).astype(np.float32) * 0.3,
+                       'texture': tex, 'vn': rng.normal(size=(n, 3, 3)).astype(np.float32),
+                       'c2w': np.eye(4, dtype=np.float32)[None],
+                       'fov': np.full((1,), 40.0, np.float32),
+                       'gt': rng.integers(0, 256, (FIT_GT_RES, FIT_GT_RES, 3), dtype=np.uint8)})
+    return scenes
+
+
+def memory_dataset(scenes, root):
+    """The port's RenderFormerDataset on in-memory scenes: a subclass that
+    replaces only the H5 read; the ground truth is PNGs in ``root`` that
+    io/image.write_png wrote, which the dataset reads and downsizes."""
+    from renderformer_tpu_torch.io.h5 import pad_scene
+    from renderformer_tpu_torch.io.image import write_png
+    from renderformer_tpu_torch.training.dataset import RenderFormerDataset
+    paths = {os.path.join(root, f'scene_{i}.h5'): sc for i, sc in enumerate(scenes)}
+    for path, sc in paths.items():
+        write_png(path[:-3] + '.png', sc['gt'])
+
+    class MemoryDataset(RenderFormerDataset):
+        def _list_scenes(self, h5_dir):
+            return sorted(paths)
+
+        def _scene_shape(self, path):
+            return paths[path]['triangles'].shape[0], paths[path]['texture'].shape[-1]
+
+        def _read_scene(self, path):
+            return pad_scene(paths[path], self.padding_length, texture_dtype=np.float16)
+
+    return MemoryDataset(root, root, max_resolution=FIT_RES)
+
+
+def fit_trainer(dataset, ckpt, resume=None, **train_kw):
+    """train.build on FIT_CONFIG into ``ckpt``; ``train_kw`` set TrainConfig
+    fields the YAML schema has no key for (deterministic)."""
+    import functools
+    from renderformer_tpu_torch import train
+    from renderformer_tpu_torch.training.state import TrainConfig
+    cfg = {**FIT_CONFIG, 'output': {**FIT_CONFIG['output'], 'checkpoint_dir': ckpt,
+                                    'log_dir': os.path.join(ckpt, 'runs')}}
+    real = train.TrainConfig
+    train.TrainConfig = functools.partial(TrainConfig, **train_kw)
+    try:
+        return train.build(cfg, resume=resume, dataset=dataset,
+                           log=lambda *a: print('fit:', *a, flush=True))
+    finally:
+        train.TrainConfig = real
+
+
+def timed_fit(tr):
+    """tr.fit() with the first step's launch counts (counts set to 0 just
+    before it, read just after), each epoch's seconds, and the items each
+    validation counted; returns (launches, epoch seconds, counted)."""
+    import torch
+    from renderformer_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    launches, seconds, counted = [], [], []
+    step, evaluate, epoch = tr._train_step, tr._eval_step, tr.train_epoch
+
+    def first_counted(state, batch):
+        if launches:
+            return step(state, batch)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        launches.append(dict(LAUNCHES))
+        return out
+
+    def eval_counted(state, batch):
+        m = evaluate(state, batch)
+        counted.append(m['n'])
+        return m
+
+    def epoch_timed(e, indices):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = epoch(e, indices)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        return out
+
+    tr._train_step, tr._eval_step, tr.train_epoch = first_counted, eval_counted, epoch_timed
+    tr.fit()
+    return launches[0], seconds, counted
+
+
+def params_of(model):
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def same_bits(a, b):
+    import torch
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def fit_checks(card):
+    """Phase 9: v1-base at full width and depth from the seeded init, trained
+    through train.build on a dataset of FIT_SCENES in-memory scenes, 2 epochs:
+    (1) one step's launches, (2) finite losses and grad norms, a finite
+    validation loss that counts the one validation scene once, (3) the
+    checkpoints, (4) under deterministic=True a resume from epoch_0 gives the
+    bits of the run that was not interrupted, (5) a compact batch's step the
+    bits of its full texture's, (6) dropout: a finite step, two steps at one
+    (seed, step) the same bits, the kernel step within AGREE_BARS of the
+    plain one with the same masks, (7) debug_nans raises on a NaN, the NaN skip leaves the parameters
+    as they were, (8) the linear head and the vdir ray map rendered at 512^2
+    x 8 views.  Informational: the fit loop's trained rays/s beside the bare
+    step's."""
+    import tempfile
+
+    import torch
+    from renderformer_tpu_torch import V1_BASE, RenderingPipeline
+    from renderformer_tpu_torch.ops import LAUNCHES, reference_kernels, reset_launch_counts
+    from renderformer_tpu_torch.training import state as ts
+    from renderformer_tpu_torch.training.dataset import expand_texture_flat
+
+    t0 = time.time()
+    root = tempfile.mkdtemp(prefix='fit_')
+    try:
+        dataset = memory_dataset(fit_scenes(), root)
+        n_train = len(dataset.split(0.8, 42)[0])
+        print(f'fit: {len(dataset)} scenes padded to {dataset.padding_length} triangles, '
+              f'patches {dataset.texture_patch_size}^2, {n_train} to train ('
+              f'{time.time() - t0:.1f} s)', flush=True)
+
+        # (1)-(3): the fit as configs/config.yml gives it, the fused backward
+        ckpt = os.path.join(root, 'a')
+        tr = fit_trainer(dataset, ckpt)
+        launches, seconds, counted = timed_fit(tr)
+        print(f'fit: one step launches ' + json.dumps(launches), flush=True)
+        if launches != EXPECTED_LAUNCHES[TRAIN]:
+            fail(f'fit step launch counts {launches} != {EXPECTED_LAUNCHES[TRAIN]}')
+        metrics = [(m['loss'], m['grad_norm']) for m in tr.step_metrics]
+        print(f'fit: losses and grad norms {metrics}, train {tr.train_losses}, validation '
+              f'{tr.val_losses}, validation items counted {counted}', flush=True)
+        if len(metrics) != 2 * n_train or not np.isfinite(np.array(metrics)).all():
+            fail(f'fit: {len(metrics)} steps or a non-finite loss or grad norm')
+        if not np.isfinite(tr.val_losses).all() or counted != [1.0, 1.0]:
+            fail(f'fit: validation {tr.val_losses}, items counted {counted}')
+        tags = ('best', 'epoch_0', 'epoch_1', 'final')
+        missing = [t for t in tags if not os.path.exists(os.path.join(ckpt, t, 'state.pt'))]
+        print(f'fit: checkpoints {sorted(os.listdir(ckpt))}, missing {missing}', flush=True)
+        if missing:
+            fail(f'fit: checkpoints {missing} missing')
+
+        # informational: the loop (loader, prefetch, upload) against the bare step
+        batch = tr._put(tr._host(next(dataset.batches([0], 1, shuffle=False))))
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr._train_step(tr.state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        bare = statistics.median(times[1:])
+        loop = seconds[1] / n_train
+        print(f'fit: trained rays/s (informational, no bar): the fit loop {FIT_RES ** 2 / loop:.1f} '
+              f'({loop * 1e3:.2f} ms a step over epoch 1, loader, prefetch and upload '
+              f'included; epoch 0, decoding, {seconds[0] * 1e3 / n_train:.2f} ms) against '
+              f'the bare step {FIT_RES ** 2 / bare:.1f} ({bare * 1e3:.2f} ms, median of 3), '
+              f'on {card}', flush=True)
+        t = time.perf_counter()
+        path = tr.save('timed', 1)
+        size = os.path.getsize(os.path.join(path, 'state.pt')) / 2 ** 30
+        print(f'fit: one checkpoint (informational): {size:.2f} GiB in '
+              f'{time.perf_counter() - t:.2f} s on this thread (host copies and torch.save); '
+              f'the fit writes them on its writer thread', flush=True)
+        del tr, batch
+        shutil.rmtree(ckpt)
+        torch.cuda.empty_cache()
+
+        # (4): deterministic, 2 epochs; then a resume from epoch_0 runs epoch 1
+        ckpt = os.path.join(root, 'b')
+        full = fit_trainer(dataset, ckpt, deterministic=True)
+        full.fit()
+        want = params_of(full.model)
+        del full
+        torch.cuda.empty_cache()
+        tr = fit_trainer(dataset, ckpt, resume=os.path.join(ckpt, 'epoch_0'),
+                         deterministic=True)
+        tr.fit()
+        resumed = same_bits(params_of(tr.model), want)
+        print(f'fit: deterministic=True, resumed from epoch_0 at epoch {tr.start_epoch}: every '
+              f'parameter the bits of the uninterrupted run: {resumed}', flush=True)
+        if not resumed:
+            fail('fit: the resumed run differs from the uninterrupted one')
+        del want
+
+        # (5): a compact batch against its full texture, one loss-and-gradient pass
+        grads = ts.make_loss_fns(tr.model, tr.tc)[1]
+        compact = next(dataset.batches([0], 1, shuffle=False))
+        full_tex = dict(compact)
+        full_tex['texture'] = expand_texture_flat(full_tex.pop('texture_flat'), 32)
+        (la, ga), (lb, gb) = (grads(tr.state, tr._put(tr._host(b))) for b in (compact, full_tex))
+        same = bool(torch.equal(la, lb)) and same_bits(ga, gb)
+        print(f'fit: compact batch against its full texture (deterministic): loss '
+              f'{float(la):.7f} vs {float(lb):.7f}, the same bits of the loss and all '
+              f'{len(ga)} gradients: {same}', flush=True)
+        if 'texture_flat' not in compact or not same:
+            fail('fit: the compact batch does not give its full texture\'s bits')
+        del ga, gb
+
+        # (7): debug_nans; a clean step with it on raises nothing
+        batch = tr._put(tr._host(compact))
+        bad = dict(batch, gt=batch['gt'].clone())
+        bad['gt'][0, 0, 7, 9, 1] = float('nan')
+        tc_nan = dataclasses.replace(tr.tc, debug_nans=True)
+        step_nan = ts.make_train_step(tr.model, tr.tx, tc_nan)[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = step_nan(tr.state, batch)
+        torch.cuda.synchronize()
+        m['seconds'] = time.perf_counter() - t
+        try:
+            step_nan(tr.state, bad)
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        before = params_of(tr.model)
+        _, m_bad = ts.make_train_step(tr.model, tr.tx, tr.tc)[0](tr.state, bad)
+        kept = same_bits(params_of(tr.model), before)
+        x = torch.zeros(3, device='cuda', requires_grad=True)
+        try:
+            with ts.nan_check(True):
+                torch.autograd.grad((x * torch.sqrt(x)).sum(), x)
+            in_backward = None
+        except FloatingPointError as e:
+            in_backward = str(e)
+        print(f'fit: debug_nans: a clean step {m}; with a NaN in the ground truth: '
+              f'{raised!r}; a NaN made in a CUDA backward: {in_backward!r}; without the flag '
+              f'the step reads {m_bad} and leaves every parameter as it was: {kept}',
+              flush=True)
+        if not (np.isfinite(m['loss']) and raised and in_backward and kept):
+            fail('fit: debug_nans or the NaN skip misbehaved')
+        del tr, before, batch, bad
+        shutil.rmtree(ckpt)
+        torch.cuda.empty_cache()
+
+        # (6): dropout 0.1, deterministic, on the seeded model
+        tc = ts.TrainConfig(precision='bfloat16', resolution=FIT_RES, steps_per_epoch=100,
+                            remat=True, deterministic=True)
+        model, tx, state = seeded_train_state(dataclasses.replace(V1_BASE, dropout=0.1), tc)
+        batch = train_batch('cuda')
+        grads = ts.make_loss_fns(model, tc)[1]
+        names = [n for n, _ in model.named_parameters()]
+        with reference_kernels():
+            plain = grads(state, batch)
+        agree = grad_agreement('dropout 0.1 kernels vs plain, the same masks',
+                               grads(state, batch), plain, names)
+        del plain
+        if not within_bars(agree):
+            fail(f'fit: dropout: {agree} past the bars {AGREE_BARS}')
+        # two steps at one (seed, step) from the same state: the same bits
+        deterministic_check('v1-base dropout 0.1', model, tx, state, batch, tc)
+        _, m = ts.make_train_step(model, tx, tc)[0](state, batch)
+        print(f'fit: dropout 0.1: a step {m}', flush=True)
+        if not np.isfinite([m['loss'], m['grad_norm']]).all():
+            fail(f'fit: dropout: a step {m}')
+        del model, state, grads
+        torch.cuda.empty_cache()
+
+        # (8): the two view-stage variants
+        args = bench_inputs()
+        for name, (kw, expected) in FIT_RENDERS.items():
+            pipe = RenderingPipeline.from_config(dataclasses.replace(V1_BASE, **kw), seed=0)
+            reset_launch_counts()
+            img = pipe.render(*args, resolution=RES, precision='bf16')
+            torch.cuda.synchronize()
+            got = dict(LAUNCHES)
+            with reference_kernels():
+                ref = pipe.render(*args, resolution=RES, precision='bf16')
+            p = psnr(ref.float().cpu().numpy(), img.float().cpu().numpy())
+            print(f'fit: {name} render 512^2 x {V} bf16: launches {json.dumps(got)}; kernels '
+                  f'vs plain HDR PSNR {p:.2f} dB (need >= 40); mean {float(img.mean()):.6f}',
+                  flush=True)
+            if got != expected:
+                fail(f'{name} launch counts {got} != {expected}')
+            if tuple(img.shape) != (1, V, RES, RES, 3) or not bool(torch.isfinite(img).all()):
+                fail(f'{name} render: shape {tuple(img.shape)} or non-finite values')
+            if not p >= 40.0:
+                fail(f'{name} render PSNR {p} < 40 dB')
+            del pipe, img, ref
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f'fit: phase 9 in {time.time() - t0:.1f} s', flush=True)
+
+
 def _times(weighted):
     """ms, plain_ms, bound_ms and library_ms of (row, launches) pairs: each
     row's median times its launches, summed; library_ms None where a row has
@@ -2183,6 +2535,7 @@ def main():
     launches.update(train_nerf_checks(card))
     launches.update(train_swin_checks(card))
     entry_point_checks(card)
+    fit_checks(card)
     for name in KERNELS:
         if not any(launches[p][name] for p in ALL_PATHS):
             fail(f'{name} was launched by no path')

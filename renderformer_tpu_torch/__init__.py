@@ -5,8 +5,8 @@ imports nothing of it.  Its hand-written kernels (``csrc/``) build at first
 use; on CPU tensors each kernel's plain PyTorch version runs instead.
 ``RenderingPipeline.from_pretrained`` loads a local checkpoint directory
 that ``export_params`` (or the JAX package's) wrote, or an HF directory in
-the reference layout; ``python -m renderformer_tpu_torch.infer`` and
-``.batch_infer`` are the command lines.
+the reference layout; ``python -m renderformer_tpu_torch.infer``,
+``.batch_infer`` and ``.train`` (fine-tuning) are the command lines.
 """
 
 from renderformer_tpu_torch.config import (

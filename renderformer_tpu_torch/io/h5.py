@@ -28,11 +28,20 @@ def load_scene_h5(file_path: str, padding_length: Optional[int] = None,
     training batch ships host->device (the padded texture dominates)."""
     import h5py
     with h5py.File(file_path, 'r') as f:
-        triangles = np.asarray(f['triangles'], dtype=np.float32)
-        texture = np.asarray(f['texture'], dtype=texture_dtype)
-        vn = np.asarray(f['vn'], dtype=np.float32)
-        c2w = np.asarray(f['c2w'], dtype=np.float32)
-        fov = np.asarray(f['fov'], dtype=np.float32)
+        scene = {k: np.asarray(f[k]) for k in ('triangles', 'texture', 'vn', 'c2w', 'fov')}
+    return pad_scene(scene, padding_length, texture_dtype)
+
+
+def pad_scene(scene: Dict[str, np.ndarray], padding_length: Optional[int] = None,
+              texture_dtype=np.float32) -> Dict[str, np.ndarray]:
+    """A scene's arrays (``triangles``, ``texture``, ``vn``, ``c2w``, ``fov``)
+    in the dtypes :func:`load_scene_h5` returns, zero-padded to
+    ``padding_length`` triangles, with their validity ``mask``."""
+    triangles = np.asarray(scene['triangles'], dtype=np.float32)
+    texture = np.asarray(scene['texture'], dtype=texture_dtype)
+    vn = np.asarray(scene['vn'], dtype=np.float32)
+    c2w = np.asarray(scene['c2w'], dtype=np.float32)
+    fov = np.asarray(scene['fov'], dtype=np.float32)
 
     num_tris = triangles.shape[0]
     if padding_length is not None:

@@ -1,7 +1,9 @@
 """Image and video IO: EXR (HDR), PNG (LDR), MP4.
 
 EXR and PNG are written by numpy, ``struct`` and ``zlib`` alone; MP4 needs
-``cv2``, imported when ``write_video`` is called.  The EXR codec is the JAX
+``cv2``, imported when ``write_video`` is called, and so does ``read_png``
+(any PNG a renderer writes: every filter type, palette, 16 bits), since the
+training data's resize needs ``cv2`` anyway.  The EXR codec is the JAX
 package's (``renderformer_tpu/io/image.py``), so the two packages write the
 same bytes for the same image: OpenEXR 2.0 single-part scanline, fp32,
 ZIP-compressed by default, readable by any EXR consumer.
@@ -206,6 +208,21 @@ def write_png(path: str, img_u8: np.ndarray) -> None:
         f.write(_png_chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, colour, 0, 0, 0)))
         f.write(_png_chunk(b'IDAT', zlib.compress(rows.tobytes(), 1)))
         f.write(_png_chunk(b'IEND', b''))
+
+
+def read_png(path: str) -> np.ndarray:
+    """A PNG as ``imageio.v3.imread`` returns it: [H, W, 3] RGB, [H, W, 4]
+    RGBA or [H, W] grey, in the file's bit depth (uint8 or uint16).  cv2
+    reads with ``IMREAD_UNCHANGED`` (any other flag drops alpha or expands
+    grey) in BGR(A) order, which is turned to RGB(A)."""
+    import cv2
+    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise FileNotFoundError(f'cannot read {path} as an image')
+    if img.ndim == 3:
+        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB if img.shape[2] == 3
+                           else cv2.COLOR_BGRA2RGBA)
+    return img
 
 
 def write_video(path: str, frames: List[np.ndarray], fps: int = 24) -> None:

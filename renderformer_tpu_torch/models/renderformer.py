@@ -9,13 +9,18 @@ once per scene, and masks and camera-space positions stay per view.  With
 triangle embeddings, and the view stage fans the tokens out per view,
 since their camera-space encoding differs between views.
 
-The port renders the released architecture family and its NeRF-position
-ablation: triangle RoPE or NeRF positions, patch-layout rays
-(``vdir_num_freqs=0``), the DPT head, and full or Swin window
-self-attention in the view stage.  Other configurations raise.
+The port renders the released architecture family and its ablations:
+triangle RoPE or NeRF positions, patch-layout rays (``vdir_num_freqs=0``)
+or a NeRF-encoded 2-D ray map, the DPT head or the linear head, and full
+or Swin window self-attention in the view stage; ``pe_type='learned'``
+raises.  A :class:`~renderformer_tpu_torch.nn.core.DropoutKey` turns on
+the config's dropout: the encoder takes the key folded with 0, the view
+stage with 1, as the JAX package splits its dropout rng in two.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -24,18 +29,13 @@ from renderformer_tpu_torch.config import RenderFormerConfig
 from renderformer_tpu_torch.encodings.nerf import nerf_encode, nerf_out_dim
 from renderformer_tpu_torch.models.view_transformer import ViewTransformer
 from renderformer_tpu_torch.nn.attention import TransformerEncoder
-from renderformer_tpu_torch.nn.core import RMSNorm, make_norm
+from renderformer_tpu_torch.nn.core import DropoutKey, RMSNorm, make_norm
 
 
 def check_supported(cfg: RenderFormerConfig) -> None:
-    unsupported = {
-        "pe_type not in ('rope', 'nerf')": cfg.pe_type not in ('rope', 'nerf'),
-        'vdir_num_freqs != 0': cfg.vdir_num_freqs != 0,
-        'use_dpt_decoder=False': not cfg.use_dpt_decoder,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f'not ported yet: {", ".join(bad)}')
+    if cfg.pe_type not in ('rope', 'nerf'):
+        raise NotImplementedError(f"not ported yet: pe_type {cfg.pe_type!r} not in "
+                                  "('rope', 'nerf')")
 
 
 class RenderFormer(nn.Module):
@@ -64,7 +64,7 @@ class RenderFormer(nn.Module):
             ffn_hidden_dim=cfg.dim_feedforward, rope_dim=cfg.rope_dim, bias=cfg.bias,
             activation=cfg.activation, norm_type=cfg.norm_type,
             rope_type=cfg.rope_type, rope_double_max_freq=cfg.rope_double_max_freq,
-            qk_norm=cfg.view_indep_qk_norm)
+            qk_norm=cfg.view_indep_qk_norm, dropout=cfg.dropout)
         self.view_transformer = ViewTransformer(cfg)
 
     @property
@@ -127,14 +127,18 @@ class RenderFormer(nn.Module):
         return seq, mask, rope_pos
 
     def forward(self, tri_vpos, texture_patches, valid_mask, vns, rays_o, rays_d,
-                tri_vpos_view_tf):
+                tri_vpos_view_tf, dropout_key: Optional[DropoutKey] = None):
         """tri_vpos [B, N, 9]; texture_patches [B, N, C, ps, ps]; valid_mask
         [B, N] bool; vns [B, N, 9]; rays_o [B, V, 3]; rays_d [B, V, T, 3*p*p]
-        (patch layout); tri_vpos_view_tf [B, V, N, 9] camera-space
-        positions.  Returns images [B, V, H, W, out_dim] fp32."""
+        (patch layout) or, with ``vdir_num_freqs != 0``, [B, V, H, W, 3];
+        tri_vpos_view_tf [B, V, N, 9] camera-space positions.  Returns
+        images [B, V, H, W, out_dim] fp32."""
+        enc_key = view_key = None
+        if dropout_key is not None and self.config.dropout > 0.0:
+            enc_key, view_key = dropout_key.fold(0), dropout_key.fold(1)
         seq, mask_padded, rope_pos = self.construct_seq(
             tri_vpos, texture_patches, valid_mask, vns)
-        seq = self.transformer(seq, mask_padded, rope_pos)
+        seq = self.transformer(seq, mask_padded, rope_pos, enc_key)
 
         b, v = rays_o.shape[0], rays_o.shape[1]
         n_tok = seq.shape[1]
@@ -144,5 +148,5 @@ class RenderFormer(nn.Module):
         pos_seq, _ = self.process_tri_vpos(tri_view, valid_bv)
         img = self.view_transformer(
             rays_o.reshape(b * v, 3), rays_d.reshape(b * v, *rays_d.shape[2:]),
-            seq, pos_seq, mask_bv)
+            seq, pos_seq, mask_bv, view_key)
         return img.reshape(b, v, *img.shape[1:])

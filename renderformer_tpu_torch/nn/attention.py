@@ -23,6 +23,13 @@ With ``remat`` set on the encoder or decoder, each block runs under
 ``torch.utils.checkpoint`` (non-reentrant) where autograd records it, as
 ``jax.checkpoint`` wraps each block in the JAX package: the backward
 recomputes the block's forward instead of keeping its activations.
+
+Dropout (a ``dropout`` rate > 0 and a :class:`~renderformer_tpu_torch.nn.
+core.DropoutKey`) sits where the JAX package puts it: in a block, on the
+attention output, the self-attention output, the FFN's hidden activation,
+the FFN's output and the FFN branch at its residual join, in that order;
+the encoder and the decoder fold the layer index into the key, a block
+the site index, so a recomputed block draws its forward's masks.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ from torch.utils.checkpoint import checkpoint
 
 from renderformer_tpu_torch.encodings.rope import (
     freqs_to_cos_sin, rope_frequencies, triangle_freqs)
-from renderformer_tpu_torch.nn.core import ATTN_EPS, RopeFreqs, gelu, make_norm, silu
+from renderformer_tpu_torch.nn.core import (
+    ATTN_EPS, DropoutKey, RopeFreqs, dropout, gelu, make_norm, silu)
 from renderformer_tpu_torch.nn.swin import seq_from_window_order, seq_to_window_order
 from renderformer_tpu_torch.ops.flash_attention import (
     fan_out, flash_attention, flash_attention_rope)
@@ -65,25 +73,32 @@ def rope_tables(pos, freqs, head_dim: int):
 
 
 class FeedForward(nn.Module):
-    """SwiGLU (w2(silu(w1 x) * w3 x)) or GeLU FFN."""
+    """SwiGLU (w2(silu(w1 x) * w3 x)) or GeLU FFN, with dropout on the
+    hidden activation and on the output."""
 
     def __init__(self, dim: int, hidden_dim: int, activation: str = 'swiglu',
-                 bias: bool = False):
+                 bias: bool = False, dropout: float = 0.0):
         super().__init__()
         if activation not in ('swiglu', 'gelu'):
             raise ValueError(f'Unsupported activation: {activation}')
         self.activation = activation
+        self.dropout = dropout
         self.w1 = nn.Linear(dim, hidden_dim, bias=bias)
         self.w2 = nn.Linear(hidden_dim, dim, bias=bias)
         if activation == 'swiglu':
             self.w3 = nn.Linear(dim, hidden_dim, bias=bias)
 
-    def forward(self, x):
+    def forward(self, x, key: Optional[DropoutKey] = None):
         if self.activation == 'swiglu':
             h = silu(self.w1(x)) * self.w3(x)
         else:
             h = gelu(self.w1(x))
-        return self.w2(h)
+        h = dropout(h, self.dropout, _fold(key, 0))
+        return dropout(self.w2(h), self.dropout, _fold(key, 1))
+
+
+def _fold(key: Optional[DropoutKey], i: int) -> Optional[DropoutKey]:
+    return None if key is None else key.fold(i)
 
 
 def _split_in_proj(x, in_proj: nn.Linear, d: int):
@@ -205,12 +220,13 @@ class AttentionLayer(nn.Module):
                  activation: str = 'swiglu', norm_type: str = 'rms_norm',
                  qk_norm: bool = False, add_self_attn: bool = False,
                  use_swin_attn: bool = False, window_size: int = 8,
-                 shift_size: int = 0):
+                 shift_size: int = 0, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.multihead_attn = MultiHeadAttention(query_dim, num_heads, kv_dim, bias,
                                                  qk_norm, norm_type)
         self.query_norm = make_norm(norm_type, query_dim, ATTN_EPS)
-        self.ffn = FeedForward(query_dim, ffn_hidden_dim, activation, bias)
+        self.ffn = FeedForward(query_dim, ffn_hidden_dim, activation, bias, dropout)
         self.ffn_norm = make_norm(norm_type, query_dim, ATTN_EPS)
         self.is_cross = kv_dim is not None
         if self.is_cross:
@@ -227,20 +243,24 @@ class AttentionLayer(nn.Module):
             self.self_attn_norm = make_norm(norm_type, query_dim, ATTN_EPS)
 
     def forward(self, query, kv=None, mask=None, rope_cos=None, rope_sin=None,
-                rope_ctx_cos=None, rope_ctx_sin=None, grid=None):
-        """``grid`` = (patch_h, patch_w) of a window-ordered Swin stream."""
+                rope_ctx_cos=None, rope_ctx_sin=None, grid=None,
+                key: Optional[DropoutKey] = None):
+        """``grid`` = (patch_h, patch_w) of a window-ordered Swin stream;
+        ``key`` the block's dropout key (None: no dropout)."""
         q = self.query_norm(query)
         kv = self.kv_norm(kv) if self.is_cross else q
-        query = query + self.multihead_attn(q, kv, kv, mask, rope_cos, rope_sin,
-                                            rope_ctx_cos, rope_ctx_sin)
+        attn = self.multihead_attn(q, kv, kv, mask, rope_cos, rope_sin,
+                                   rope_ctx_cos, rope_ctx_sin)
+        query = query + dropout(attn, self.dropout, _fold(key, 0))
         if self.add_self_attn:
             q = self.self_attn_norm(query)
             if self.use_swin_attn:
                 sa = self.self_attn(q, grid)
             else:
                 sa = self.self_attn(q, q, q, None, rope_cos, rope_sin)
-            query = query + sa
-        return query + self.ffn(self.ffn_norm(query))
+            query = query + dropout(sa, self.dropout, _fold(key, 1))
+        ffn = self.ffn(self.ffn_norm(query), _fold(key, 2))
+        return query + dropout(ffn, self.dropout, _fold(key, 3))
 
 
 def remat_call(module: nn.Module, *args):
@@ -286,24 +306,26 @@ class TransformerEncoder(nn.Module):
                  ffn_hidden_dim: int, rope_dim: Optional[int], bias: bool = False,
                  activation: str = 'swiglu', norm_type: str = 'rms_norm',
                  rope_type: str = 'triangle', rope_double_max_freq: bool = False,
-                 qk_norm: bool = False):
+                 qk_norm: bool = False, dropout: float = 0.0):
         super().__init__()
         self.head_dim = hidden_dim // num_heads
         self.layers = nn.ModuleList([
             AttentionLayer(hidden_dim, num_heads, ffn_hidden_dim, bias=bias,
-                           activation=activation, norm_type=norm_type, qk_norm=qk_norm)
+                           activation=activation, norm_type=norm_type, qk_norm=qk_norm,
+                           dropout=dropout)
             for _ in range(num_layers)])
         rd = _resolved_rope_dim(rope_dim, rope_type, self.head_dim)
         self.rope_emb = (None if rd is None
                          else RopeFreqs(rope_frequencies(rd, rope_double_max_freq)))
         self.remat = False
 
-    def forward(self, x, mask, triangle_pos):
+    def forward(self, x, mask, triangle_pos, key: Optional[DropoutKey] = None):
         cos = sin = None
         if self.rope_emb is not None:
             cos, sin = rope_tables(triangle_pos, self.rope_emb.freqs, self.head_dim)
-        for layer in self.layers:
-            x = _run_block(self.remat, layer, x, None, mask, cos, sin)
+        for idx, layer in enumerate(self.layers):
+            x = _run_block(self.remat, layer, x, None, mask, cos, sin, None, None, None,
+                           _fold(key, idx))
         return x
 
 
@@ -324,7 +346,7 @@ class TransformerDecoder(nn.Module):
                  activation: str = 'swiglu', norm_type: str = 'rms_norm',
                  qk_norm: bool = False, rope_type: str = 'triangle',
                  rope_double_max_freq: bool = False, use_swin_attn: bool = False,
-                 window_size: int = 8, shift_size: int = 4):
+                 window_size: int = 8, shift_size: int = 4, dropout: float = 0.0):
         super().__init__()
         self.head_dim = hidden_dim // num_heads
         self.use_swin_attn = use_swin_attn
@@ -334,7 +356,7 @@ class TransformerDecoder(nn.Module):
                            bias=bias, activation=activation, norm_type=norm_type,
                            qk_norm=qk_norm, add_self_attn=include_self_attn,
                            use_swin_attn=use_swin_attn, window_size=window_size,
-                           shift_size=0 if idx % 2 == 0 else shift_size)
+                           shift_size=0 if idx % 2 == 0 else shift_size, dropout=dropout)
             for idx in range(num_layers)])
         rd = _resolved_rope_dim(rope_dim, rope_type, self.head_dim)
         self.rope_emb = (None if rd is None
@@ -342,7 +364,8 @@ class TransformerDecoder(nn.Module):
         self.remat = False
 
     def forward(self, x, ctx, mask, triangle_pos, ray_pos,
-                out_layers: Sequence[int] = (), grid=None):
+                out_layers: Sequence[int] = (), grid=None,
+                key: Optional[DropoutKey] = None):
         """``grid`` = (patch_h, patch_w) of the ray tokens, for Swin.  Without
         RoPE the positions are not read."""
         cos = sin = ctx_cos = ctx_sin = None
@@ -361,7 +384,8 @@ class TransformerDecoder(nn.Module):
                 sin = seq_to_window_order(sin, ph, pw, ws)
         outs = []
         for idx, layer in enumerate(self.layers):
-            x = _run_block(self.remat, layer, x, ctx, mask, cos, sin, ctx_cos, ctx_sin, grid)
+            x = _run_block(self.remat, layer, x, ctx, mask, cos, sin, ctx_cos, ctx_sin, grid,
+                           _fold(key, idx))
             if idx in out_layers:
                 outs.append(seq_from_window_order(x, ph, pw, ws) if windowed else x)
         if windowed:

@@ -95,6 +95,49 @@ def elu(x, alpha: float = 1.0):
     return torch.where(x > 0, x, alpha * (torch.exp(safe) - 1.0))
 
 
+class DropoutKey:
+    """The seed of the dropout masks below a point of the model: a path of
+    non-negative ints, from a train step's ``(seed, step)`` down to one
+    site.  ``fold`` extends the path, as ``jax.random.fold_in`` and
+    ``split`` derive keys in the JAX package.  A mask is a function of the
+    path alone, so a block that ``torch.utils.checkpoint`` recomputes in
+    the backward draws the masks of its forward again: the checkpoint
+    restores the global RNG states only, and a generator made once and
+    consumed would hand the recomputation other masks."""
+
+    __slots__ = ('path',)
+
+    def __init__(self, *path: int):
+        self.path = tuple(int(p) for p in path)
+
+    def fold(self, *ids: int) -> 'DropoutKey':
+        return DropoutKey(*self.path, *ids)
+
+    def generator(self, device) -> torch.Generator:
+        """A generator on ``device`` seeded from the path (63 bits)."""
+        hi, lo = np.random.SeedSequence(self.path).generate_state(2, np.uint32)
+        g = torch.Generator(device=device)
+        g.manual_seed((int(hi) & 0x7FFFFFFF) << 32 | int(lo))
+        return g
+
+    def __repr__(self):
+        return f'DropoutKey{self.path}'
+
+
+def dropout(x, rate: float, key: Optional[DropoutKey]):
+    """Inverted dropout: each unit kept with probability ``keep = 1 - rate``
+    (a uniform draw below ``keep``) and scaled by ``1 / keep``, with
+    ``keep`` rounded to x's dtype first, as the JAX package divides by
+    ``jnp.asarray(keep, x.dtype)``.  ``key=None`` or ``rate <= 0`` is the
+    eval path: x itself, no operation."""
+    if key is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    keep_x = float(torch.tensor(keep, dtype=x.dtype))
+    u = torch.rand(x.shape, generator=key.generator(x.device), device=x.device)
+    return torch.where(u < keep, x / keep_x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class RopeFreqs(nn.Module):
     """Holds the RoPE base frequencies as the buffer ``freqs`` (the
     reference's ``rope_emb.freqs``); always fp32."""

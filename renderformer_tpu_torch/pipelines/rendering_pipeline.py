@@ -1,8 +1,9 @@
 """User-facing rendering pipeline of the port.
 
 ``render`` runs the whole render step eagerly on the pipeline's device:
-HDR encode, camera-space transform, patch-layout ray generation, both
-transformer stages, HDR decode.  ``render_many`` renders K camera chunks
+HDR encode, camera-space transform, ray generation (in the view
+transformer's patch layout, or the 2-D map that ``vdir_num_freqs != 0``
+encodes), both transformer stages, HDR decode.  ``render_many`` renders K camera chunks
 of one scene, the video path: the scene moves to the device and its
 texture is HDR-encoded once, then each chunk is one ``render_fn``.
 ``from_pretrained`` loads a local checkpoint directory (an HF directory in
@@ -32,9 +33,9 @@ import torch
 from renderformer_tpu_torch.config import PRESETS, RenderFormerConfig, RuntimeConfig
 from renderformer_tpu_torch.convert import import_params, load_pretrained
 from renderformer_tpu_torch.models.renderformer import RenderFormer
-from renderformer_tpu_torch.nn.core import cast_params, init_weights
+from renderformer_tpu_torch.nn.core import DropoutKey, cast_params, init_weights
 from renderformer_tpu_torch.utils.hdr import hdr_decode_image, hdr_encode_texture
-from renderformer_tpu_torch.utils.rays import generate_rays_patched
+from renderformer_tpu_torch.utils.rays import generate_rays, generate_rays_patched
 from renderformer_tpu_torch.utils.transform import trans_to_cam_coord
 
 _DTYPES = {
@@ -60,13 +61,14 @@ def resolve_device(device=None) -> torch.device:
 
 def render_fn(model: RenderFormer, triangles, texture, mask, vn, c2w, fov, *,
               resolution: int, output_dtype: Optional[torch.dtype] = None,
-              texture_encoded: bool = False):
+              texture_encoded: bool = False, dropout_key: Optional[DropoutKey] = None):
     """One render step on tensors of the model's device.
 
     triangles [bs, N, 3, 3], texture [bs, N, C, ps, ps], mask [bs, N] bool,
     vn [bs, N, 3, 3], c2w [bs, V, 4, 4], fov [bs, V, 1] degrees.  Returns
     HDR images [bs, V, H, W, 3].  ``texture_encoded``: the texture is
-    already HDR-encoded (``render_many`` encodes it once for all chunks)."""
+    already HDR-encoded (``render_many`` encodes it once for all chunks).
+    ``dropout_key``: the train step's dropout masks (None: none)."""
     cfg = model.config
     bs, nv = c2w.shape[0], c2w.shape[1]
     if resolution % cfg.patch_size:
@@ -87,11 +89,14 @@ def render_fn(model: RenderFormer, triangles, texture, mask, vn, c2w, fov, *,
     else:
         tris_view = triangles[:, None].expand(bs, nv, *triangles.shape[1:])
         c2w_view = c2w
-    rays_o, rays_d = generate_rays_patched(c2w_view, fov / 180.0 * np.pi, resolution,
-                                           cfg.patch_size)
+    if cfg.vdir_num_freqs == 0:
+        rays_o, rays_d = generate_rays_patched(c2w_view, fov / 180.0 * np.pi, resolution,
+                                               cfg.patch_size)
+    else:
+        rays_o, rays_d = generate_rays(c2w_view, fov / 180.0 * np.pi, resolution)
 
     imgs = model(triangles.reshape(bs, -1, 9), texture, mask, vn.reshape(bs, -1, 9),
-                 rays_o, rays_d, tris_view.reshape(bs, nv, -1, 9))
+                 rays_o, rays_d, tris_view.reshape(bs, nv, -1, 9), dropout_key)
     imgs = imgs.float()
     if not cfg.use_ldr:
         imgs = hdr_decode_image(imgs)
@@ -176,7 +181,8 @@ class RenderingPipeline:
         view_dtype = dtype if view_precision is None else _DTYPES[view_precision]
         model = self._model_for(dtype, view_dtype)
         # pipelines may share a model, so the tail is set at every render
-        model.view_transformer.out_dpt.tail = self.runtime.dpt_tail
+        if model.config.use_dpt_decoder:
+            model.view_transformer.out_dpt.tail = self.runtime.dpt_tail
         return model, (_OUT_DTYPES[output_dtype] if output_dtype else None)
 
     def _arg(self, x, dtype) -> torch.Tensor:

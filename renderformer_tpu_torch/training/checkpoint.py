@@ -5,6 +5,10 @@ export inference weights as a directory either package loads.
 The counterpart of ``renderformer_tpu/training/checkpoint.py`` (which uses
 orbax) with ``torch.save``: one ``state.pt`` under ``ckpt_dir/tag``.  The
 compute-dtype shadow is not saved; it is rebuilt from the masters.
+
+The port updates parameters and moments in place, so a save on another
+thread takes :func:`snapshot`, host copies made before the next step, and
+:func:`write_checkpoint` writes them; :func:`save_checkpoint` is both.
 """
 
 from __future__ import annotations
@@ -26,22 +30,35 @@ META_FILE = 'renderformer_meta.json'
 
 
 def _cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {n: t.detach().cpu() for n, t in tensors.items()}
+    """Host copies (a copy also of a tensor already on the host)."""
+    return {n: t.detach().to('cpu', copy=True) for n, t in tensors.items()}
+
+
+def snapshot(state: TrainState) -> Dict[str, Any]:
+    """The state's parameters, optimizer state and step as host copies,
+    finished when this returns: later in-place updates do not reach them."""
+    opt = state.opt_state
+    return {'params': _cpu(state.model.state_dict()),
+            'opt_state': {'count': opt['count'], 'mu': _cpu(opt['mu']), 'nu': _cpu(opt['nu'])},
+            'step': state.step}
 
 
 def save_checkpoint(ckpt_dir: str, tag: str, state: TrainState,
                     model_config: RenderFormerConfig,
                     extra: Optional[Dict[str, Any]] = None) -> str:
     """Save under ``ckpt_dir/tag``, replacing what is there; returns the path."""
+    return write_checkpoint(ckpt_dir, tag, snapshot(state), model_config, extra)
+
+
+def write_checkpoint(ckpt_dir: str, tag: str, payload: Dict[str, Any],
+                     model_config: RenderFormerConfig,
+                     extra: Optional[Dict[str, Any]] = None) -> str:
+    """Write a :func:`snapshot` under ``ckpt_dir/tag``, replacing what is
+    there; returns the path."""
     path = os.path.abspath(os.path.join(ckpt_dir, tag))
     if os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
-    opt = state.opt_state
-    payload = {'params': _cpu(state.model.state_dict()),
-               'opt_state': {'count': opt['count'], 'mu': _cpu(opt['mu']),
-                             'nu': _cpu(opt['nu'])},
-               'step': state.step}
     torch.save(payload, os.path.join(path, STATE_FILE))
     meta = {'model_config': model_config.to_dict(), 'extra': extra or {}}
     with open(os.path.join(path, META_FILE), 'w') as f:

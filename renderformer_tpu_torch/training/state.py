@@ -29,6 +29,16 @@ run-dependent order).  The rest of the step gives the same bits anyway:
 the hand-written kernels write each output once in a fixed order, and the
 DPT tail's border lerp has a VJP by one matrix product
 (``ops/fused_resize.py:resize_axis``).
+
+Dropout (a model config with ``dropout > 0``) draws its masks from
+``DropoutKey(TrainConfig.seed, step)``, as the JAX package folds the step
+into ``key(seed)``: a step draws the same masks after a resume, and a
+recomputed remat block the masks of its forward.  A batch may carry the
+compact texture ``texture_flat`` [B, N, 13] in place of ``texture``; the
+step broadcasts it on the device with the patch mask.  ``debug_nans``
+raises ``FloatingPointError`` at the first operation of a step's forward
+or backward that makes a NaN, as ``jax_debug_nans`` does, and only inside
+the step.
 """
 
 from __future__ import annotations
@@ -43,10 +53,13 @@ import numpy as np
 import torch
 import torch.nn as nn
 from torch.func import functional_call
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
-from renderformer_tpu_torch.nn.core import RopeFreqs
+from renderformer_tpu_torch.nn.core import DropoutKey, RopeFreqs
 from renderformer_tpu_torch.ops.flash_attention import BWD_VARIANTS, flash_backward
 from renderformer_tpu_torch.pipelines.rendering_pipeline import render_fn
+from renderformer_tpu_torch.training.dataset import texture_patch_mask
 
 VIEW_PREFIX = 'view_transformer.'
 
@@ -65,9 +78,9 @@ class TrainConfig:
     min_lr_scale: float = 0.0  # cosine floor (end value / peak)
     remat: bool = False        # gradient checkpointing of every transformer block
     bf16_shadow_params: bool = False  # differentiate a compute-dtype copy
-    seed: int = 0              # dropout seed of the JAX package (dropout is not ported)
+    seed: int = 0              # dropout masks from DropoutKey(seed, step)
     skip_nonfinite: bool = True
-    debug_nans: bool = False       # not ported
+    debug_nans: bool = False       # raise at the first op of a step that makes a NaN
     deterministic: bool = False    # the same bits every run: K9 and deterministic cuDNN
     flash_bwd: str = ''        # attention backward: K8 'fused' or K9 'twokernel';
     #                            '' -> 'fused', or 'twokernel' under deterministic
@@ -190,7 +203,12 @@ def make_optimizer(tc: TrainConfig) -> AdamW:
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    """sqrt of the sum of squares of every element (optax.global_norm), fp32.
+    On the CPU each tensor's sum runs in fp64: the CPU's fp32 norm reads a
+    1M-element gradient 2.7e-5 low."""
+    if tensors and not tensors[0].is_cuda:
+        norms = [torch.linalg.vector_norm(t, dtype=torch.float64) for t in tensors]
+        return torch.linalg.vector_norm(torch.stack(norms)).float()
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
@@ -248,6 +266,24 @@ def _uses_shadow(tc: TrainConfig) -> bool:
     return tc.bf16_shadow_params and torch.bfloat16 in (dtype, view_dtype)
 
 
+_MASKS: Dict[Tuple, torch.Tensor] = {}
+
+
+def batch_texture(batch, patch_size: int) -> torch.Tensor:
+    """The batch's texture patches: ``texture`` as it is, or the compact
+    ``texture_flat`` [B, N, 13] broadcast on its device into
+    [B, N, 13, ps, ps] with the lower-triangle patch mask of ``patch_size``
+    (the JAX package's ``batch_texture``), in the flat form's dtype."""
+    if 'texture' in batch:
+        return batch['texture']
+    flat = batch['texture_flat']
+    key = (patch_size, flat.dtype, flat.device)
+    if key not in _MASKS:
+        _MASKS[key] = torch.from_numpy(texture_patch_mask(patch_size)).to(flat.device,
+                                                                           flat.dtype)
+    return flat[..., None, None] * _MASKS[key]
+
+
 class _RenderStep(nn.Module):
     """render_fn as a module, so that ``functional_call`` can put the
     stage casts in place of the model's parameters."""
@@ -257,13 +293,48 @@ class _RenderStep(nn.Module):
         self.model = model
         self.resolution = resolution
 
-    def forward(self, batch):
-        if 'texture' not in batch:
-            raise NotImplementedError('the compact texture form (texture_flat) waits for '
-                                      'the data plane; pass texture [B, N, 13, ps, ps]')
-        return render_fn(self.model, batch['triangles'], batch['texture'], batch['mask'],
+    def forward(self, batch, key: Optional[DropoutKey] = None):
+        texture = batch_texture(batch, self.model.config.texture_encode_patch_size)
+        return render_fn(self.model, batch['triangles'], texture, batch['mask'],
                          batch['vn'], batch['c2w'], batch['fov'],
-                         resolution=self.resolution)
+                         resolution=self.resolution, dropout_key=key)
+
+
+# factory ops whose output holds memory no one has written yet
+_UNWRITTEN = {torch.ops.aten.empty.memory_format, torch.ops.aten.empty_strided.default,
+              torch.ops.aten.empty_like.default, torch.ops.aten.new_empty.default,
+              torch.ops.aten.new_empty_strided.default}
+
+
+def _has_nan(t) -> bool:
+    return (isinstance(t, torch.Tensor) and t.is_floating_point()
+            and bool(torch.isnan(t).any()))
+
+
+class NaNCheck(TorchDispatchMode):
+    """Raises ``FloatingPointError`` at the first operation whose output
+    holds a NaN (``jax_debug_nans``), in the forward and in the backward,
+    which autograd runs under the modes of the thread that called it.
+    Views and allocations are not checked.  A hand-written kernel's launch
+    is no torch operation: a NaN it makes raises at the first operation
+    that reads it, and the message then says that the NaN came in."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.is_view or func in _UNWRITTEN:
+            return out
+        if any(_has_nan(t) for t in tree_leaves(out)):
+            came_in = any(_has_nan(t) for t in tree_leaves((args, kwargs)))
+            raise FloatingPointError(
+                f'invalid value (nan) encountered in {func}'
+                + (': a NaN among its inputs, from a kernel launch or the batch'
+                   if came_in else ''))
+        return out
+
+
+def nan_check(on: bool):
+    """:class:`NaNCheck` inside the block when ``on``; nothing otherwise."""
+    return NaNCheck() if on else contextlib.nullcontext()
 
 
 def flash_bwd_variant(tc: TrainConfig) -> str:
@@ -297,26 +368,20 @@ def cudnn_deterministic(on: bool):
         flags.deterministic, flags.benchmark = prev
 
 
-def _check_trainable(model: nn.Module, tc: TrainConfig) -> None:
-    if model.config.dropout > 0.0:
-        raise NotImplementedError('dropout is not ported: a config with dropout > 0 would '
-                                  'train a different function from the JAX package')
-    if tc.debug_nans:
-        raise NotImplementedError('TrainConfig.debug_nans is not ported')
-
-
 def make_loss_fns(model: nn.Module, tc: TrainConfig):
     """Build ``images(state, batch)``, the render of the batch in the
     stages' compute dtypes (in-graph casts of the masters, or the shadow),
     and ``loss_and_grads(state, batch) -> (loss, grads)``: the MSE loss and
-    its fp32 gradients in the order of ``state.model.parameters()``."""
-    _check_trainable(model, tc)
+    its fp32 gradients in the order of ``state.model.parameters()``.  With
+    the config's dropout on, ``loss_and_grads`` draws the masks of
+    ``DropoutKey(tc.seed, state.step)``; ``images`` takes a key or none."""
     variant = flash_bwd_variant(tc)
     dtype, view_dtype = resolve_dtypes(tc)
     use_shadow = _uses_shadow(tc)
     step_module = _RenderStep(model, tc.resolution)
+    use_dropout = model.config.dropout > 0.0
 
-    def images(state: TrainState, batch):
+    def images(state: TrainState, batch, key: Optional[DropoutKey] = None):
         state.model.remat = tc.remat
         state.model.fused_norm = tc.fused_norm
         if use_shadow:
@@ -324,14 +389,16 @@ def make_loss_fns(model: nn.Module, tc: TrainConfig):
                 state.shadow = make_shadow(state.model, tc)
             state.shadow.remat = tc.remat
             state.shadow.fused_norm = tc.fused_norm
-            return _RenderStep(state.shadow, tc.resolution)(batch)
+            return _RenderStep(state.shadow, tc.resolution)(batch, key)
         cast = {f'model.{n}': p.to(stage_dtype(n, dtype, view_dtype))
                 for n, p in state.model.named_parameters()}
-        return functional_call(step_module, cast, (batch,))
+        return functional_call(step_module, cast, (batch, key))
 
     def loss_and_grads(state: TrainState, batch):
-        with flash_backward(variant), cudnn_deterministic(tc.deterministic):
-            imgs = images(state, batch)
+        key = DropoutKey(tc.seed, state.step) if use_dropout else None
+        with (flash_backward(variant), cudnn_deterministic(tc.deterministic),
+              nan_check(tc.debug_nans)):
+            imgs = images(state, batch, key)
             loss = torch.mean(torch.square(imgs - batch['gt'].to(imgs.dtype)))
             wrt = list((state.shadow if use_shadow else state.model).parameters())
             grads = torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
@@ -346,8 +413,9 @@ def make_train_step(model: nn.Module, tx: AdamW, tc: TrainConfig):
     holds the masters, ``state.model``).
 
     batch: dict of tensors on the model's device: triangles [B, N, 3, 3],
-    texture [B, N, 13, ps, ps], mask [B, N] bool, vn [B, N, 3, 3], c2w
-    [B, V, 4, 4], fov [B, V, 1], gt [B, V, H, W, 3], optional valid [B].
+    texture [B, N, 13, ps, ps] or texture_flat [B, N, 13], mask [B, N]
+    bool, vn [B, N, 3, 3], c2w [B, V, 4, 4], fov [B, V, 1], gt
+    [B, V, H, W, 3], optional valid [B].
     Metrics are Python floats: the step reads the loss and the grad norm
     once, to decide the NaN skip and the clip."""
     images, loss_and_grads = make_loss_fns(model, tc)
@@ -370,7 +438,8 @@ def make_train_step(model: nn.Module, tx: AdamW, tc: TrainConfig):
     def eval_step(state: TrainState, batch) -> Dict[str, float]:
         """Per-sample MSE weighted by the optional ``valid`` mask, as the sum,
         the count and their ratio."""
-        imgs = images(state, batch)
+        with nan_check(tc.debug_nans):
+            imgs = images(state, batch)
         sq = torch.square(imgs - batch['gt'].to(imgs.dtype))
         per_sample = sq.reshape(sq.shape[0], -1).mean(dim=-1)
         valid = batch.get('valid')

@@ -14,6 +14,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r'''
 import importlib, pkgutil, sys
+# the packages the card's machine lacks cannot be imported here either
+class _Absent:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('h5py', 'yaml', 'imageio', 'tensorboard'):
+            raise ImportError(f'{name} made unimportable')
+        return None
+sys.meta_path.insert(0, _Absent())
 import renderformer_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
 for n in names:
@@ -23,7 +30,8 @@ bad = sorted(m for m in sys.modules
              or m == 'renderformer_tpu' or m.startswith('renderformer_tpu.'))
 # the packages the card's machine lacks: imported only where they are called
 absent = sorted(m for m in sys.modules
-                if m.split('.')[0] in ('h5py', 'safetensors', 'cv2', 'imageio'))
+                if m.split('.')[0] in ('h5py', 'safetensors', 'cv2', 'imageio', 'yaml',
+                                       'tensorboard'))
 print(len(names), bad, absent)
 assert not bad, bad
 assert not absent, absent
@@ -32,7 +40,7 @@ for n in ('nn.swin', 'ops.swin_attention', 'ops.shifted_regroup', 'ops.s2d_conv'
           'training.state',
           'training.checkpoint', 'training.trainer', 'io.safetensors', 'io.image',
           'io.h5', 'utils.tone_map', 'utils.prefetch', 'utils.profiling', 'infer',
-          'batch_infer'):
+          'batch_infer', 'training.dataset', 'train'):
     assert 'renderformer_tpu_torch.' + n in names, n
 '''
 
@@ -100,11 +108,20 @@ def test_trainer_refuses_missing_cuda(monkeypatch):
 
 
 def test_unported_configurations_raise():
+    """pe_type='learned' still raises; the NeRF-encoded ray map and the
+    linear head, once refused, build."""
     from renderformer_tpu_torch import RenderFormerConfig
     from renderformer_tpu_torch.models.renderformer import RenderFormer
-    for kw in ({'pe_type': 'learned'}, {'use_dpt_decoder': False}, {'vdir_num_freqs': 2}):
-        with pytest.raises(NotImplementedError):
-            RenderFormer(RenderFormerConfig(**kw))
+    with pytest.raises(NotImplementedError):
+        RenderFormer(RenderFormerConfig(pe_type='learned'))
+    small = dict(latent_dim=72, num_layers=1, num_heads=2, vertex_pe_num_freqs=4,
+                 view_transformer_latent_dim=72,
+                 view_transformer_n_heads=2, view_transformer_n_layers=4)
+    vdir = RenderFormer(RenderFormerConfig(**small, vdir_num_freqs=2))
+    assert vdir.view_transformer.ray_map_encoder.in_features == (3 + 3 * 2 * 2) * 8 * 8
+    linear = RenderFormer(RenderFormerConfig(**small, use_dpt_decoder=False))
+    assert not hasattr(linear.view_transformer, 'out_dpt')
+    assert linear.view_transformer.out_proj.out_features == 8 * 8 * 3
 
 
 @pytest.mark.cuda

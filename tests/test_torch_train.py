@@ -315,13 +315,14 @@ def test_trainer_fits_saves_and_resumes(tmp_path):
 
 
 def test_unported_training_options_raise():
-    model = RenderFormer(RenderFormerConfig(**dict(TINY, dropout=0.1)))
-    tc = tstate.TrainConfig(**FP32)
-    with pytest.raises(NotImplementedError, match='dropout'):
-        tstate.make_train_step(model, tstate.make_optimizer(tc), tc)
-    tcb = tstate.TrainConfig(**FP32, debug_nans=True)
-    with pytest.raises(NotImplementedError):
-        tstate.make_train_step(_model(), tstate.make_optimizer(tcb), tcb)
+    """Dropout and debug_nans, once refused, now build and run a step; an
+    unknown backward and K8 under deterministic still raise."""
+    model = init_weights(RenderFormer(RenderFormerConfig(**dict(TINY, dropout=0.1))),
+                         torch.Generator().manual_seed(0))
+    for m, tc in ((model, tstate.TrainConfig(**FP32)),
+                  (_model(), tstate.TrainConfig(**FP32, debug_nans=True))):
+        _, metrics = _run(m, tc, [_torch(_batch())])
+        assert np.isfinite(metrics[0]['loss']) and np.isfinite(metrics[0]['grad_norm'])
     # an unknown backward, and K8 (dQ by atomics) under deterministic
     for bad in ({'flash_bwd': 'atomic'}, {'flash_bwd': 'fused', 'deterministic': True}):
         tcb = tstate.TrainConfig(**FP32, **bad)
