@@ -122,7 +122,25 @@ Phases, each printing its own lines:
      (use_dpt_decoder=False: K1 18 / K2 6 / K3 24) and vdir_num_freqs=6 (and
      K4 3 / K5 1) rendered at 512^2 x 8 views in bf16, >= 40 dB against the
      plain versions; and, informational, the fit loop's trained rays/s
-     beside the bare step's.
+     beside the bare step's;
+ 10. scenes to ground truth on the card: the native meshops library built
+     with g++ from native/meshops.cpp (seconds printed); examples/cbox.json
+     (remeshed: 4,326 triangles, one light) and veach-mis.json converted in
+     memory through the port's scene modules; the path tracer's physics
+     checks on the card (primary emission exact, direct lighting analytic,
+     the furnace cases with the bars of tests/test_path_tracer.py); cbox's
+     128^2 primary rays through the card's intersect against the CPU's (t
+     within 1e-5 relative, the triangle equal but at ties), and again under
+     allow_tf32=True (the same bits); a glossy 14-triangle box at 32^2, 256
+     spp, depth 3, card against CPU (4x4-block means within 2x the
+     difference of two card seeds, image means within 2 %); cbox's ground
+     truth at generate_dataset's settings (256^2, 64 spp, depth 3, clamp 10),
+     finite and >= 0, with seconds an image, path samples a second, peak
+     memory and the device idle share of a profiled 4-spp image; cbox through
+     the seeded v1-base renderer in bf16 at 512^2 with exactly a render's
+     launches (K1 18 / K2 6 / K3 24 / K4 3 / K5 1); and generate_dataset's
+     GT pass on two scene dicts at --seed 0, pathtrace (64^2, 16 spp) and
+     model (tiny), writing PNGs through io/image.write_png.
 Then one JSON line with every kernel's numbers per render of each model
 and per train step, the nvidia-smi line, and the result line.  Any failed
 check exits non-zero before the result line.  Imports nothing of JAX.
@@ -2470,6 +2488,366 @@ def fit_checks(card):
     print(f'fit: phase 9 in {time.time() - t0:.1f} s', flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: scenes to ground truth on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = os.path.join(HERE, 'examples')
+CBOX_TRIS = 4326                  # the in-repo examples/cbox.json, remeshed
+GT_RES, GT_SPP, GT_DEPTH, GT_CLAMP = 256, 64, 3, 10.0   # generate_dataset's GT
+PROFILE_SPP = 4                   # the profiled GT image's samples a pixel
+RAY_RES = 128                     # cbox's primary rays, card against CPU
+STAT_RES, STAT_SPP = 32, 256      # the card-against-CPU statistical render
+GEN_RES, GEN_SPP = 64, 16         # the generator's GT pass
+
+
+def _quad(center, u, v, size):
+    c = np.asarray(center, np.float32)
+    u = np.asarray(u, np.float32) * size / 2
+    v = np.asarray(v, np.float32) * size / 2
+    p00, p01, p10, p11 = c - u - v, c - u + v, c + u - v, c + u + v
+    return np.stack([np.stack([p00, p10, p11]), np.stack([p00, p11, p01])]).astype(np.float32)
+
+
+def _flat_vn(tris):
+    n = np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])
+    n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-9)
+    return np.repeat(n[:, None, :], 3, axis=1).astype(np.float32)
+
+
+def _camera(pos, rot=None):
+    c2w = np.eye(4, dtype=np.float32)
+    if rot is not None:
+        c2w[:3, :3] = rot
+    c2w[:3, 3] = pos
+    return c2w
+
+
+# a camera looking straight down -y: x right, -z up in the image
+DOWN = np.stack([np.array([1, 0, 0]), np.array([0, 0, -1]), np.array([0, 1, 0])],
+                axis=1).astype(np.float32)
+
+
+def physics_scenes():
+    """The physics checks of tests/test_path_tracer.py: name -> (scene,
+    render keywords, check(img) -> (value, bar, ok))."""
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    out = {}
+    tris = _quad([0, 0, 0], [1, 0, 0], [0, 1, 0], 2.0)
+    out['primary emission exact'] = (
+        (tris, np.zeros((2, 3)), f32([[2.0, 3.0, 4.0]] * 2), _camera([0, 0, 3.0]), 40.0),
+        dict(resolution=16, spp=2, max_depth=1),
+        lambda img: (img[8, 8].tolist(), 'rtol 1e-5 of [2, 3, 4]',
+                     np.allclose(img[8, 8], [2.0, 3.0, 4.0], rtol=1e-5, atol=0)))
+    h, s, E = 2.0, 0.05, 500.0
+    tris = np.concatenate([_quad([0, 0, 0], [1, 0, 0], [0, 0, -1], 4.0),
+                           _quad([0, h, 0], [1, 0, 0], [0, 0, 1], s)])
+    diffuse = f32([[0.6, 0.5, 0.4]] * 2 + [[0.0] * 3] * 2)
+    want = diffuse[0] / np.pi * E * (s * s) / (h * h)
+    out['direct lighting analytic'] = (
+        (tris, diffuse, f32([[0.0] * 3] * 2 + [[E] * 3] * 2), _camera([0, 1.0, 0], DOWN), 30.0),
+        dict(resolution=8, spp=128, max_depth=1),
+        lambda img: ((img[4, 4] / want).tolist(), 'ratio to analytic within 0.08',
+                     np.allclose(img[4, 4], want, rtol=0.08, atol=0)))
+    L, size = 2.0, 6.0
+    box = np.concatenate([_quad(c, u, v, size) for c, u, v in [
+        ([0, -3, 0], [1, 0, 0], [0, 0, -1]), ([0, 3, 0], [1, 0, 0], [0, 0, 1]),
+        ([0, 0, -3], [1, 0, 0], [0, 1, 0]), ([0, 0, 3], [-1, 0, 0], [0, 1, 0]),
+        ([-3, 0, 0], [0, 0, 1], [0, 1, 0]), ([3, 0, 0], [0, 0, -1], [0, 1, 0])]])
+    tris = np.concatenate([box, _quad([0, 0, 0], [1, 0, 0], [0, 1, 0], 1.0)])
+    n = len(tris)
+    diffuse = np.concatenate([np.zeros((12, 3), np.float32), np.ones((2, 3), np.float32)])
+    emissive = np.concatenate([np.full((12, 3), L, np.float32), np.zeros((2, 3), np.float32)])
+    for spec, rough, lo, hi in [(None, None, 0.97, 1.03), (0.5, 0.6, 0.90, 1.02),
+                                (1.0, 0.3, 0.90, 1.02), (1.0, 0.6, 0.88, 1.02)]:
+        kw = dict(resolution=8, spp=512, max_depth=4)
+        if spec is not None:
+            kw.update(specular=np.full(n, spec, np.float32), roughness=np.full(n, rough, np.float32))
+
+        def check(img, lo=lo, hi=hi):
+            c = float(img[3:5, 3:5].mean()) / L
+            return c, f'[{lo}, {hi}] of L', lo <= c <= hi
+        out[f'furnace spec {spec} rough {rough}'] = (
+            (tris, diffuse, emissive, _camera([0, 0, 2.0]), 20.0), kw, check)
+    return out
+
+
+def glossy_box():
+    """The statistical check's scene (tests/test_torch_path_tracer.py's): a
+    closed box of 14 triangles, red and green side walls, a GGX floor, a
+    small light 0.3 under the ceiling; the camera inside."""
+    walls = [([0, -1, 0], [1, 0, 0], [0, 0, -1], [0.7, 0.7, 0.7]),
+             ([0, 1, 0], [1, 0, 0], [0, 0, 1], [0.7, 0.7, 0.7]),
+             ([0, 0, -1], [1, 0, 0], [0, 1, 0], [0.7, 0.7, 0.7]),
+             ([0, 0, 1], [-1, 0, 0], [0, 1, 0], [0.7, 0.7, 0.7]),
+             ([-1, 0, 0], [0, 0, 1], [0, 1, 0], [0.7, 0.1, 0.1]),
+             ([1, 0, 0], [0, 0, -1], [0, 1, 0], [0.1, 0.7, 0.1])]
+    tris, diffuse, emissive, spec, rough = [], [], [], [], []
+    for i, (c, u, v, alb) in enumerate(walls):
+        tris.append(_quad(c, u, v, 2.0))
+        diffuse += [alb] * 2
+        emissive += [[0.0] * 3] * 2
+        spec += [1.0 if i == 0 else 0.1] * 2
+        rough += [0.3 if i == 0 else 0.9] * 2
+    tris.append(_quad([0, 0.7, 0], [1, 0, 0], [0, 0, 1], 0.5))
+    diffuse += [[0.0] * 3] * 2
+    emissive += [[30.0] * 3] * 2
+    spec += [0.0] * 2
+    rough += [1.0] * 2
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
+    return (np.concatenate(tris), f32(diffuse), f32(emissive), _camera([0, 0, 0.9]), 60.0,
+            dict(specular=f32(spec), roughness=f32(rough)))
+
+
+def trace(scene, dev, seed, **kw):
+    """path_trace of (tris, diffuse, emissive, c2w, fov_deg) on dev; HDR numpy."""
+    import torch
+    from renderformer_tpu_torch.scene.path_tracer import path_trace
+    tris, diffuse, emissive, c2w, fov = scene
+    t = lambda x, dt=torch.float32: torch.as_tensor(np.asarray(x), device=dev).to(dt)  # noqa: E731
+    for k in ('specular', 'roughness'):
+        if k in kw:
+            kw[k] = t(kw[k])
+    return path_trace(t(tris), t(_flat_vn(tris)), torch.ones(len(tris), dtype=torch.bool,
+                                                             device=dev),
+                      t(diffuse), t(emissive), t(c2w), np.float32(np.deg2rad(fov)),
+                      torch.Generator(dev).manual_seed(seed), **kw).cpu().numpy()
+
+
+def block_means(img, b=4):
+    h, w, c = img.shape
+    return img.reshape(h // b, b, w // b, b, c).mean(axis=(1, 3))
+
+
+def primary_rays(scene):
+    """cbox's RAY_RES^2 primary rays through the pixel centres, on the CPU."""
+    import torch
+    from renderformer_tpu_torch.scene.path_tracer import _primary_rays
+    return _primary_rays(torch.full((RAY_RES, RAY_RES, 2), 0.5),
+                         torch.as_tensor(scene['c2w'][0]),
+                         np.float32(np.deg2rad(scene['fov'][0])), RAY_RES)
+
+
+def check_intersection(scene, rays, want, dev, tf32):
+    """The card's intersect of ``rays`` against the CPU's (``want``): hits
+    equal, t within 1e-5 relative, the triangle equal except at ties (the
+    CPU's t of the card's triangle within 1e-5 of the CPU's nearest hit, as
+    on a shared edge).  Returns the card's (t, idx) on the CPU."""
+    import torch
+    from renderformer_tpu_torch.scene.path_tracer import intersect
+    o, d = rays
+    tris = torch.as_tensor(scene['triangles'])
+    mask = torch.as_tensor(scene['mask'])
+    t_cpu, i_cpu, h_cpu = want
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        t_dev, i_dev, h_dev = (x.cpu() for x in intersect(
+            o.to(dev), d.to(dev), tris.to(dev), mask.to(dev)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    rel = float(((t_dev - t_cpu).abs() / t_cpu.abs())[h_cpu].max())
+    n_hit_differ = int((h_dev != h_cpu).sum())
+    differ = ((i_dev != i_cpu) & h_cpu).nonzero()[:, 0].tolist()
+    ties = 0
+    for r in differ:
+        k = int(i_dev[r])
+        t_k = float(intersect(o[r:r + 1], d[r:r + 1], tris[k:k + 1], mask[k:k + 1])[0][0])
+        ties += abs(t_k - float(t_cpu[r])) <= 1e-5 * abs(float(t_cpu[r]))
+    print(f'scene: intersect cbox {RAY_RES}^2 primary rays x {tris.shape[0]} triangles, card '
+          f'against CPU (allow_tf32={tf32}): {int(h_cpu.sum())} of {h_cpu.numel()} hit, '
+          f'{n_hit_differ} differ (need 0); t max relative difference {rel:.3g} (need <= '
+          f'1e-5); the triangle differs at {len(differ)} rays, {ties} of them ties within '
+          f'1e-5 (need all)', flush=True)
+    if n_hit_differ or not rel <= 1e-5 or ties != len(differ):
+        fail(f'intersect (allow_tf32={tf32}): the card disagrees with the CPU')
+    return t_dev, i_dev
+
+
+def convert_example(name):
+    """An in-repo example scene converted in memory (no H5), as
+    generate_dataset's GT pass takes it; prints its triangles, lights and
+    seconds."""
+    from renderformer_tpu_torch.generate_dataset import scene_tensors
+    t = time.time()
+    with open(os.path.join(EXAMPLES, f'{name}.json')) as f:
+        scene = scene_tensors(json.load(f), EXAMPLES)
+    lights = int((scene['texture'][:, 10:13].max(axis=(1, 2, 3)) > 0).sum())
+    print(f'scene: {name} converted in memory in {time.time() - t:.2f} s: '
+          f'{scene["triangles"].shape[0]} triangles, {lights} emissive, '
+          f'{scene["c2w"].shape[0]} camera(s)', flush=True)
+    return scene, lights
+
+
+def scene_checks(card, dev='cuda'):
+    """Phase 10: scene JSONs to ground truth on the card.  (1) the native
+    meshops build; (2) cbox (remeshed) and veach-mis converted in memory,
+    cbox 4,326 triangles and one light; (3) the path tracer's physics
+    checks; (4) cbox's primary rays through the card's intersect against
+    the CPU's, also under allow_tf32=True; (5) a small glossy box at
+    STAT_RES^2 and STAT_SPP, card against CPU; (6) cbox's GT at
+    generate_dataset's settings, finite and >= 0, with its seconds, path
+    samples a second, peak memory and the device idle share of a profiled
+    image; (7) cbox through the seeded v1-base renderer at 512^2 in bf16,
+    exactly a render's K1-K5 launches; (8) the generator's pathtrace and
+    model GT passes on two scene dicts at --seed 0, writing PNGs."""
+    import random
+    import tempfile
+
+    import torch
+    from renderformer_tpu_torch import generate_dataset as gd
+    from renderformer_tpu_torch.io.image import read_png
+    from renderformer_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from renderformer_tpu_torch.scene import remesh
+    from renderformer_tpu_torch.scene.path_tracer import render_scene_pathtrace
+
+    t0 = time.time()
+    # (1) the native build
+    t = time.time()
+    lib = remesh.build()
+    print(f'scene: native meshops (g++ {" ".join(remesh.CXX_FLAGS)}) {lib} in '
+          f'{time.time() - t:.2f} s', flush=True)
+
+    # (2) two scenes, converted in memory
+    cbox, lights = convert_example('cbox')
+    if cbox['triangles'].shape[0] != CBOX_TRIS or lights != 1:
+        fail(f'cbox: {cbox["triangles"].shape[0]} triangles and {lights} lights, '
+             f'want {CBOX_TRIS} and 1')
+    convert_example('veach-mis')
+
+    # (3) physics on the card
+    for name, (scene, kw, check) in physics_scenes().items():
+        img = trace(scene, dev, 0, **kw)
+        value, bar, ok = check(img)
+        print(f'scene: physics {name}: {value} ({bar}) {"ok" if ok else "FAILED"}', flush=True)
+        if not ok:
+            fail(f'path tracer physics: {name}: {value}, want {bar}')
+
+    # (4) intersection: card against CPU, and under allow_tf32=True
+    from renderformer_tpu_torch.scene.path_tracer import intersect
+    rays = primary_rays(cbox)
+    t = time.time()
+    want = intersect(*rays, torch.as_tensor(cbox['triangles']), torch.as_tensor(cbox['mask']))
+    print(f'scene: intersect on the CPU in {time.time() - t:.2f} s', flush=True)
+    t_a, i_a = check_intersection(cbox, rays, want, dev, False)
+    t_b, i_b = check_intersection(cbox, rays, want, dev, True)
+    same = bool(torch.equal(t_a, t_b) and torch.equal(i_a, i_b))
+    print(f'scene: intersect on the card with allow_tf32 True and False: the same t and '
+          f'triangles bit for bit {same} (need True)', flush=True)
+    if not same:
+        fail('allow_tf32 changed the card\'s intersection')
+
+    # (5) statistics: card against CPU
+    box = glossy_box()
+    kw = dict(resolution=STAT_RES, spp=STAT_SPP, max_depth=3, **box[5])
+    t = time.time()
+    card0, card1 = (trace(box[:5], dev, s, **kw) for s in (0, 1))
+    t_card = (time.time() - t) / 2
+    t = time.time()
+    cpu0 = trace(box[:5], 'cpu', 0, **kw)
+    t_cpu = time.time() - t
+    noise = float(np.abs(block_means(card0) - block_means(card1)).max())
+    err = float(np.abs(block_means(card0) - block_means(cpu0)).max())
+    mean_rel = abs(float(card0.mean()) / float(cpu0.mean()) - 1)
+    print(f'scene: statistics, glossy box of {len(box[0])} triangles at {STAT_RES}^2, '
+          f'{STAT_SPP} spp, depth 3, NEE+MIS: 4x4-block means card - CPU max {err:.4g} '
+          f'against card seed 0 - seed 1 max {noise:.4g} (need <= 2x); image means card '
+          f'{float(card0.mean()):.5f} CPU {float(cpu0.mean()):.5f}, {mean_rel * 100:.3f} % '
+          f'apart (need <= 2 %); {t_card:.2f} s a card render, {t_cpu:.2f} s the CPU\'s',
+          flush=True)
+    if not (np.isfinite(card0).all() and np.isfinite(cpu0).all()):
+        fail('statistics: a render is not finite')
+    if not (err <= 2 * noise and mean_rel <= 0.02):
+        fail(f'statistics: the card disagrees with the CPU (blocks {err} against '
+             f'{noise}, means {mean_rel})')
+
+    # (6) cbox's GT at generate_dataset's settings
+    def gt(spp, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        img = render_scene_pathtrace(cbox, view=0, resolution=GT_RES, spp=spp,
+                                     max_depth=GT_DEPTH, seed=0, clamp=GT_CLAMP, device=dev,
+                                     **kw)
+        torch.cuda.synchronize()
+        return img, time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    img, sec = gt(GT_SPP)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    samples = GT_RES * GT_RES * GT_SPP
+    print(f'scene: cbox GT ({CBOX_TRIS} triangles) at {GT_RES}^2, {GT_SPP} spp, depth '
+          f'{GT_DEPTH}, clamp {GT_CLAMP}: {sec:.2f} s an image, {samples / sec:.4g} path '
+          f'samples/s, peak memory {peak:.3f} GiB; mean {float(img.mean()):.5f}, max '
+          f'{float(img.max()):.4g}, min {float(img.min()):.4g}, finite '
+          f'{bool(np.isfinite(img).all())}, on {card}', flush=True)
+    if not (np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0):
+        fail('cbox GT is not finite and >= 0, or is black')
+    from torch.profiler import ProfilerActivity, profile
+    _, plain = gt(PROFILE_SPP)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = gt(PROFILE_SPP)
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    for e in kernels[:10]:
+        print(f'profile: cbox GT {e.self_device_time_total / 1e3:9.3f} ms {e.count:7d}x '
+              f'{e.key[:90]}', flush=True)
+    print(f'scene: cbox GT at {PROFILE_SPP} spp: device time {dev_ms:.1f} ms (profiled), '
+          f'device idle share {1 - dev_ms / (plain * 1e3):.3f} of the {plain * 1e3:.1f} ms '
+          f'unprofiled image ({1 - dev_ms / (wall * 1e3):.3f} of the {wall * 1e3:.1f} ms '
+          f'profiled one)', flush=True)
+
+    # (7) the same cbox through the renderer
+    t = time.time()
+    pipe = render_pipeline(BASE)
+    print(f'scene: {BASE} seeded init in {time.time() - t:.1f} s', flush=True)
+    args = tuple(cbox[k][None] for k in ('triangles', 'texture', 'mask', 'vn', 'c2w'))
+    fov = cbox['fov'][None, :, None]
+    reset_launch_counts()
+    out = pipe.render(*args, fov, resolution=RES, precision='bf16')
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f'scene: cbox through {BASE} bf16 {RES}^2 launches ' + json.dumps(launches)
+          + f'; finite {bool(torch.isfinite(out).all())}, mean {float(out.float().mean()):.5f}',
+          flush=True)
+    if launches != EXPECTED_LAUNCHES[BASE]:
+        fail(f'cbox render launch counts {launches} != {EXPECTED_LAUNCHES[BASE]}')
+    if tuple(out.shape) != (1, 1, RES, RES, 3) or not bool(torch.isfinite(out).all()):
+        fail(f'cbox render: shape {tuple(out.shape)} or non-finite values')
+    del pipe, out
+    torch.cuda.empty_cache()
+
+    # (8) the generator's GT pass on in-memory scene dicts
+    root = tempfile.mkdtemp(prefix='rf_gen_')
+    try:
+        cfg = gd.build_config(gd.build_parser().parse_args(
+            ['--data_path', root, '--obj_path', os.path.join(EXAMPLES, 'objects', 'cbox'),
+             '--seed', '0']))
+        cfg['BASE_DIR'] = EXAMPLES
+        random.seed(0)
+        gen = gd.SceneGenerator(cfg)
+        scenes = {}
+        for i in range(2):  # drawn and converted in turn, as the generator does
+            name, scene = gen.next_scene(i)
+            scenes[name] = gd.scene_tensors(scene)
+        for mode, kw in (('pathtrace', dict(spp=GEN_SPP)), ('model', dict(preset='tiny'))):
+            t = time.time()
+            imgs = gd.render_gt(scenes, mode, os.path.join(root, mode), resolution=GEN_RES,
+                                seed=0, **kw)
+            for name, img in imgs.items():
+                back = read_png(os.path.join(root, mode, f'{name}.png'))
+                if back.shape != (GEN_RES, GEN_RES, 3) or not np.array_equal(back, img):
+                    fail(f'generator {mode}: {name}.png is not the image rendered')
+            print(f'scene: generator GT {mode} ({kw}) at {GEN_RES}^2 on 2 scenes at --seed 0 '
+                  f'({", ".join(f"{k}: {v["triangles"].shape[0]} triangles" for k, v in scenes.items())}) '
+                  f'in {time.time() - t:.2f} s; PNG means '
+                  f'{[round(float(x.mean()), 2) for x in imgs.values()]}', flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f'scene: phase 10 in {time.time() - t0:.1f} s', flush=True)
+
+
 def _times(weighted):
     """ms, plain_ms, bound_ms and library_ms of (row, launches) pairs: each
     row's median times its launches, summed; library_ms None where a row has
@@ -2536,6 +2914,7 @@ def main():
     launches.update(train_swin_checks(card))
     entry_point_checks(card)
     fit_checks(card)
+    scene_checks(card)
     for name in KERNELS:
         if not any(launches[p][name] for p in ALL_PATHS):
             fail(f'{name} was launched by no path')

@@ -6,7 +6,9 @@ use; on CPU tensors each kernel's plain PyTorch version runs instead.
 ``RenderingPipeline.from_pretrained`` loads a local checkpoint directory
 that ``export_params`` (or the JAX package's) wrote, or an HF directory in
 the reference layout; ``python -m renderformer_tpu_torch.infer``,
-``.batch_infer`` and ``.train`` (fine-tuning) are the command lines.
+``.batch_infer``, ``.train`` (fine-tuning), ``.scene.convert_scene``,
+``.render_h5_to_png`` and ``.generate_dataset`` (scenes and their
+path-traced ground truth) are the command lines.
 """
 
 from renderformer_tpu_torch.config import (

@@ -17,7 +17,8 @@ import importlib, pkgutil, sys
 # the packages the card's machine lacks cannot be imported here either
 class _Absent:
     def find_spec(self, name, path=None, target=None):
-        if name.split('.')[0] in ('h5py', 'yaml', 'imageio', 'tensorboard'):
+        if name.split('.')[0] in ('h5py', 'yaml', 'imageio', 'tensorboard', 'bpy',
+                                  'blenderproc'):
             raise ImportError(f'{name} made unimportable')
         return None
 sys.meta_path.insert(0, _Absent())
@@ -31,7 +32,7 @@ bad = sorted(m for m in sys.modules
 # the packages the card's machine lacks: imported only where they are called
 absent = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('h5py', 'safetensors', 'cv2', 'imageio', 'yaml',
-                                       'tensorboard'))
+                                       'tensorboard', 'bpy', 'blenderproc', 'PIL'))
 print(len(names), bad, absent)
 assert not bad, bad
 assert not absent, absent
@@ -40,7 +41,10 @@ for n in ('nn.swin', 'ops.swin_attention', 'ops.shifted_regroup', 'ops.s2d_conv'
           'training.state',
           'training.checkpoint', 'training.trainer', 'io.safetensors', 'io.image',
           'io.h5', 'utils.tone_map', 'utils.prefetch', 'utils.profiling', 'infer',
-          'batch_infer', 'training.dataset', 'train'):
+          'batch_infer', 'training.dataset', 'train', 'utils.look_at', 'scene.scene_config',
+          'scene.mesh', 'scene.remesh', 'scene.scene_mesh', 'scene.to_h5', 'scene.h5_tools',
+          'scene.convert_scene', 'scene.path_tracer', 'scene.render_scene',
+          'scene.blender_render', 'render_h5_to_png', 'generate_dataset'):
     assert 'renderformer_tpu_torch.' + n in names, n
 '''
 
@@ -56,28 +60,38 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 
 _HELP = r'''
-import sys
-from renderformer_tpu_torch import {cli}
+import importlib, sys
+cli = importlib.import_module('renderformer_tpu_torch.{cli}')
 try:
-    {cli}.main(['--help'])
+    cli.main(['--help'])
 except SystemExit as e:
     assert e.code == 0, e.code
 else:
     raise AssertionError('--help did not exit')
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'renderformer_tpu', 'h5py', 'cv2'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'renderformer_tpu', 'h5py', 'cv2',
+                                    'imageio', 'bpy', 'blenderproc'))
 assert not bad, bad
 '''
 
+# the flags each command line's help must show
+CLI_FLAGS = {
+    'infer': ['--model_id', '--cpu'],
+    'batch_infer': ['--model_id', '--cpu'],
+    'generate_dataset': ['--gt_mode', '--gt_spp', '--seed', '--cpu'],
+    'render_h5_to_png': ['--pathtrace', '--spp', '--cpu'],
+    'scene.convert_scene': ['json_file', 'output_h5'],
+}
 
-@pytest.mark.parametrize('cli', ['infer', 'batch_infer'])
+
+@pytest.mark.parametrize('cli', list(CLI_FLAGS))
 def test_cli_help_exits_0_without_jax(cli):
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     env['PYTHONPATH'] = REPO
     res = subprocess.run([sys.executable, '-c', _HELP.format(cli=cli)], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert '--model_id' in res.stdout and '--cpu' in res.stdout
+    assert all(flag in res.stdout for flag in CLI_FLAGS[cli]), res.stdout
     assert '--attn_impl' not in res.stdout and '--shard' not in res.stdout
 
 
