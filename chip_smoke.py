@@ -140,7 +140,29 @@ Phases, each printing its own lines:
      the seeded v1-base renderer in bf16 at 512^2 with exactly a render's
      launches (K1 18 / K2 6 / K3 24 / K4 3 / K5 1); and generate_dataset's
      GT pass on two scene dicts at --seed 0, pathtrace (64^2, 16 spp) and
-     model (tiny), writing PNGs through io/image.write_png.
+     model (tiny), writing PNGs through io/image.write_png;
+ 11. the multi-GPU code on one card: setup_distributed() under torchrun's
+     environment of world 1 makes an NCCL group; the ring's one-device fold
+     of 4 K/V slices at v1-base's view-stage cross site (8 views x 4,096
+     rays x 6 heads x 128 against 2,064 keys, view 0's last 516 masked: a
+     whole slice) and ray-self site (4,096 keys), in bf16 and fp32, the
+     site's q rotation and K3 included: the output and (dq, dk, dv) against
+     one unsharded K10 + K8 call and the plain ring (the kernels' plain
+     versions), and the fold under the two-kernel backward against its own
+     plain ring, within 2^-16 (fp32) and 2^-7 (bf16) of max|ref|, and
+     against the ring of the JAX partials in torch ops within 2^-16 and
+     2^-6 (a recorded deviation: that function does not round q after its
+     scaling), with exact launch counts (K3 1, K10 4, K8 or K9's two kernels
+     4), each kernel at the fold's shapes against its plain version, and the
+     fold's ms beside the unsharded call's;
+     one v1-base fit step through train.build inside the group, exactly
+     phase 7's fused launches with the gradient all-reduce run, and under
+     deterministic=True the loss, the grad norm and every updated parameter
+     the bits of the same step with no group; the v1-base 512^2 x 8-view
+     render on use_mesh() the bits of the render without it, with exactly a
+     render's launches; --attn_impl xla raising on the card; and
+     utils.profiling.trace() around a render writing a trace that names K1
+     and an annotate()d range; make_mesh() with no group a mesh of one rank.
 Then one JSON line with every kernel's numbers per render of each model
 and per train step, the nvidia-smi line, and the result line.  Any failed
 check exits non-zero before the result line.  Imports nothing of JAX.
@@ -183,7 +205,11 @@ TRAIN, TRAIN2, TRAIN_NERF = 'train v1-base', 'train v1-base twokernel', 'train v
 TRAIN_SWIN = 'train v1.1-swin-large'
 ROPE_TRAIN = (TRAIN, TRAIN2)
 TRAIN_PATHS = (TRAIN, TRAIN2, TRAIN_NERF, TRAIN_SWIN)
-ALL_PATHS = PATHS + TRAIN_PATHS
+# phase 11: the ring's one-device fold at v1-base's view-stage cross and
+# ray-self sites, in bf16 and fp32
+RING_PATHS = tuple(f'ring {site} {dt}' for site in ('cross', 'ray-self')
+                   for dt in ('bf16', 'fp32'))
+ALL_PATHS = PATHS + TRAIN_PATHS + RING_PATHS
 TRAIN_RES = 256
 TRAIN_ST = (TRAIN_RES // 8) ** 2   # 1024 ray tokens
 SWIN_TRAIN_RES = 512               # swin-large's step: 4096 ray tokens, 64 windows
@@ -2848,6 +2874,414 @@ def scene_checks(card, dev='cuda'):
     print(f'scene: phase 10 in {time.time() - t0:.1f} s', flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the multi-GPU code on one card
+# ---------------------------------------------------------------------------
+
+RING_N = 4                       # K/V slices of the ring's one-device fold
+RING_MASKED = SK // RING_N       # keys masked at the end of view 0 at the cross site
+# v1-base's view-stage attention sites: (Sq, Sk, per-scene K/V, masked)
+RING_SITES = {'cross': (ST, SK, True, True), 'ray-self': (ST, ST, False, False)}
+# bars of the fold, of max|ref|, against the unsharded kernels and the ring
+# of the kernels' plain versions, and of the fold under K9 against its own
+# plain ring: the flash kernels' fp32 bar; in bf16 one or two units of the
+# last place at the largest element (each output rounds once to bf16; K9's
+# dQ rounds a slice).  Against the ring of the JAX partials in torch ops, a
+# function that scales the logits after the product where the kernels round
+# q to bf16 after its scaling: 2^-6 in bf16, a deviation from the 2^-7 asked
+# for, set after H100 runs read dQ 0.0084 of max|ref| at the cross site
+# with the partials rounding P and dS as the kernels do and without, and
+# with the fold's dQ summed in fp32 and without (PERF.md, §6 and §7)
+RING_TOL = {'fp32': 2.0 ** -16, 'bf16': 2.0 ** -7}
+RING_TOL_JAX = {'fp32': 2.0 ** -16, 'bf16': 2.0 ** -6}
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def ring_site_inputs(site, dtype, dev='cuda'):
+    """v1-base's view-stage site at 512^2 x 8 views (6 heads of 128): q, the
+    per-scene (cross) or per-view (ray-self) K and V, the mask (view 0's last
+    RING_MASKED keys, a whole ring slice) and the RoPE tables, from numpy
+    seed 0, with the output cotangent."""
+    import torch
+    from renderformer_tpu_torch.encodings.rope import make_cos_sin
+    sq, sk, per_scene, masked = RING_SITES[site]
+    h = 6
+    rng = np.random.default_rng(0)
+
+    def t(*shape, dt=dtype):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32).to(dev, dt)
+
+    bkv = 1 if per_scene else V
+    q, k, v = t(V, sq, h, D), t(bkv, sk, h, D), t(bkv, sk, h, D)
+    mask = None
+    if masked:
+        mask = torch.ones((V, sk), dtype=torch.bool, device=dev)
+        mask[0, -RING_MASKED:] = False
+    tabs = []
+    for n in (sq, sk):
+        cos, sin = make_cos_sin(t(V, n, 9, dt=torch.float32), 12, D)
+        tabs += [cos[:, :, 0].contiguous(), sin[:, :, 0].contiguous()]
+    return q, k, v, mask, tabs, t(V, sq, h, D) * 0.1
+
+
+def ring_site_rotated(q, k, v, tabs):
+    """The model's ring site up to the ring: q rotated in fp32 torch ops, K
+    rotated and fanned out per view by K3, V fanned out."""
+    from renderformer_tpu_torch.encodings.rope import apply_rope
+    from renderformer_tpu_torch.ops.flash_attention import fan_out, rotate_kv
+    cq, sq_, ck, sk_ = tabs
+    return (apply_rope(q, cq[:, :, None, :], sq_[:, :, None, :]), rotate_kv(k, ck, sk_),
+            fan_out(v, q.shape[0]).contiguous())
+
+
+def ring_site_run(fold, q, k, v, mask, tabs, g, impl='flash'):
+    """The site's rotations, then the fold of RING_N slices (``fold``) or
+    one K10 call with its logsumexp, and the backward: the output and the
+    gradients of q, k and v."""
+    import torch
+    from renderformer_tpu_torch.ops.flash_attention import flash_attention
+    from renderformer_tpu_torch.parallel.ring_attention import ring_fold
+    q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+    qr, kr, vr = ring_site_rotated(q, k, v, tabs)
+    out = (ring_fold(qr, kr, vr, mask, n=RING_N, impl=impl) if fold
+           else flash_attention(qr, kr, vr, mask))
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    return (out.detach(), *grads)
+
+
+def ring_kernel_rows(rows, path, site, q, k, v, mask, tabs, g):
+    """The fold's kernels at the shapes and on the data it gives them, each
+    against its plain version: K3 at the site (its one launch), and for
+    each of the RING_N K/V slices K10 with its logsumexp and K8 against the
+    global logsumexp and delta (one launch of each a slice), per_run
+    {path: 1} a row.  SDPA and autograd through it on the slice are the
+    library yardsticks (a row of the slice with every key masked gives
+    SDPA NaNs, which only its time reads).  The logsumexp of such a row is
+    left out of the comparison and must lie below -1e29, where it weighs
+    exactly 0 in the merge; its output (uniform over the keys) is not."""
+    import torch
+    import torch.nn.functional as F
+    from renderformer_tpu_torch.ops import reference_kernels
+    from renderformer_tpu_torch.ops.flash_attention import (
+        flash_bwd, flash_fwd, rot_kv_broadcast, rot_kv_broadcast_plain)
+    dtype = q.dtype
+    it = 2 if dtype == torch.bfloat16 else 4
+    b, sq, h, _ = q.shape
+    bkv, sk = k.shape[0], k.shape[1]
+    one = {path: 1}
+    _, _, ck, sk_t = tabs
+    with torch.no_grad():
+        k_rot = rot_kv_broadcast(k, ck, sk_t)
+        ref_rot = rot_kv_broadcast_plain(k, ck, sk_t)
+        record_row(rows, 'rot_kv_broadcast', f'ring_{site}', dtype, one, k_rot, ref_rot,
+                   k3_tol(ref_rot), K3_WHY, lambda: rot_kv_broadcast(k, ck, sk_t), None,
+                   k3_bytes(b, bkv, sk, h, it), 3 * b * sk * h * D, PEAK_FP32)
+        del k_rot, ref_rot
+        qr, kr, vr = ring_site_rotated(q, k, v, tabs)
+        out, lse = flash_fwd(qr, kr, vr, mask, with_lse=True)  # the global logsumexp
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        qs, gs = qr.transpose(1, 2).contiguous(), g.transpose(1, 2).contiguous()
+        n = sk // RING_N
+        for i in range(RING_N):
+            cut = slice(i * n, (i + 1) * n)
+            ki, vi = kr[:, cut].contiguous(), vr[:, cut].contiguous()
+            mi = None if mask is None else mask[:, cut].contiguous()
+            keep = torch.ones(b, dtype=torch.bool, device=q.device) if mi is None else mi.any(-1)
+            name = f'ring_{site}_slice{i}'
+            kname = 'flash_fwd_mask' if mi is not None else 'flash_fwd_nomask'
+            o_i, lse_i = flash_fwd(qr, ki, vi, mi, with_lse=True)
+            with reference_kernels():
+                ref_o, ref_lse = flash_fwd(qr, ki, vi, mi, with_lse=True)
+            if not bool((lse_i[~keep] < -1e29).all()):
+                fail(f'{path} slice {i}: a fully masked row\'s logsumexp is not below -1e29')
+            tol, why = attention_tol(ref_o, dtype, 'P at the running max vs the row max')
+            tol = (tol, 1e-5 * float(ref_lse[keep].abs().max()) + 2e-5)
+            why += ('; lse m*ln2 + ln(l) in fp32 over the rows with a key: 1e-5 of max|lse| '
+                    '+ 2e-5')
+            ks_, vs_ = ki.transpose(1, 2).contiguous(), vi.transpose(1, 2).contiguous()
+            am = None if mi is None else mi[:, None, None, :]
+            record_row(rows, kname, name + '_lse', dtype, one, (o_i, lse_i[keep]),
+                       (ref_o, ref_lse[keep]), tol, why,
+                       lambda: flash_fwd(qr, ki, vi, mi, with_lse=True),
+                       lambda: F.scaled_dot_product_attention(qs, ks_, vs_, attn_mask=am),
+                       (2 * b * sq + 2 * b * n) * h * D * it + (b * n if mi is not None else 0)
+                       + b * h * sq * 4, 4 * b * h * sq * n * D, flash_rate(dtype))
+            del o_i, lse_i, ref_o, ref_lse
+            # as the ring calls K8: dQ added into an fp32 sum (here a zero one)
+            io = (qr, ki, vi, mi, lse, delta, g)
+            acc, ref_acc, scratch = (torch.zeros(qr.shape, dtype=torch.float32,
+                                                 device=q.device) for _ in range(3))
+            got = (acc, *flash_bwd(*io, 'fused', dq_acc=acc)[1:])
+            with reference_kernels():
+                ref = (ref_acc, *flash_bwd(*io, dq_acc=ref_acc)[1:])
+            tols = tuple(attention_tol(r, dtype, '')[0] * 2 for r in ref)
+            why = ('q, P and dS round to the dtype in both, dQ sums by atomics (K8) in a '
+                   'run-dependent order into fp32: 8 bf16 ulps / 2^-15 of max|ref| per output')
+            with torch.enable_grad():
+                ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (qs, ks_, vs_))
+                yl = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=am)
+
+            def lib_grad():
+                return torch.autograd.grad(yl, (ql, kl, vl), gs, retain_graph=True)
+
+            record_row(rows, 'flash_bwd_mask' if mi is not None else 'flash_bwd_nomask', name,
+                       dtype, one, got, ref, tols, why,
+                       lambda: flash_bwd(*io, 'fused', dq_acc=scratch), lib_grad,
+                       (2 * b * sq + 2 * b * n) * h * D * it + 2 * b * h * sq * 4
+                       + (b * n if mi is not None else 0) + 2 * b * n * h * D * it
+                       + 2 * b * sq * h * D * 4,  # dk, dv; the fp32 dQ sum read and written
+                       10 * b * h * sq * n * D, flash_rate(dtype))
+            del got, ref, ql, kl, vl, yl, io, ki, vi, ks_, vs_, acc, ref_acc, scratch
+        del qr, kr, vr, out, lse, delta, qs, gs
+    torch.cuda.empty_cache()
+
+
+def ring_checks(card, rows):
+    """Phase 11 (b): the ring's one-device fold of RING_N slices at v1-base's
+    cross and ray-self sites in bf16 and fp32: output and (dq, dk, dv)
+    against the unsharded K10 and K8, the plain ring (the kernels' plain
+    versions, inside reference_kernels()) and the ring of the JAX partials
+    in torch ops (RING_TOL_JAX), and the fold under the two-kernel backward
+    against its plain ring (K9's dQ rounds to the dtype a slice; RING_TOL), the
+    kernels at the fold's shapes (ring_kernel_rows), exact launch counts
+    (K3 once, K10 and K8 RING_N times each), K9 in place of K8 under
+    flash_backward('twokernel'), and the fold's ms beside one unsharded call.
+    Returns the launches of each RING_PATHS path."""
+    import torch
+    from renderformer_tpu_torch.ops import LAUNCHES, reference_kernels, reset_launch_counts
+    from renderformer_tpu_torch.ops.flash_attention import flash_backward, flash_fwd
+    from renderformer_tpu_torch.parallel.ring_attention import ring_fold
+    launches = {}
+    for site, (sq, sk, per_scene, masked) in RING_SITES.items():
+        for dt_name, dtype in (('bf16', torch.bfloat16), ('fp32', torch.float32)):
+            path = f'ring {site} {dt_name}'
+            q, k, v, mask, tabs, g = ring_site_inputs(site, dtype)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            fold = ring_site_run(True, q, k, v, mask, tabs, g)
+            torch.cuda.synchronize()
+            launches[path] = dict(LAUNCHES)
+            kind = 'mask' if masked else 'nomask'
+            want = _launches(rot_kv_broadcast=1, **{f'flash_fwd_{kind}': RING_N,
+                                                    f'flash_bwd_{kind}': RING_N})
+            print(f'parallel: {path} launches ' + json.dumps(launches[path]), flush=True)
+            if launches[path] != want:
+                fail(f'{path} launch counts {launches[path]} != {want}')
+            one = ring_site_run(False, q, k, v, mask, tabs, g)
+            with reference_kernels():
+                plain = ring_site_run(True, q, k, v, mask, tabs, g)
+                jax_ring = ring_site_run(True, q, k, v, mask, tabs, g, impl='xla')
+                with flash_backward('twokernel'):
+                    plain9 = ring_site_run(True, q, k, v, mask, tabs, g)
+            reset_launch_counts()
+            with flash_backward('twokernel'):
+                det = ring_site_run(True, q, k, v, mask, tabs, g)
+            torch.cuda.synchronize()
+            k9 = {n: c for n, c in LAUNCHES.items() if c}
+            if k9 != {'rot_kv_broadcast': 1, f'flash_fwd_{kind}': RING_N,
+                      'flash_bwd_dq': RING_N, 'flash_bwd_dkv': RING_N}:
+                fail(f'{path} under twokernel: launches {k9}')
+            errs, bad = {}, []
+            for ref_name, got, ref, bar in (
+                    ('unsharded', fold, one, RING_TOL), ('plain ring', fold, plain, RING_TOL),
+                    ('JAX-partials ring', fold, jax_ring, RING_TOL_JAX),
+                    ('K9 fold vs its plain ring', det, plain9, RING_TOL)):
+                for name, a, b in zip(('out', 'dq', 'dk', 'dv'), got, ref):
+                    amax = float(b.float().abs().max())
+                    err = float((a.float() - b.float()).abs().max())
+                    errs[f'{ref_name} {name}'] = (err, err / amax)
+                    if not np.isfinite(err) or err > bar[dt_name] * amax:
+                        bad.append(f'{name} vs {ref_name}: max err {err} > '
+                                   f'{bar[dt_name]} x max|ref| {amax}')
+            ring_kernel_rows(rows, path, site, q, k, v, mask, tabs, g)
+            fold_ms = time_ms(lambda: ring_site_run(True, q, k, v, mask, tabs, g), iters=5)
+            one_ms = time_ms(lambda: ring_site_run(False, q, k, v, mask, tabs, g), iters=5)
+            with torch.no_grad():
+                qr, kr, vr = ring_site_rotated(q, k, v, tabs)
+                fwd_fold = time_ms(lambda: ring_fold(qr, kr, vr, mask, n=RING_N), iters=5)
+                fwd_one = time_ms(lambda: flash_fwd(qr, kr, vr, mask, with_lse=True), iters=5)
+                del qr, kr, vr
+            print(f'parallel: {path}: [{V}, {sq}, 6, {D}] against {sk} keys'
+                  f'{f", view 0 last {RING_MASKED} masked" if masked else ""}; the fold of '
+                  f'{RING_N} against one unsharded K10 + K8: forward {fwd_fold:.3f} ms vs '
+                  f'{fwd_one:.3f} ms, forward and backward (the site: q rotation, K3, '
+                  f'autograd) {fold_ms:.3f} ms vs {one_ms:.3f} ms on {card}; max err / '
+                  f'max|ref| (bar {RING_TOL[dt_name]:.3g}, against the JAX partials '
+                  f'{RING_TOL_JAX[dt_name]:.3g}) '
+                  + json.dumps({n: [f'{e:.3g}', f'{r:.3g}'] for n, (e, r) in errs.items()}),
+                  flush=True)
+            if bad:
+                fail(f'{path}: ' + '; '.join(bad))
+            del fold, one, plain, jax_ring, det, plain9
+            torch.cuda.empty_cache()
+    return launches
+
+
+def parallel_checks(card, rows):
+    """Phase 11: the multi-GPU code on one card.  (a) setup_distributed()
+    under torchrun's environment of world 1 makes an NCCL group; (b)
+    ring_checks, with ring_kernel_rows' rows added to ``rows``; (c) one
+    v1-base fit step through train.build inside the group: exactly phase
+    7's fused launches with the gradient all-reduce run, and under
+    deterministic=True the loss, the grad norm and every updated parameter
+    the bits of the same step with no group; (d) the v1-base 512^2 x
+    8-view render on use_mesh() the bits of the render without it, with
+    exactly a render's launches; (e) ``infer --attn_impl xla`` and
+    ring_fold(impl='xla') raise on the card; (f) trace() around a render
+    writes a trace that names K1 and an annotate()d range; (g) with the
+    group gone, make_mesh() gives a mesh of one rank.  Returns ring_checks'
+    launches."""
+    import glob
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from renderformer_tpu_torch import infer
+    from renderformer_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from renderformer_tpu_torch.parallel.distributed import (
+        process_info, setup_distributed, teardown_distributed)
+    from renderformer_tpu_torch.parallel.ring_attention import ring_fold
+    from renderformer_tpu_torch.parallel.sharding import make_mesh
+    from renderformer_tpu_torch.training import state as ts
+    from renderformer_tpu_torch.utils.profiling import annotate, trace
+
+    t0 = time.time()
+    env = dict(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0', MASTER_ADDR='127.0.0.1',
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    root = tempfile.mkdtemp(prefix='parallel_')
+    try:
+        # (a)
+        if not setup_distributed() or dist.get_backend() != 'nccl':
+            fail('setup_distributed() made no NCCL group under a torchrun environment')
+        print(f'parallel: NCCL group {process_info()} on cuda:{torch.cuda.current_device()} '
+              f'({time.time() - t0:.1f} s)', flush=True)
+
+        # (b)
+        launches = ring_checks(card, rows)
+        print(f'parallel: ring checks done ({time.time() - t0:.1f} s)', flush=True)
+
+        # (c)
+        dataset = memory_dataset(fit_scenes(), root)
+        tr = fit_trainer(dataset, os.path.join(root, 'ckpt'))
+        if tr.mesh is None or tuple(tr.mesh.shape) != (1, 1):
+            fail(f'the trainer in a group of one made the mesh {tr.mesh}')
+        batch = tr._put(tr._host(next(dataset.batches([0], 1, shuffle=False))))
+        start = {n: t.clone() for n, t in tr.model.state_dict().items()}
+        reduced = []
+        real_reduce = ts.all_reduce_mean
+
+        def counted_reduce(grads, loss, mesh):
+            reduced.append(sum(g.numel() for g in grads))
+            return real_reduce(grads, loss, mesh)
+
+        def step_from_start(step):
+            tr.model.load_state_dict(start)
+            tr.state.opt_state = tr.tx.init(dict(tr.model.named_parameters()))
+            tr.state.step = 0
+            reset_launch_counts()
+            _, m = step(tr.state, batch)
+            torch.cuda.synchronize()
+            return m, dict(LAUNCHES), params_of(tr.model)
+
+        ts.all_reduce_mean = counted_reduce
+        try:
+            m, counts, _ = step_from_start(tr._train_step)
+            print(f'parallel: fit step in the group (fused): loss {m["loss"]:.7f} grad norm '
+                  f'{m["grad_norm"]:.6f}, all-reduces {reduced} gradient elements, launches '
+                  + json.dumps(counts), flush=True)
+            if counts != EXPECTED_LAUNCHES[TRAIN] or len(reduced) != 1:
+                fail(f'the fit step in the group: launches {counts}, all-reduces {reduced}')
+            if not (np.isfinite(m['loss']) and np.isfinite(m['grad_norm'])):
+                fail('the fit step in the group: a non-finite loss or grad norm')
+            det = dataclasses.replace(tr.tc, deterministic=True)
+            m_g, _, p_g = step_from_start(ts.make_train_step(tr.model, tr.tx, det,
+                                                             mesh=tr.mesh)[0])
+            m_n, _, p_n = step_from_start(ts.make_train_step(tr.model, tr.tx, det)[0])
+        finally:
+            ts.all_reduce_mean = real_reduce
+        same = (m_g == m_n and same_bits(p_g, p_n) and len(reduced) == 2)
+        print(f'parallel: deterministic step in the group of one against no group: loss '
+              f'{m_g["loss"]!r} vs {m_n["loss"]!r}, grad norm {m_g["grad_norm"]!r} vs '
+              f'{m_n["grad_norm"]!r}, all {len(p_g)} updated parameters the same bits, '
+              f'one all-reduce in the group, none without: {same}', flush=True)
+        if not same:
+            fail('the step in a group of one differs from the step with no group')
+        del tr, p_g, p_n, start, batch
+        torch.cuda.empty_cache()
+        print(f'parallel: fit checks done ({time.time() - t0:.1f} s)', flush=True)
+
+        # (d)
+        pipe = render_pipeline(BASE)
+        dargs = [torch.as_tensor(a, device='cuda') for a in bench_inputs()]
+        want = pipe.render(*dargs, resolution=RES, precision='bf16')
+        pipe.use_mesh()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = pipe.render(*dargs, resolution=RES, precision='bf16')
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        same = bool(torch.equal(got, want))
+        print(f'parallel: v1-base render on use_mesh() {tuple(pipe.mesh.shape)}: the bits of '
+              f'the render without a mesh: {same}; launches ' + json.dumps(counts), flush=True)
+        if not same or counts != EXPECTED_LAUNCHES[BASE]:
+            fail(f'the render on a mesh of one: same bits {same}, launches {counts}')
+
+        # (e)
+        for what, fn in (
+                ("infer --attn_impl xla",
+                 lambda: infer.main(['--h5_file', root, '--model_id', BASE,
+                                     '--attn_impl', 'xla'])),
+                ("ring_fold(impl='xla')",
+                 lambda: ring_fold(*(torch.zeros(1, 8, 1, D, device='cuda'),) * 3, None,
+                                   n=2, impl='xla'))):
+            try:
+                fn()
+            except (ValueError, RuntimeError) as e:
+                print(f'parallel: {what} on the card raises: {e}', flush=True)
+            else:
+                fail(f'{what} ran on the card')
+
+        # (f)
+        for attempt in range(2):
+            tdir = os.path.join(root, f'trace{attempt}')
+            with trace(tdir):
+                with annotate('phase11 render'):
+                    pipe.render(*dargs, resolution=RES, precision='bf16')
+            files = glob.glob(os.path.join(tdir, '*.json'))
+            text = open(files[0]).read() if len(files) == 1 else ''
+            named = {n: n in text for n in ('flash_fwd_sm90_kernel', 'phase11 render')}
+            print(f'parallel: trace {files} ({os.path.getsize(files[0]) if files else 0} '
+                  f'bytes) names ' + json.dumps(named), flush=True)
+            if all(named.values()):
+                break
+        else:
+            fail('the trace names neither K1 nor the annotated range')
+        del pipe, want, got, dargs
+        torch.cuda.empty_cache()
+    finally:
+        teardown_distributed()
+        for k, val in saved.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+        shutil.rmtree(root, ignore_errors=True)
+    mesh = make_mesh()  # with no group: a mesh of one rank, what use_mesh() takes alone
+    print(f'parallel: make_mesh() with no group: {mesh}', flush=True)
+    if tuple(mesh.shape) != (1, 1):
+        fail(f'make_mesh() with no group gave {mesh}')
+    print(f'parallel: phase 11 in {time.time() - t0:.1f} s', flush=True)
+    return launches
+
+
 def _times(weighted):
     """ms, plain_ms, bound_ms and library_ms of (row, launches) pairs: each
     row's median times its launches, summed; library_ms None where a row has
@@ -2868,6 +3302,9 @@ def kernel_summary(rows, launches):
     kernels = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r['kernel'] == name]
+        for p in ALL_PATHS:
+            if launches[p][name] and not any(p in r['per_run'] for r in mine):
+                fail(f'{name} was launched on {p!r}, where no row measured it')
         on_path = [(r, sum(r['per_run'].values())) for r in mine if r['per_run']]
         total = _times(on_path)
         by_ops = sum(r['bound_ms'] * n for r, n in on_path if r['bound_by'] == 'operations')
@@ -2915,6 +3352,7 @@ def main():
     entry_point_checks(card)
     fit_checks(card)
     scene_checks(card)
+    launches.update(parallel_checks(card, rows))
     for name in KERNELS:
         if not any(launches[p][name] for p in ALL_PATHS):
             fail(f'{name} was launched by no path')

@@ -3,10 +3,13 @@ and an MP4.
 
     python -m renderformer_tpu_torch.batch_infer --h5_folder frames/ \
         --model_id <dir|preset> [--batch_size 8 --padding_length 4096] \
-        [--video_mode auto|on|off] [--frames_per_call 4] [--no_output] [--cpu]
+        [--video_mode auto|on|off] [--frames_per_call 4] [--no_output] \
+        [--attn_impl auto|xla|flash] [--shard] [--cpu]
 
-The JAX package's ``batch_infer.py`` without its attention-backend and
-sharding flags.  Two paths: frames batched with static-shape padding
+The JAX package's ``batch_infer.py``.  ``--attn_impl`` and ``--shard`` are
+``infer``'s: under torchrun ``--shard`` renders each batch on a (1, world)
+mesh, rank 0 writing; it takes the per-batch path (``--video_mode on``
+with it is an error, ``auto`` says so).  Two paths: frames batched with static-shape padding
 (``render`` a batch), and, where the frames share one scene and differ only
 in their cameras, the video path (the scene moves to the device once and
 ``render_many`` renders ``--frames_per_call`` chunks of ``--batch_size``
@@ -26,7 +29,8 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from renderformer_tpu_torch.infer import PRECISIONS, TONE_MAPPERS, to_ldr
+from renderformer_tpu_torch.infer import (
+    PRECISIONS, TONE_MAPPERS, add_parallel_flags, open_pipeline, to_ldr)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,6 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--save_video', action='store_true', default=True)
     parser.add_argument('--fps', type=int, default=24)
     parser.add_argument('--tone_mapper', type=str, choices=TONE_MAPPERS, default='none')
+    add_parallel_flags(parser)
     parser.add_argument('--cpu', action='store_true',
                         help='Run on the CPU (the kernels\' plain PyTorch versions)')
     parser.add_argument('--video_mode', choices=['auto', 'on', 'off'], default='auto',
@@ -228,15 +233,31 @@ def report(meter) -> None:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.video_mode == 'on' and args.shard:
+        # an explicit request that cannot be honoured fails loudly
+        parser.error('--video_mode on is incompatible with --shard (the video path is '
+                     'one device); drop --shard or use --video_mode auto/off')
 
+    from renderformer_tpu_torch.parallel.distributed import teardown_distributed
+
+    pipeline, writes, grouped = open_pipeline(args)
+    try:
+        return run(args, pipeline, writes)
+    finally:
+        if grouped:
+            teardown_distributed()
+
+
+def run(args, pipeline, writes: bool = True) -> int:
+    """main() after the pipeline is open; a rank that does not write renders
+    as with ``--no_output``."""
     from renderformer_tpu_torch.io.h5 import (
         SceneFolderDataset, VideoSceneDataset, list_scene_files, probe_static_scene)
     from renderformer_tpu_torch.io.image import write_video
-    from renderformer_tpu_torch.pipelines.rendering_pipeline import RenderingPipeline
     from renderformer_tpu_torch.utils.tone_map import ToneMapper
 
-    pipeline = RenderingPipeline.from_pretrained(
-        args.model_id, device='cpu' if args.cpu else None)
+    if not writes:
+        args.no_output = True
     tone_mapper = None
     if args.tone_mapper != 'none':
         tone_mapper = ToneMapper(args.tone_mapper)
@@ -247,8 +268,11 @@ def main(argv=None) -> int:
     if len(files) == 0:
         return 1
 
-    use_video = args.video_mode == 'on' or (
-        args.video_mode == 'auto' and probe_static_scene(files))
+    use_video = not args.shard and (args.video_mode == 'on' or (
+        args.video_mode == 'auto' and probe_static_scene(files)))
+    if args.shard and args.video_mode == 'auto' and len(files) > 1:
+        print('NOTICE: --shard disables the static-scene video path; frames render '
+              'through the sharded per-batch path')
     if args.video_mode == 'auto' and use_video and len(files) > 1:
         print('video mode: static scene detected (frames 0/1 share scene '
               'tensors bitwise); moving the scene to the device once, streaming '

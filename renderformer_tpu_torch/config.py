@@ -2,9 +2,10 @@
 
 The field set is the reference architecture schema, the same as
 ``renderformer_tpu/config.py``, so HF-style ``config.json`` files load
-unchanged into either package.  :class:`RuntimeConfig` holds only the
-compute dtypes: the port runs on one CUDA device and has no sharding or
-attention-backend knobs.
+unchanged into either package.  :class:`RuntimeConfig` holds the
+execution policy: compute dtypes, the DPT tail and the fused norm.  The
+(data, seq) mesh of a multi-GPU render is the pipeline's
+(``RenderingPipeline.use_mesh``).
 """
 
 from __future__ import annotations

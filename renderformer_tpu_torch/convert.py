@@ -24,6 +24,11 @@ On disk (``load_pretrained``, ``import_params``; the writer is
 reference layout, which is the port's state_dict; one with a
 ``jax_format.json`` marker holds the JAX tree's leaves under dotted keys
 (list items by index).
+
+As a command line, an HF directory to an ``export_params`` directory,
+which either package's ``from_pretrained`` loads:
+
+    python -m renderformer_tpu_torch.convert <hf_dir> <out_dir>
 """
 
 from __future__ import annotations
@@ -179,3 +184,22 @@ def import_params(model_dir: str) -> Tuple[RenderFormerConfig, Dict[str, torch.T
     cfg = RenderFormerConfig.from_json(os.path.join(model_dir, 'config.json'))
     flat = safetensors.load_file(os.path.join(model_dir, 'model.safetensors'))
     return cfg, jax_params_to_state_dict(unflatten_jax_params(flat))
+
+
+def main(argv=None) -> int:
+    import argparse
+    from renderformer_tpu_torch.training.checkpoint import export_params
+    parser = argparse.ArgumentParser(
+        description='Convert a reference (HF) checkpoint to the export_params format')
+    parser.add_argument('input_dir', help='HF dir with config.json + model.safetensors')
+    parser.add_argument('output_dir', help='output dir (export_params format)')
+    args = parser.parse_args(argv)
+    cfg, sd = load_pretrained(args.input_dir)
+    export_params(args.output_dir, sd, cfg)
+    n = sum(v.numel() for v in sd.values() if v.is_floating_point())
+    print(f'converted {n / 1e6:.1f}M params -> {args.output_dir}')
+    return 0
+
+
+if __name__ == '__main__':
+    raise SystemExit(main())

@@ -2,12 +2,19 @@
 
     python -m renderformer_tpu_torch.infer --h5_file scene.h5 \
         --model_id <dir|preset> [--precision bf16] [--resolution 512] \
-        [--output_dir out] [--tone_mapper agx] [--cpu]
+        [--output_dir out] [--tone_mapper agx] [--attn_impl auto] [--shard] [--cpu]
 
-The JAX package's ``infer.py`` without its attention-backend and sharding
-flags: the port runs on one CUDA device, or on the CPU with ``--cpu``.
-Reading the H5 scene needs ``h5py``; ``render_scene`` takes the scene as a
-dict of arrays and needs neither ``h5py`` nor ``cv2``.
+The JAX package's ``infer.py``.  ``--attn_impl`` is the JAX command
+line's, accepted and checked here: ``auto`` and ``flash`` run the
+attention kernels; ``xla``, the plain versions, is what ``--cpu`` runs
+anyway, and on the card it is an error (the port has no library
+attention path).  ``--shard`` renders on a (1, world) mesh of the process group that
+torchrun's environment describes, one GPU a process, the attention sites
+split over the ranks (``torchrun --nproc_per_node=N -m
+renderformer_tpu_torch.infer --shard ...``; rank 0 writes the files); in
+one process it renders as without it and says so.  Reading the H5 scene
+needs ``h5py``; ``render_scene`` takes the scene as a dict of arrays and
+needs neither ``h5py`` nor ``cv2``.
 """
 
 from __future__ import annotations
@@ -40,9 +47,54 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--output_dir', type=str, required=False,
                         help='Output directory (default: same as input H5)')
     parser.add_argument('--tone_mapper', type=str, choices=TONE_MAPPERS, default='none')
+    add_parallel_flags(parser)
     parser.add_argument('--cpu', action='store_true',
                         help='Run on the CPU (the kernels\' plain PyTorch versions)')
     return parser
+
+
+def add_parallel_flags(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument('--attn_impl', type=str, choices=['auto', 'xla', 'flash'],
+                        default='auto',
+                        help='auto/flash: the attention kernels; xla: their plain '
+                             'versions (with --cpu only)')
+    parser.add_argument('--shard', action='store_true',
+                        help='Shard inference over the ranks of the process group '
+                             '(torchrun; a (1, world) data x seq mesh)')
+
+
+def check_attn_impl(impl: str, device: torch.device) -> None:
+    """Refuse ``--attn_impl xla`` off the CPU: ``auto`` and ``flash`` run
+    the kernels, ``xla`` the plain versions, which the CPU runs anyway."""
+    if impl == 'xla' and device.type != 'cpu':
+        raise ValueError("--attn_impl xla runs the attention's plain versions, which the "
+                         "port takes on the CPU only (--cpu): it has no library attention "
+                         "path on the card; auto and flash run the kernels")
+
+
+def open_pipeline(args):
+    """The pipeline of ``args.model_id`` after ``--attn_impl`` is checked;
+    with ``--shard`` in a process group of more than one rank, on its
+    (1, world) mesh.  Returns (pipeline, whether this process writes,
+    whether a group was made)."""
+    from renderformer_tpu_torch.parallel.distributed import (
+        rank_and_world, setup_distributed)
+    from renderformer_tpu_torch.pipelines.rendering_pipeline import (
+        RenderingPipeline, resolve_device)
+    device = 'cpu' if args.cpu else None
+    check_attn_impl(args.attn_impl, resolve_device(device))
+    grouped = setup_distributed(device=device) if args.shard else False
+    pipeline = RenderingPipeline.from_pretrained(args.model_id, device=device)
+    rank, world = rank_and_world()
+    if args.shard:
+        if world > 1:
+            pipeline.use_mesh()
+            if rank == 0:
+                print(f'sharded inference over mesh {tuple(pipeline.mesh.shape)}')
+        else:
+            print('NOTICE: --shard with one device (no process group of more than one '
+                  'rank): rendering unsharded')
+    return pipeline, rank == 0, grouped
 
 
 def to_ldr(hdr: np.ndarray, tone_mapper=None) -> np.ndarray:
@@ -56,8 +108,8 @@ def render_scene(pipeline, scene: Mapping[str, np.ndarray], output_dir: str, bas
                  view_precision: Optional[str] = None, tone_mapper=None) -> np.ndarray:
     """Render one scene dict (``triangles`` [N, 3, 3], ``texture``, ``mask``
     [N], ``vn``, ``c2w`` [V, 4, 4], ``fov`` [V]) and write
-    ``<base>_view_<i>.exr`` and ``.png`` under ``output_dir``; returns the
-    HDR images [1, V, H, W, 3] fp32."""
+    ``<base>_view_<i>.exr`` and ``.png`` under ``output_dir`` (nothing when
+    it is None); returns the HDR images [1, V, H, W, 3] fp32."""
     rendered = pipeline.render(
         triangles=scene['triangles'][None], texture=scene['texture'][None],
         mask=scene['mask'][None], vn=scene['vn'][None], c2w=scene['c2w'][None],
@@ -65,6 +117,8 @@ def render_scene(pipeline, scene: Mapping[str, np.ndarray], output_dir: str, bas
         precision=precision, view_precision=view_precision)
     rendered = rendered.float().cpu().numpy()
     print('Inference completed. Rendered images shape:', rendered.shape)
+    if output_dir is None:
+        return rendered
 
     from renderformer_tpu_torch.io.image import write_exr, write_png
     os.makedirs(output_dir, exist_ok=True)
@@ -82,23 +136,28 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from renderformer_tpu_torch.io.h5 import load_scene_h5
-    from renderformer_tpu_torch.pipelines.rendering_pipeline import RenderingPipeline
+    from renderformer_tpu_torch.parallel.distributed import teardown_distributed
     from renderformer_tpu_torch.utils.tone_map import ToneMapper
 
-    pipeline = RenderingPipeline.from_pretrained(
-        args.model_id, device='cpu' if args.cpu else None)
-    tone_mapper = None
-    if args.tone_mapper != 'none':
-        tone_mapper = ToneMapper(args.tone_mapper)
-        print(f'Using {args.tone_mapper} tone mapper')
+    pipeline, writes, grouped = open_pipeline(args)
+    try:
+        tone_mapper = None
+        if args.tone_mapper != 'none':
+            tone_mapper = ToneMapper(args.tone_mapper)
+            print(f'Using {args.tone_mapper} tone mapper')
 
-    scene = load_scene_h5(args.h5_file)
-    output_dir = args.output_dir or os.path.dirname(args.h5_file) or '.'
-    base = os.path.splitext(os.path.basename(args.h5_file))[0]
-    render_scene(pipeline, scene, output_dir, base, resolution=args.resolution,
-                 precision=args.precision, view_precision=args.view_precision,
-                 tone_mapper=tone_mapper)
-    return 0
+        scene = load_scene_h5(args.h5_file)
+        output_dir = args.output_dir or os.path.dirname(args.h5_file) or '.'
+        base = os.path.splitext(os.path.basename(args.h5_file))[0]
+        if not writes:
+            output_dir = None
+        render_scene(pipeline, scene, output_dir, base, resolution=args.resolution,
+                     precision=args.precision, view_precision=args.view_precision,
+                     tone_mapper=tone_mapper)
+        return 0
+    finally:
+        if grouped:
+            teardown_distributed()
 
 
 if __name__ == '__main__':

@@ -19,6 +19,15 @@ each of its views.  Swin self-attention has no RoPE: it attends inside 8x8
 windows (kernel K6), and its shifted layers regroup the window-ordered
 stream around it (kernel K7).
 
+Inside ``parallel.sharding.use_sharding`` with more than one rank on the
+mesh's ``seq`` axis, a full attention site splits over those ranks
+(``parallel/ring_attention.py``): by ring attention where both lengths
+divide the axis (q rotated in fp32 torch ops, K rotated and fanned out per
+view by K3, then K10 partials), otherwise, with a notice, by
+sequence-split attention (each rank's query slice against the whole K/V,
+the same kernels) where the query length divides it, or whole on every
+rank.  Swin windows stay local.
+
 With ``remat`` set on the encoder or decoder, each block runs under
 ``torch.utils.checkpoint`` (non-reentrant) where autograd records it, as
 ``jax.checkpoint`` wraps each block in the JAX package: the backward
@@ -44,14 +53,17 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from renderformer_tpu_torch.encodings.rope import (
-    freqs_to_cos_sin, rope_frequencies, triangle_freqs)
+    apply_rope, freqs_to_cos_sin, rope_frequencies, triangle_freqs)
 from renderformer_tpu_torch.nn.core import (
     ATTN_EPS, DropoutKey, RopeFreqs, dropout, gelu, make_norm, silu)
 from renderformer_tpu_torch.nn.swin import seq_from_window_order, seq_to_window_order
 from renderformer_tpu_torch.ops.flash_attention import (
-    fan_out, flash_attention, flash_attention_rope)
+    fan_out, flash_attention, flash_attention_rope, rotate_kv)
 from renderformer_tpu_torch.ops.shifted_regroup import shifted_regroup
 from renderformer_tpu_torch.ops.swin_attention import region_table, swin_window_attention
+from renderformer_tpu_torch.parallel.ring_attention import ring_attention, seq_split_attention
+from renderformer_tpu_torch.parallel.sharding import (
+    active_mesh, axis_size, current_sharding, restored_sharding)
 
 
 def sdpa(q, k, v, mask=None):
@@ -149,18 +161,74 @@ class MultiHeadAttention(nn.Module):
             q = self.q_norm(q).to(v.dtype)
             k = self.k_norm(k).to(v.dtype)
         h = self.num_heads
-        q = q.reshape(bs, sq, h, -1)
-        k = k.reshape(bs_kv, sk, h, -1)
+        q = q.reshape(bs, sq, h, -1).to(v.dtype)
+        k = k.reshape(bs_kv, sk, h, -1).to(v.dtype)
         v = v.reshape(bs_kv, sk, h, -1)
-        if rope_cos is None:
-            out = flash_attention(q.to(v.dtype), fan_out(k.to(v.dtype), bs),
-                                  fan_out(v, bs), mask)
-            return self.out_proj(out.reshape(bs, sq, -1)).to(out_dtype)
-        if rope_ctx_cos is None:
+        if rope_cos is not None and rope_ctx_cos is None:
             rope_ctx_cos, rope_ctx_sin = rope_cos, rope_sin
-        out = flash_attention_rope(q.to(v.dtype), k.to(v.dtype), v, mask,
-                                   rope_cos, rope_sin, rope_ctx_cos, rope_ctx_sin)
+        tables = (rope_cos, rope_sin, rope_ctx_cos, rope_ctx_sin)
+        mesh, how = _seq_split(bs, sq, sk)
+        if how == 'ring':
+            out = _ring_site(q, k, v, mask, *tables, mesh)
+        else:
+            out = _attend(q, k, v, mask, *tables, mesh if how == 'split' else None)
         return self.out_proj(out.reshape(bs, sq, -1)).to(out_dtype)
+
+
+_RING_FALLBACK_WARNED = set()
+
+
+def _seq_split(bs: int, sq: int, sk: int):
+    """(the active mesh, how a full attention site splits over its seq
+    axis): ``'ring'`` where both lengths divide the axis, else
+    ``'split'`` (sequence-split attention) where the query length does,
+    else None, the site attending whole on every rank.  The fallback from
+    the ring says so once per shape; correctness never depends on it."""
+    mesh = active_mesh()
+    n = axis_size(mesh, 'seq') if mesh is not None else 1
+    if n <= 1:
+        return None, None
+    if sq % n == 0 and sk % n == 0:
+        return mesh, 'ring'
+    key = (bs, sq, sk, n)
+    if key not in _RING_FALLBACK_WARNED:
+        _RING_FALLBACK_WARNED.add(key)
+        print(f'NOTICE: attention shapes [B={bs}, Sq={sq}, Sk={sk}] do not divide the '
+              f'mesh (seq={n}); this site takes '
+              + ('sequence-split attention' if sq % n == 0 else 'whole attention on every rank'))
+    return mesh, 'split' if sq % n == 0 else None
+
+
+def _attend(q, k, v, mask, cos, sin, ctx_cos, ctx_sin, mesh=None):
+    """The site's attention: K3 then K1/K2 with RoPE, K10 on K/V fanned out
+    to the query batch without; with a ``mesh``, split over its seq axis by
+    query slices."""
+    bs = q.shape[0]
+    if cos is None:
+        k, v = fan_out(k, bs), fan_out(v, bs)
+        if mesh is None:
+            return flash_attention(q, k, v, mask)
+        return seq_split_attention(flash_attention, (q,), (k, v, mask), mesh=mesh)
+    if mesh is None:
+        return flash_attention_rope(q, k, v, mask, cos, sin, ctx_cos, ctx_sin)
+
+    def site(q_, cos_, sin_, k_, v_, mask_, ctx_cos_, ctx_sin_):
+        return flash_attention_rope(q_, k_, v_, mask_, cos_, sin_, ctx_cos_, ctx_sin_)
+
+    return seq_split_attention(site, (q, cos, sin), (k, v, mask, ctx_cos, ctx_sin), mesh=mesh)
+
+
+def _ring_site(q, k, v, mask, cos, sin, ctx_cos, ctx_sin, mesh):
+    """Ring attention at a site: q rotated in fp32 torch ops, per-scene K
+    rotated and fanned out per view by K3 (a token's rotation travels with
+    it round the ring), V fanned out, then the ring's partials."""
+    bs = q.shape[0]
+    if cos is not None:
+        q = apply_rope(q, cos[:, :, None, :], sin[:, :, None, :])
+        k = rotate_kv(k, ctx_cos, ctx_sin)
+    else:
+        k = fan_out(k, bs)
+    return ring_attention(q, k, fan_out(v, bs), mask, mesh=mesh, batch_axis=None)
 
 
 class SwinSelfAttention(nn.Module):
@@ -269,13 +337,17 @@ def remat_call(module: nn.Module, *args):
     The module's parameters and buffers are passed in as inputs of the
     checkpointed call, so the recomputation in the backward uses the tensors
     of this forward: the stage casts a train step puts in place with
-    ``functional_call`` are gone by the time the backward runs."""
+    ``functional_call`` are gone by the time the backward runs.  So is the
+    sharding context: the recomputation re-enters this forward's, so that
+    its attention sites split as the forward's did."""
     named = dict(module.named_parameters())
     named.update(module.named_buffers())
     names, n = list(named), len(args)
+    sharding = current_sharding()
 
     def run(*flat):
-        return functional_call(module, dict(zip(names, flat[n:])), flat[:n])
+        with restored_sharding(sharding):
+            return functional_call(module, dict(zip(names, flat[n:])), flat[:n])
 
     return checkpoint(run, *args, *named.values(), use_reentrant=False)
 

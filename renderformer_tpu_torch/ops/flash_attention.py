@@ -355,10 +355,13 @@ def _bwd_plain_terms(q_rot, k_rot, v, mask, lse, delta, do):
     return qs, p, ds
 
 
-def _dq_plain(ds, k_rot):
+def _dq_sum(ds, k_rot):
     d = k_rot.shape[-1]
-    return (torch.einsum('bhqk,bkhd->bqhd', ds, k_rot.float()) * (1.0 / math.sqrt(d))
-            ).to(k_rot.dtype)
+    return torch.einsum('bhqk,bkhd->bqhd', ds, k_rot.float()) * (1.0 / math.sqrt(d))
+
+
+def _dq_plain(ds, k_rot):
+    return _dq_sum(ds, k_rot).to(k_rot.dtype)
 
 
 def _dkv_plain(qs, p, ds, do):
@@ -393,13 +396,18 @@ def flash_bwd_dkv_plain(q_rot, k_rot, v, mask, lse, delta, do):
     return _dkv_plain(*_bwd_plain_terms(q_rot, k_rot, v, mask, lse, delta, do), do)
 
 
-def flash_bwd(q_rot, k_rot, v, mask, lse, delta, do, variant: str = 'fused'):
+def flash_bwd(q_rot, k_rot, v, mask, lse, delta, do, variant: str = 'fused', dq_acc=None):
     """dq, dk, dv of attention at the rotated q and k (``flash_bwd_plain``'s
     function): K8 (``'fused'``, dQ by atomics into an fp32 scratch) or K9
     (``'twokernel'``, a dQ kernel and a dK/dV kernel, deterministic).
 
     q_rot, do [B, Sq, H, D]; k_rot [B, Sk, H, D]; v [Bkv, Sk, H, D]; mask
-    [B, Sk] bool or None; lse, delta [B, H, Sq] fp32."""
+    [B, Sk] bool or None; lse, delta [B, H, Sq] fp32.  With ``dq_acc``
+    (fp32 [B, Sq, H, D], a sum of earlier dQ) dQ is added into it and the
+    returned dq is None: K8's atomics add into it in place of a zeroed
+    scratch, so dQ does not round to the dtype; K9's dQ kernel writes dQ in
+    the dtype, then it is added.  The plain version does as the variant.
+    A ring sums its K/V slices' dQ so (``parallel/ring_attention.py``)."""
     if variant not in BWD_VARIANTS:
         raise ValueError(f'flash backward {variant!r} is not one of {BWD_VARIANTS}')
     b, sq, h, d = q_rot.shape
@@ -413,24 +421,37 @@ def flash_bwd(q_rot, k_rot, v, mask, lse, delta, do, variant: str = 'fused'):
             raise ValueError(f'{name} must be {shape}, got {tuple(t.shape)}')
     if mask is not None and tuple(mask.shape) != (b, sk):
         raise ValueError(f'mask must be {(b, sk)}, got {tuple(mask.shape)}')
-    _check_contiguous(q=q_rot, k=k_rot, v=v, dout=do, lse=lse, delta=delta, mask=mask)
+    if dq_acc is not None and (dq_acc.dtype != torch.float32
+                               or tuple(dq_acc.shape) != (b, sq, h, d)):
+        raise ValueError(f'dq_acc must be fp32 {(b, sq, h, d)}')
+    _check_contiguous(q=q_rot, k=k_rot, v=v, dout=do, lse=lse, delta=delta, mask=mask,
+                      dq_acc=dq_acc)
     if use_plain(q_rot):
-        return flash_bwd_plain(q_rot, k_rot, v, mask, lse, delta, do)
+        if dq_acc is None:
+            return flash_bwd_plain(q_rot, k_rot, v, mask, lse, delta, do)
+        qs, p, ds = _bwd_plain_terms(q_rot, k_rot, v, mask, lse, delta, do)
+        dq = _dq_sum(ds, k_rot)
+        dq_acc.add_(dq if variant == 'fused' else dq.to(q_rot.dtype))
+        return (None, *_dkv_plain(qs, p, ds, do))
     dq, dk, dv = launch_flash_bwd(_build.library(), variant, q_rot, k_rot, v, mask, lse,
-                                  delta, do)
+                                  delta, do, dq_acc=dq_acc)
     if variant == 'fused':
         LAUNCHES['flash_bwd_mask' if mask is not None else 'flash_bwd_nomask'] += 1
     else:
         LAUNCHES['flash_bwd_dq'] += 1
         LAUNCHES['flash_bwd_dkv'] += 1
+        if dq_acc is not None:
+            dq_acc.add_(dq)
+            dq = None
     return dq, dk, dv
 
 
-def launch_flash_bwd(lib, kernels, q_rot, k_rot, v, mask, lse, delta, do):
+def launch_flash_bwd(lib, kernels, q_rot, k_rot, v, mask, lse, delta, do, dq_acc=None):
     """Launch the backward kernels of the loaded library ``lib`` on tensors
     already checked by ``flash_bwd``: ``'fused'`` (K8), ``'twokernel'``
     (both K9 kernels), or one K9 kernel, ``'dq'`` or ``'dkv'``; returns
-    (dq, dk, dv) with None for what was not computed.  Counts nothing."""
+    (dq, dk, dv) with None for what was not computed.  K8 given ``dq_acc``
+    adds dQ into it and returns no dq.  Counts nothing."""
     if kernels not in BWD_VARIANTS + ('dq', 'dkv'):
         raise ValueError(f'no backward kernels {kernels!r}')
     b, sq, h, d = q_rot.shape
@@ -452,14 +473,19 @@ def launch_flash_bwd(lib, kernels, q_rot, k_rot, v, mask, lse, delta, do):
     if kernels in ('fused', 'twokernel', 'dkv'):
         dk = torch.empty((b, sk, h, d), dtype=q_rot.dtype, device=q_rot.device)
         dv = torch.empty_like(dk)
-        dq_acc = (torch.zeros((b, sq, h, d), dtype=torch.float32, device=q_rot.device)
-                  if kernels == 'fused' else None)
-        rc = lib.rf_flash_bwd_kv(*ptrs, dq_acc.data_ptr() if dq_acc is not None else None,
+        acc = None
+        if kernels == 'fused':
+            acc = dq_acc
+            if acc is None:
+                acc = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q_rot.device)
+            else:
+                check_cuda_tensor('dq_acc', acc, torch.float32, (b, sq, h, d))
+        rc = lib.rf_flash_bwd_kv(*ptrs, acc.data_ptr() if acc is not None else None,
                                  dk.data_ptr(), dv.data_ptr(), *shape_args, 1.0 / LOG2E,
                                  stream)
         _build.check(rc, 'rf_flash_bwd_kv')
-        if dq_acc is not None:
-            dq = dq_acc.to(q_rot.dtype)
+        if acc is not None and dq_acc is None:
+            dq = acc.to(q_rot.dtype)
     if kernels in ('twokernel', 'dq'):
         dq = torch.empty_like(q_rot)
         rc = lib.rf_flash_bwd_dq(*ptrs, dq.data_ptr(), *shape_args, stream)
@@ -491,6 +517,38 @@ def _reduce_kv_grad(dx, bkv):
     if b == bkv:
         return dx
     return dx.reshape(bkv, b // bkv, *dx.shape[1:]).sum(dim=1)
+
+
+def backward_variant() -> str:
+    """The attention backward that graphs recorded now will run
+    (:func:`flash_backward`)."""
+    return _bwd_variant
+
+
+class _RotKV(torch.autograd.Function):
+    """rot_kv_broadcast with the VJP of the rotation and the fan-out: the
+    cotangent rotated back with -sin and summed over the views."""
+
+    @staticmethod
+    def forward(ctx, k, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        ctx.bkv = k.shape[0]
+        return rot_kv_broadcast(k, cos, sin)
+
+    @staticmethod
+    def backward(ctx, g):
+        cos, sin = ctx.saved_tensors
+        dk = apply_rope(g.contiguous(), cos[:, :, None, :], -sin[:, :, None, :])
+        return _reduce_kv_grad(dk, ctx.bkv), None, None
+
+
+def rotate_kv(k, cos, sin):
+    """K rotated by the per-view tables and fanned out to their batch by K3
+    (:func:`rot_kv_broadcast`), differentiable in k: k [Bkv, Sk, H, D],
+    cos/sin [B, Sk, D] fp32 -> [B, Sk, H, D]."""
+    if torch.is_grad_enabled() and k.requires_grad:
+        return _RotKV.apply(k, cos, sin)
+    return rot_kv_broadcast(k, cos, sin)
 
 
 class _FlashRope(torch.autograd.Function):

@@ -19,6 +19,14 @@ float16 maximum would become inf.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 asked for CUDA on a machine without it, they raise.
+
+``use_mesh`` renders on a (data, seq) mesh of the process group's ranks,
+one GPU each: ``render`` gives each ``data`` rank its slice of the scenes,
+splits the full attention sites over the ``seq`` ranks (ring attention
+where the lengths divide the axis, else sequence-split attention:
+``nn/attention.py``), and all-gathers the HDR images to every rank.  What lies outside the attention sites (the
+embeddings, the norms and FFNs, the DPT head) is computed whole on every
+seq rank; ``render_many`` takes no mesh.
 """
 
 from __future__ import annotations
@@ -34,6 +42,9 @@ from renderformer_tpu_torch.config import PRESETS, RenderFormerConfig, RuntimeCo
 from renderformer_tpu_torch.convert import import_params, load_pretrained
 from renderformer_tpu_torch.models.renderformer import RenderFormer
 from renderformer_tpu_torch.nn.core import DropoutKey, cast_params, init_weights
+from renderformer_tpu_torch.parallel.distributed import all_gather_cat, rank_and_world
+from renderformer_tpu_torch.parallel.sharding import (
+    axis_group, axis_index, axis_size, make_mesh, use_sharding)
 from renderformer_tpu_torch.utils.hdr import hdr_decode_image, hdr_encode_texture
 from renderformer_tpu_torch.utils.rays import generate_rays, generate_rays_patched
 from renderformer_tpu_torch.utils.transform import trans_to_cam_coord
@@ -118,6 +129,16 @@ class RenderingPipeline:
         self.config = model.config
         self.runtime = runtime or RuntimeConfig()
         self._cast = {}
+        self.mesh = None
+        self._whole_noticed = False
+
+    def use_mesh(self, mesh_shape=None) -> 'RenderingPipeline':
+        """Render on a (data, seq) mesh over the process group's ranks; by
+        default (1, world): every rank on ``seq``, for a batch of one scene."""
+        if mesh_shape is None:
+            mesh_shape = (1, rank_and_world()[1])
+        self.mesh = make_mesh(mesh_shape)
+        return self
 
     @classmethod
     def from_config(cls, config: RenderFormerConfig, seed: int = 0, device=None, **kw):
@@ -197,13 +218,32 @@ class RenderingPipeline:
         pipeline's device."""
         model, out_dt = self._prepare(precision, view_precision, output_dtype)
         with torch.inference_mode():
-            return render_fn(model, self._arg(triangles, torch.float32),
-                             self._arg(texture, torch.float32), self._arg(mask, torch.bool),
-                             self._arg(vn, torch.float32), self._arg(c2w, torch.float32),
-                             self._arg(fov, torch.float32), resolution=resolution,
-                             output_dtype=out_dt)
+            args = (self._arg(triangles, torch.float32), self._arg(texture, torch.float32),
+                    self._arg(mask, torch.bool), self._arg(vn, torch.float32),
+                    self._arg(c2w, torch.float32), self._arg(fov, torch.float32))
+            if self.mesh is None:
+                return render_fn(model, *args, resolution=resolution, output_dtype=out_dt)
+            return self._render_sharded(model, args, resolution, out_dt)
 
     __call__ = render
+
+    def _render_sharded(self, model, args, resolution, out_dt):
+        """This ``data`` rank's scenes rendered with the attention sites split
+        over ``seq``; the images all-gathered over ``data``."""
+        mesh = self.mesh
+        nd, seq = axis_size(mesh, 'data'), axis_size(mesh, 'seq')
+        bs = args[0].shape[0]
+        if bs % nd:
+            raise ValueError(f'a batch of {bs} scenes does not divide the data axis {nd}')
+        if nd > 1:
+            args = tuple(a.chunk(nd)[axis_index(mesh, 'data')] for a in args)
+        if seq > 1 and not self._whole_noticed:
+            self._whole_noticed = True
+            print(f'NOTICE: the attention sites split over {seq} seq ranks; everything '
+                  f'outside the attention sites is computed whole on every seq rank')
+        with use_sharding(mesh):
+            imgs = render_fn(model, *args, resolution=resolution, output_dtype=out_dt)
+        return all_gather_cat(imgs, 0, axis_group(mesh, 'data') if nd > 1 else None, nd)
 
     def render_many(self, triangles, texture, mask, vn, c2w_seq, fov_seq,
                     resolution: int = 512, precision: Optional[str] = None,
@@ -212,7 +252,11 @@ class RenderingPipeline:
         """Render K camera chunks of one scene: c2w_seq [K, bs, V, 4, 4],
         fov_seq [K, bs, V, 1].  Returns HDR [K, bs, V, H, W, 3] on the
         pipeline's device.  Each chunk is ``render`` of its cameras; the
-        scene moves to the device and the texture is HDR-encoded once."""
+        scene moves to the device and the texture is HDR-encoded once.
+        One device: raises under a mesh."""
+        if self.mesh is not None:
+            raise NotImplementedError('render_many is the one-device video path; '
+                                      'sharded rendering uses render()')
         model, out_dt = self._prepare(precision, view_precision, output_dtype)
         cfg = model.config
         with torch.inference_mode():

@@ -1,6 +1,7 @@
 """Fine-tuning command line of the port:
 
     python -m renderformer_tpu_torch.train -c configs/config.yml [--resume DIR] [--cpu]
+    torchrun --nproc_per_node=N -m renderformer_tpu_torch.train -c configs/config.yml
 
 It reads the YAML schema of the JAX package's ``train.py`` with the same
 defaults: ``training`` (epochs, learning rate, weight decay, grad clip,
@@ -9,9 +10,12 @@ batch size), ``data`` (``h5_dir``, ``gt_dir``, ``max_resolution``,
 a preset), ``output`` (``checkpoint_dir``, ``log_dir``, ``save_interval``)
 and ``memory`` (``autocast_dtype``, where float16 means bfloat16;
 ``use_gradient_checkpointing``, which is remat; ``bf16_shadow_params``).
-``distributed.*`` keys are read and ignored: the port trains on one
-device.  It runs on ``cuda`` unless given ``--cpu``.  PyYAML is imported
-by :func:`load_config`, h5py by the dataset's H5 read.
+``distributed.*`` keys are read and ignored: torchrun's environment, not
+the YAML, sets the process group.  Under torchrun each process drives the
+GPU of its ``LOCAL_RANK`` (NCCL; gloo with ``--cpu``), and the trainer
+trains data-parallel on the ranks (``training/trainer.py``); rank 0 prints
+and writes.  It runs on ``cuda`` unless given ``--cpu``.  PyYAML is
+imported by :func:`load_config`, h5py by the dataset's H5 read.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import argparse
 import sys
 from typing import Optional
 
+from renderformer_tpu_torch.parallel.distributed import (
+    process_info, rank_and_world, setup_distributed, teardown_distributed)
 from renderformer_tpu_torch.pipelines.rendering_pipeline import RenderingPipeline
 from renderformer_tpu_torch.training.dataset import RenderFormerDataset
 from renderformer_tpu_torch.training.state import TrainConfig
@@ -46,7 +52,8 @@ def build(cfg: dict, resume: Optional[str] = None, device=None,
     t, d, m = cfg.get('training', {}), cfg.get('data', {}), cfg.get('model', {})
     o, mem = cfg.get('output', {}), cfg.get('memory', {})
     if cfg.get('distributed'):
-        log(f'distributed: {sorted(cfg["distributed"])} ignored: the port trains on one device')
+        log(f'distributed: {sorted(cfg["distributed"])} ignored: torchrun\'s environment, '
+            f'not the YAML, sets the process group')
     precision = mem.get('autocast_dtype', 'bfloat16')
     if precision == 'float16':
         precision = 'bfloat16'
@@ -82,16 +89,25 @@ def main(argv=None) -> int:
     parser.add_argument('--cpu', action='store_true',
                         help='run on the CPU (the plain PyTorch versions of the kernels)')
     args = parser.parse_args(argv)
-    cfg = load_config(args.config)
     device = 'cpu' if args.cpu else None
-    dataset = make_dataset(cfg)
-    if len(dataset) == 0:
-        print('no training scenes found; check data.h5_dir')
-        return 1
-    trainer = build(cfg, args.resume, device, dataset)
-    result = trainer.fit()
-    print('final train losses:', [round(x, 6) for x in result['train_losses']])
-    return 0
+    distributed = setup_distributed(device=device)
+    try:
+        is_main = rank_and_world()[0] == 0
+        log = print if is_main else (lambda *a, **k: None)
+        if distributed:
+            log(f'distributed: {process_info()}')
+        cfg = load_config(args.config)
+        dataset = make_dataset(cfg)
+        if len(dataset) == 0:
+            log('no training scenes found; check data.h5_dir')
+            return 1
+        trainer = build(cfg, args.resume, device, dataset, log=log)
+        result = trainer.fit()
+        log('final train losses:', [round(x, 6) for x in result['train_losses']])
+        return 0
+    finally:
+        if distributed:
+            teardown_distributed()
 
 
 if __name__ == '__main__':

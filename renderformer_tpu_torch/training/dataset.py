@@ -17,7 +17,9 @@ scenes' patch size, for the trainer to hold against the model's.
 ``h5py`` is imported by the H5 read (``_list_scenes``, ``_scene_shape``
 and ``_read_scene``, which a subclass may replace to read scenes from
 elsewhere), ``cv2`` by the ground-truth read, so the module imports
-without either.  One process: ``rank``/``world`` are 0/1.
+without either.  Data-parallel runs pass ``batches`` their ``rank`` and
+``world``: every rank shuffles alike and takes its slice of each global
+batch, as the reference's DistributedSampler deals it.
 """
 
 from __future__ import annotations
@@ -169,9 +171,16 @@ class RenderFormerDataset:
         ``batch_size`` by cycling its items instead of dropping it, and adds
         ``valid`` ([B] fp32, 1 for a real item, 0 for padding) to every
         batch.  While the cache fills, a pool of two threads decodes the
-        epoch's items ahead in the order they are used."""
-        if world != 1 or rank != 0:
-            raise NotImplementedError('the port trains in one process: rank 0 of world 1')
+        epoch's items ahead in the order they are used.
+
+        ``rank``/``world``: every rank shuffles identically (the same seed)
+        and yields only items ``rank * per_proc .. (rank + 1) * per_proc`` of
+        each global batch (``per_proc = batch_size // world``; ``valid`` is
+        sliced the same way)."""
+        if batch_size % world:
+            raise ValueError(f'global batch_size {batch_size} must divide evenly over '
+                             f'{world} processes')
+        per_proc = batch_size // world
         indices = list(indices)
         if shuffle:
             np.random.default_rng(seed).shuffle(indices)
@@ -185,7 +194,9 @@ class RenderFormerDataset:
             n_real = len(chunk)
             if pad_last and n_real < batch_size:
                 chunk = [chunk[i % n_real] for i in range(batch_size)]
-            plan.append((n_real, chunk))
+            local = chunk[rank * per_proc:(rank + 1) * per_proc]
+            if local:
+                plan.append((len(chunk), n_real, local))
 
         fetched = None
         if self.cache and len(plan) > 1:
@@ -193,11 +204,11 @@ class RenderFormerDataset:
                 from concurrent.futures import ThreadPoolExecutor
                 self._pool = ThreadPoolExecutor(max_workers=2)
             fetched = iter(self._pool.map(self.__getitem__,
-                                          [i for _, chunk in plan for i in chunk]))
+                                          [i for _, _, local in plan for i in local]))
 
-        for n_real, chunk in plan:
-            items = ([next(fetched) for _ in chunk] if fetched is not None
-                     else [self[i] for i in chunk])
+        for chunk_len, n_real, local in plan:
+            items = ([next(fetched) for _ in local] if fetched is not None
+                     else [self[i] for i in local])
             if any('texture_flat' not in it for it in items):
                 ps = next(it['texture'].shape[-1] for it in items if 'texture' in it)
                 for it in items:
@@ -205,9 +216,9 @@ class RenderFormerDataset:
                         it['texture'] = expand_texture_flat(it.pop('texture_flat'), ps)
             out = {k: np.stack([it[k] for it in items]) for k in items[0]}
             if pad_last:
-                valid = np.zeros(len(chunk), np.float32)
+                valid = np.zeros(chunk_len, np.float32)
                 valid[:n_real] = 1.0
-                out['valid'] = valid
+                out['valid'] = valid[rank * per_proc:(rank + 1) * per_proc]
             yield out
 
     def close(self) -> None:

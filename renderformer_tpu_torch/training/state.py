@@ -1,4 +1,4 @@
-"""Train state and the train step of the port, on one device.
+"""Train state and the train step of the port.
 
 The counterpart of ``renderformer_tpu/training/state.py``: MSE between the
 render and the ground-truth images, AdamW with a warmup-cosine schedule and
@@ -39,6 +39,15 @@ step broadcasts it on the device with the patch mask.  ``debug_nans``
 raises ``FloatingPointError`` at the first operation of a step's forward
 or backward that makes a NaN, as ``jax_debug_nans`` does, and only inside
 the step.
+
+Data-parallel steps (a ``mesh`` of the process group's ranks): each data
+rank renders its own slice of the global batch; before the global norm the
+step all-reduces the gradients and the loss as one flat fp32 bucket, their
+mean over the mesh's ``data`` axis, so every rank reads the same loss and
+norm and takes the same NaN-skip and clip decision (the JAX step reads them
+of the global batch).  The attention sites split over the ``seq`` axis
+(sequence-split attention), whose ranks then hold the same gradients.
+A group of one rank still runs the all-reduce; without a mesh there is none.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.func import functional_call
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -58,6 +68,7 @@ from torch.utils._pytree import tree_leaves
 
 from renderformer_tpu_torch.nn.core import DropoutKey, RopeFreqs
 from renderformer_tpu_torch.ops.flash_attention import BWD_VARIANTS, flash_backward
+from renderformer_tpu_torch.parallel.sharding import axis_group, axis_size, use_sharding
 from renderformer_tpu_torch.pipelines.rendering_pipeline import render_fn
 from renderformer_tpu_torch.training.dataset import texture_patch_mask
 
@@ -368,13 +379,15 @@ def cudnn_deterministic(on: bool):
         flags.deterministic, flags.benchmark = prev
 
 
-def make_loss_fns(model: nn.Module, tc: TrainConfig):
+def make_loss_fns(model: nn.Module, tc: TrainConfig, mesh=None):
     """Build ``images(state, batch)``, the render of the batch in the
     stages' compute dtypes (in-graph casts of the masters, or the shadow),
     and ``loss_and_grads(state, batch) -> (loss, grads)``: the MSE loss and
     its fp32 gradients in the order of ``state.model.parameters()``.  With
     the config's dropout on, ``loss_and_grads`` draws the masks of
-    ``DropoutKey(tc.seed, state.step)``; ``images`` takes a key or none."""
+    ``DropoutKey(tc.seed, state.step)``; ``images`` takes a key or none.
+    With a ``mesh``, ``images`` splits the attention sites over its seq
+    axis (``parallel.sharding.use_sharding``)."""
     variant = flash_bwd_variant(tc)
     dtype, view_dtype = resolve_dtypes(tc)
     use_shadow = _uses_shadow(tc)
@@ -382,6 +395,10 @@ def make_loss_fns(model: nn.Module, tc: TrainConfig):
     use_dropout = model.config.dropout > 0.0
 
     def images(state: TrainState, batch, key: Optional[DropoutKey] = None):
+        with contextlib.nullcontext() if mesh is None else use_sharding(mesh):
+            return _images(state, batch, key)
+
+    def _images(state: TrainState, batch, key: Optional[DropoutKey] = None):
         state.model.remat = tc.remat
         state.model.fused_norm = tc.fused_norm
         if use_shadow:
@@ -407,10 +424,26 @@ def make_loss_fns(model: nn.Module, tc: TrainConfig):
     return images, loss_and_grads
 
 
-def make_train_step(model: nn.Module, tx: AdamW, tc: TrainConfig):
+def all_reduce_mean(grads: List[torch.Tensor], loss: torch.Tensor, mesh) -> torch.Tensor:
+    """The gradients (fp32, in place) and the loss averaged over ``mesh``'s
+    data ranks by one all-reduce of a flat fp32 bucket; returns the loss."""
+    bucket = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1).float()])
+    dist.all_reduce(bucket, group=axis_group(mesh, 'data'))
+    bucket.div_(axis_size(mesh, 'data'))
+    # copied back, so the norm and the update read the gradients' own storage
+    offset = 0
+    for g in grads:
+        g.copy_(bucket[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return bucket[-1]
+
+
+def make_train_step(model: nn.Module, tx: AdamW, tc: TrainConfig, mesh=None):
     """Build ``train_step(state, batch) -> (state, metrics)`` and
     ``eval_step(state, batch) -> metrics`` for ``model`` (the module that
-    holds the masters, ``state.model``).
+    holds the masters, ``state.model``).  With a ``mesh`` the batch is this
+    data rank's slice: the gradients, the loss and the validation sums are
+    reduced over the mesh's data ranks (:func:`all_reduce_mean`).
 
     batch: dict of tensors on the model's device: triangles [B, N, 3, 3],
     texture [B, N, 13, ps, ps] or texture_flat [B, N, 13], mask [B, N]
@@ -418,12 +451,14 @@ def make_train_step(model: nn.Module, tx: AdamW, tc: TrainConfig):
     [B, V, H, W, 3], optional valid [B].
     Metrics are Python floats: the step reads the loss and the grad norm
     once, to decide the NaN skip and the clip."""
-    images, loss_and_grads = make_loss_fns(model, tc)
+    images, loss_and_grads = make_loss_fns(model, tc, mesh)
     use_shadow = _uses_shadow(tc)
     decayed = decayed_buffers(model)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, float]]:
         loss, grads = loss_and_grads(state, batch)
+        if mesh is not None:
+            loss = all_reduce_mean(grads, loss, mesh)
         gnorm = global_norm(grads)
         loss_f, gnorm_f = torch.stack([loss.float(), gnorm]).tolist()
         if not tc.skip_nonfinite or (math.isfinite(loss_f) and math.isfinite(gnorm_f)):
@@ -445,7 +480,10 @@ def make_train_step(model: nn.Module, tx: AdamW, tc: TrainConfig):
         valid = batch.get('valid')
         valid = (torch.ones_like(per_sample) if valid is None
                  else valid.to(per_sample.dtype))
-        loss_sum, n = torch.stack([(per_sample * valid).sum(), valid.sum()]).tolist()
+        sums = torch.stack([(per_sample * valid).sum(), valid.sum()]).float()
+        if mesh is not None:
+            dist.all_reduce(sums, group=axis_group(mesh, 'data'))
+        loss_sum, n = sums.tolist()
         return {'loss_sum': loss_sum, 'n': n, 'loss': loss_sum / max(n, 1.0)}
 
     return train_step, eval_step

@@ -1,6 +1,6 @@
-"""Training loop on one device: epochs, validation, metrics, checkpoints.
+"""Training loop: epochs, validation, metrics, checkpoints.
 
-The single-process counterpart of ``renderformer_tpu/training/trainer.py``'s
+The counterpart of ``renderformer_tpu/training/trainer.py``'s
 ``RenderFormerTrainer``.  Given a :class:`~renderformer_tpu_torch.training.
 dataset.RenderFormerDataset`, ``fit()`` splits it, trains each epoch on its
 shuffled batches (decoded and pinned on a background thread two batches
@@ -15,6 +15,16 @@ Checkpoints are written on a background thread from a snapshot of host
 copies taken before the next step, since the step updates the parameters
 and the moments in place.  SIGTERM (a preemption) saves 'preempted' and
 exits with 143; a SIGTERM during a step lets the step finish first.
+
+In a process group (``parallel.distributed.setup_distributed``, one process
+a GPU) rank and world come from the group, and the trainer steps on a
+(data, seq) mesh, by default (gcd(batch_size, world), world // data): each
+data rank trains on its slice of every global batch (the dataset's
+``batches(rank, world)``), the step all-reduces the gradients and the
+validation sums over the data ranks, and the seq ranks split the attention
+sites.  Prints, TensorBoard, the loss plot and checkpoints are rank 0's,
+with a barrier on both sides of a save; the state is the same on every
+rank.  SIGTERM ends every rank after its step, rank 0 writing 'preempted'.
 """
 
 from __future__ import annotations
@@ -29,7 +39,10 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from renderformer_tpu_torch.parallel.distributed import rank_and_world
+from renderformer_tpu_torch.parallel.sharding import axis_index, axis_size, make_mesh
 from renderformer_tpu_torch.pipelines.rendering_pipeline import resolve_device
 from renderformer_tpu_torch.training.checkpoint import (
     load_checkpoint, snapshot, write_checkpoint)
@@ -51,6 +64,11 @@ class TrainerConfig:
     train_val_split: float = 0.8
     log_dir: str = 'runs/renderformer_tpu'   # TensorBoard and the loss plot
     seed: int = 42        # the split, and the shuffle of epoch e by seed + e
+    mesh_shape: Optional[tuple] = None   # (data, seq); None -> (gcd(batch, world), rest)
+
+
+def _quiet(*args, **kwargs):
+    pass
 
 
 class _NullWriter:
@@ -66,14 +84,27 @@ class RenderFormerTrainer:
     step of ``cfg.train``: on ``dataset``, whose length sets the schedule's
     steps per epoch and whose ``max_resolution`` the resolution, or on
     batches given to :meth:`fit`, with ``steps_per_epoch`` given here.
-    Runs on ``cuda`` unless given ``device='cpu'``."""
+    Runs on ``cuda`` unless given ``device='cpu'``; in a process group, on
+    the mesh of ``cfg.mesh_shape`` (the module docstring)."""
 
     def __init__(self, model, cfg: TrainerConfig, steps_per_epoch: Optional[int] = None,
                  device=None, log=print, dataset=None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.log = log
+        self.rank, self.world = rank_and_world()
+        self.is_main = self.rank == 0
+        self.log = log if self.is_main else _quiet
         self.dataset = dataset
+        self.mesh = None
+        if dist.is_initialized():
+            data = math.gcd(cfg.batch_size, self.world)
+            self.mesh = make_mesh(cfg.mesh_shape or (data, self.world // data))
+        elif cfg.mesh_shape is not None and math.prod(cfg.mesh_shape) != 1:
+            raise ValueError(f'mesh_shape {cfg.mesh_shape} needs a process group of '
+                             f'{math.prod(cfg.mesh_shape)} ranks')
+        self.data_rank, self.data_world = ((axis_index(self.mesh, 'data'),
+                                            axis_size(self.mesh, 'data'))
+                                           if self.mesh is not None else (0, 1))
         tc = cfg.train
         if dataset is not None:
             ps = model.config.texture_encode_patch_size
@@ -88,7 +119,8 @@ class RenderFormerTrainer:
         self.tc = dataclasses.replace(tc, steps_per_epoch=max(1, steps_per_epoch))
         self.tx = make_optimizer(self.tc)
         self.state = TrainState.create(self.model, self.tx, self.tc)
-        self._train_step, self._eval_step = make_train_step(self.model, self.tx, self.tc)
+        self._train_step, self._eval_step = make_train_step(self.model, self.tx, self.tc,
+                                                            self.mesh)
         self.train_losses: List[float] = []
         self.val_losses: List[float] = []
         self.step_metrics: List[Dict[str, float]] = []
@@ -108,8 +140,12 @@ class RenderFormerTrainer:
     @property
     def writer(self):
         """TensorBoard's SummaryWriter on ``log_dir``, or a writer that
-        drops everything where ``torch.utils.tensorboard`` does not import."""
+        drops everything where ``torch.utils.tensorboard`` does not import
+        and on every rank but 0."""
         if self._writer is None:
+            if not self.is_main:
+                self._writer = _NullWriter()
+                return self._writer
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self._writer = SummaryWriter(self.cfg.log_dir)
@@ -134,7 +170,8 @@ class RenderFormerTrainer:
         """The dataset's batches of ``indices``, decoded and pinned on a
         background thread two batches ahead."""
         return prefetch((self._host(b) for b in self.dataset.batches(
-            indices, self.cfg.batch_size, **kw)), depth=2)
+            indices, self.cfg.batch_size, rank=self.data_rank, world=self.data_world,
+            **kw)), depth=2)
 
     # --- epochs --------------------------------------------------------------
     def train_epoch(self, epoch: int, indices) -> float:
@@ -196,13 +233,22 @@ class RenderFormerTrainer:
         return {'epoch': epoch, 'train_losses': list(self.train_losses),
                 'val_losses': list(self.val_losses)}
 
-    def save(self, tag: str, epoch: int) -> str:
-        """Save now, on this thread; returns the path."""
+    def save(self, tag: str, epoch: int) -> Optional[str]:
+        """Save now, on this thread, on rank 0; returns the path (None on
+        the other ranks)."""
+        if not self.is_main:
+            return None
         return write_checkpoint(self.cfg.checkpoint_dir, tag, snapshot(self.state),
                                 self.model.config, self._extra(epoch))
 
     def _save_async(self, tag: str, epoch: int) -> None:
-        """Snapshot now, write on the background writer."""
+        """Snapshot now, write on the background writer; in a group of more
+        than one rank, rank 0 writes on this thread between two barriers."""
+        if self.world > 1:
+            dist.barrier()
+            self.save(tag, epoch)
+            dist.barrier()
+            return
         self._ckpt_writer.submit(write_checkpoint, self.cfg.checkpoint_dir, tag,
                                  snapshot(self.state), self.model.config, self._extra(epoch))
 
@@ -249,7 +295,9 @@ class RenderFormerTrainer:
             if train_batches is not None or val_batches is not None:
                 raise ValueError('a trainer with a dataset takes no batches')
             train_idx, val_idx = self.dataset.split(self.cfg.train_val_split, self.cfg.seed)
-            self.log(f'training on {len(train_idx)} scenes, validating on {len(val_idx)}')
+            self.log(f'training on {len(train_idx)} scenes, validating on {len(val_idx)}'
+                     + (f' across {self.world} processes, mesh {tuple(self.mesh.shape)}'
+                        if self.world > 1 else ''))
 
             def train(epoch):
                 return self.train_epoch(epoch, train_idx)
@@ -279,7 +327,7 @@ class RenderFormerTrainer:
                 self._save_async(f'epoch_{epoch}', epoch)
         self._save_async('final', self.tc.num_epochs - 1)
         self._ckpt_writer.drain()
-        if self.dataset is not None:
+        if self.dataset is not None and self.is_main:
             self.plot_losses()
         self.writer.close()
         return {'train_losses': self.train_losses, 'val_losses': self.val_losses}

@@ -1,17 +1,54 @@
-"""Throughput counters of the inference CLIs: rays/s and tokens/s from
-host-clock windows (the JAX package's ``ThroughputMeter``).
+"""Tracing and throughput counters (the JAX package's ``utils/profiling.py``).
 
-A window is what the caller puts between ``start`` and ``stop``; the
-meter synchronises nothing, so a window measures the device only where
-the caller's work ends in a fetch or a synchronise.
+* :func:`trace`: a ``torch.profiler`` session around a block (the CPU, and
+  CUDA where there is a card) that writes a Chrome/TensorBoard trace,
+  ``<host>_<pid>.<time>.pt.trace.json``, into its directory;
+* :func:`annotate`: a named range in that trace (``record_function``),
+  and on a card also an NVTX range;
+* :class:`ThroughputMeter`: rays/s and tokens/s of the inference CLIs from
+  host-clock windows.  A window is what the caller puts between ``start``
+  and ``stop``; the meter synchronises nothing, so a window measures the
+  device only where the caller's work ends in a fetch or a synchronise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = 'runs/trace'):
+    """Profile the block and write its trace into ``log_dir``; yields the
+    ``torch.profiler.profile``."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as p:
+        yield p
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named range of the block in the profiler's trace, and an NVTX range
+    on a card."""
+    with torch.profiler.record_function(name):
+        if not torch.cuda.is_available():
+            yield
+            return
+        torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            torch.cuda.nvtx.range_pop()
 
 
 @dataclass

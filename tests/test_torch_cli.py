@@ -210,3 +210,117 @@ def test_loops_take_in_memory_dicts(tmp_path, ckpt):
         assert out.close() == []
         assert len(meter._times) == 3
     assert not os.path.exists(str(tmp_path / 'out'))
+
+
+def test_convert_clis_load_to_the_same_parameters(tmp_path, monkeypatch, capsys):
+    """A seeded HF directory (the reference layout) through the port's and
+    the JAX package's ``convert``: each package's ``from_pretrained`` loads
+    either output to the HF directory's parameters."""
+    from renderformer_tpu.pipelines.rendering_pipeline import RenderingPipeline as JaxPipeline
+    from renderformer_tpu_torch import RenderFormerConfig, RenderingPipeline
+    from renderformer_tpu_torch import convert
+    from renderformer_tpu_torch.io import safetensors as port_st
+    from renderformer_tpu_torch.models.renderformer import RenderFormer
+    from renderformer_tpu_torch.nn.core import init_weights
+    cfg = RenderFormerConfig(**TINY)
+    model = init_weights(RenderFormer(cfg), torch.Generator().manual_seed(5))
+    hf = str(tmp_path / 'hf')
+    os.makedirs(hf)
+    cfg.save_json(os.path.join(hf, 'config.json'))
+    port_st.save_file(model.state_dict(), os.path.join(hf, 'model.safetensors'))
+
+    outs = {'port': str(tmp_path / 'port'), 'jax': str(tmp_path / 'jax')}
+    assert convert.main([hf, outs['port']]) == 0
+    port_line = capsys.readouterr().out
+    monkeypatch.setattr(sys, 'argv', ['convert', hf, outs['jax']])
+    from renderformer_tpu.convert.__main__ import main as jax_convert
+    assert jax_convert() == 0
+    jax_line = capsys.readouterr().out
+    assert port_line.replace(outs['port'], '') == jax_line.replace(outs['jax'], '')
+    want = model.state_dict()
+    want_tree = jax.tree.map(np.asarray, JaxPipeline.from_pretrained(hf).params)
+    for out in outs.values():
+        got = RenderingPipeline.from_pretrained(out, device='cpu').model.state_dict()
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert torch.equal(got[k], want[k].float()), k
+        tree = jax.tree.map(np.asarray, JaxPipeline.from_pretrained(out).params)
+        for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(want_tree)):
+            np.testing.assert_array_equal(a, b)
+        assert jax.tree.structure(tree) == jax.tree.structure(want_tree)
+
+
+@pytest.mark.parametrize('impl', ['flash', 'xla'])
+def test_infer_attn_impl_on_the_cpu(tmp_path, ckpt, impl):
+    """--attn_impl flash and xla both run on the CPU (the plain versions)
+    and give the image of the default."""
+    h5_file = str(tmp_path / 'scene.h5')
+    _write_scene(h5_file, n_tris=6, n_views=1, seed=2)
+    outs = {}
+    for name, extra in (('auto', []), (impl, ['--attn_impl', impl])):
+        out = str(tmp_path / name)
+        assert infer.main(['--h5_file', h5_file, '--model_id', ckpt, '--precision', 'fp32',
+                           '--resolution', '16', '--output_dir', out, '--cpu'] + extra) == 0
+        outs[name] = _read(out, '.exr')[1][0]
+    np.testing.assert_array_equal(outs[impl], outs['auto'])
+
+
+def test_attn_impl_xla_refuses_the_card(tmp_path, ckpt, monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    for main, what in ((infer.main, '--h5_file'), (batch_infer.main, '--h5_folder')):
+        with pytest.raises(ValueError, match='no library attention path'):
+            main([what, str(tmp_path), '--model_id', ckpt, '--attn_impl', 'xla'])
+
+
+def test_shard_with_one_device_renders_as_without(tmp_path, ckpt, monkeypatch, capsys):
+    for var in ('WORLD_SIZE', 'RANK', 'LOCAL_RANK'):
+        monkeypatch.delenv(var, raising=False)
+    h5_file = str(tmp_path / 'scene.h5')
+    _write_scene(h5_file, n_tris=6, n_views=2, seed=3)
+    imgs = {}
+    for name, extra in (('plain', []), ('shard', ['--shard'])):
+        out = str(tmp_path / name)
+        assert infer.main(['--h5_file', h5_file, '--model_id', ckpt, '--precision', 'fp32',
+                           '--resolution', '16', '--output_dir', out, '--cpu'] + extra) == 0
+        imgs[name] = _read(out, '.exr')[1]
+        log = capsys.readouterr().out
+        assert log.count('NOTICE: --shard with one device') == (name == 'shard')
+    for a, b in zip(imgs['shard'], imgs['plain']):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_batch_infer_shard_takes_the_per_batch_path(tmp_path, ckpt, monkeypatch, capsys):
+    for var in ('WORLD_SIZE', 'RANK', 'LOCAL_RANK'):
+        monkeypatch.delenv(var, raising=False)
+    h5_dir = _frames(tmp_path / 'frames', 2, static=True)
+    common = ['--h5_folder', h5_dir, '--model_id', ckpt, '--resolution', '16', '--cpu',
+              '--no_output', '--shard']
+    with pytest.raises(SystemExit) as e:
+        batch_infer.main(common + ['--video_mode', 'on'])
+    assert e.value.code == 2
+    capsys.readouterr()
+    assert batch_infer.main(common + ['--output_dir', str(tmp_path / 'out')]) == 0
+    log = capsys.readouterr().out
+    assert 'NOTICE: --shard disables the static-scene video path' in log
+    assert 'video mode: static scene detected' not in log
+
+
+def test_trace_names_an_annotated_range(tmp_path, ckpt):
+    from renderformer_tpu_torch import RenderingPipeline
+    from renderformer_tpu_torch.utils.profiling import annotate, trace
+    pipe = RenderingPipeline.from_pretrained(ckpt, device='cpu')
+    rng = np.random.default_rng(0)
+    n = 6
+    with trace(str(tmp_path / 'trace')):
+        with annotate('rf_traced_render'):
+            pipe.render(rng.normal(size=(1, n, 3, 3)).astype(np.float32) * 0.3,
+                        rng.uniform(0, 1, (1, n, 13, 32, 32)).astype(np.float32),
+                        np.ones((1, n), bool), rng.normal(size=(1, n, 3, 3)).astype(np.float32),
+                        np.eye(4, dtype=np.float32)[None, None], np.full((1, 1, 1), 40.0,
+                                                                         np.float32),
+                        resolution=16, precision='fp32')
+    files = os.listdir(str(tmp_path / 'trace'))
+    assert len(files) == 1 and files[0].endswith('.pt.trace.json')
+    with open(os.path.join(str(tmp_path / 'trace'), files[0])) as f:
+        text = f.read()
+    assert 'rf_traced_render' in text and 'aten::' in text

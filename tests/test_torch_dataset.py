@@ -95,6 +95,24 @@ def test_split_and_batches_are_the_jax_batches(datasets):
     np.testing.assert_array_equal(last['valid'], [1, 1, 1, 0])
 
 
+@pytest.mark.parametrize('rank', [0, 1])
+def test_rank_batches_are_the_jax_rank_batches(datasets, rank):
+    """Two ranks: each gets its slice of every global batch (and of
+    ``valid``), the JAX package's DistributedSampler equivalent."""
+    port, jax_ds = datasets
+    idx = [0, 2, 3]
+    for kw in (dict(batch_size=2, shuffle=True, seed=7),
+               dict(batch_size=2, shuffle=False, pad_last=True)):
+        got = list(port.batches(idx, rank=rank, world=2, **kw))
+        want = list(jax_ds.batches(idx, rank=rank, world=2, **kw))
+        assert len(got) == len(want) > 0, kw
+        for g, w in zip(got, want):
+            assert_same(g, w)
+            assert g['triangles'].shape[0] == 1
+    with pytest.raises(ValueError, match='must divide evenly'):
+        next(port.batches(idx, batch_size=3, rank=rank, world=2))
+
+
 def test_mixed_batch_expands_the_compact_items(datasets):
     port, _ = datasets
     (batch,) = list(port.batches([0, 2], batch_size=2, shuffle=False))

@@ -44,7 +44,8 @@ for n in ('nn.swin', 'ops.swin_attention', 'ops.shifted_regroup', 'ops.s2d_conv'
           'batch_infer', 'training.dataset', 'train', 'utils.look_at', 'scene.scene_config',
           'scene.mesh', 'scene.remesh', 'scene.scene_mesh', 'scene.to_h5', 'scene.h5_tools',
           'scene.convert_scene', 'scene.path_tracer', 'scene.render_scene',
-          'scene.blender_render', 'render_h5_to_png', 'generate_dataset'):
+          'scene.blender_render', 'render_h5_to_png', 'generate_dataset', 'convert',
+          'parallel.distributed', 'parallel.sharding', 'parallel.ring_attention'):
     assert 'renderformer_tpu_torch.' + n in names, n
 '''
 
@@ -76,8 +77,9 @@ assert not bad, bad
 
 # the flags each command line's help must show
 CLI_FLAGS = {
-    'infer': ['--model_id', '--cpu'],
-    'batch_infer': ['--model_id', '--cpu'],
+    'infer': ['--model_id', '--cpu', '--attn_impl', '--shard'],
+    'batch_infer': ['--model_id', '--cpu', '--attn_impl', '--shard'],
+    'convert': ['input_dir', 'output_dir'],
     'generate_dataset': ['--gt_mode', '--gt_spp', '--seed', '--cpu'],
     'render_h5_to_png': ['--pathtrace', '--spp', '--cpu'],
     'scene.convert_scene': ['json_file', 'output_h5'],
@@ -92,7 +94,6 @@ def test_cli_help_exits_0_without_jax(cli):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert all(flag in res.stdout for flag in CLI_FLAGS[cli]), res.stdout
-    assert '--attn_impl' not in res.stdout and '--shard' not in res.stdout
 
 
 def test_default_device_refuses_missing_cuda(monkeypatch):

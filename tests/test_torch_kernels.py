@@ -455,6 +455,35 @@ def test_bf16_backward_kernel_at_tile_edges_matches_plain(cuda, case, variant):
         assert err <= _attn_tol(wt, bf, ulps=8), (name, err)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_fused_backward_adds_dq_into_a_given_sum(cuda, dtype):
+    """K8 given dq_acc (a ring's sum of its K/V slices' dQ) adds into it by
+    its atomics: the sum less what it held is the dQ of a plain call before
+    its cast, within the kernel's bar; dK and dV as without it."""
+    from renderformer_tpu_torch.ops.flash_attention import fan_out
+    b, sq, sk, h = 2, 257, 516, 3
+    q, do = (_randn((b, sq, h, 128), dtype, cuda, seed=s) for s in (1, 2))
+    k, v = (_randn((b, sk, h, 128), dtype, cuda, seed=s) for s in (3, 4))
+    mask = torch.ones(b, sk, dtype=torch.bool, device=cuda)
+    mask[1] = False
+    with torch.no_grad():
+        with reference_kernels():
+            out, lse = flash_fwd(q, k, fan_out(v, b).contiguous(), mask, with_lse=True)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        io = (q, k, v, mask, lse, delta, do)
+        prior = _randn((b, sq, h, 128), torch.float32, cuda, seed=5)
+        acc = prior.clone()
+        dq, dk, dv = flash_bwd(*io)
+        got = flash_bwd(*io, dq_acc=acc)
+        torch.cuda.synchronize()
+    assert got[0] is None
+    for gt, wt in ((got[1], dk), (got[2], dv)):
+        assert float((gt.float() - wt.float()).abs().max()) <= _attn_tol(wt, dtype, ulps=8)
+    err = float((acc - prior - dq.float()).abs().max())
+    assert err <= _attn_tol(dq, dtype, ulps=8)
+
+
 # K9's dQ kernel (csrc/flash_bwd.cu in fp32, csrc/flash_bwd_dq_sm90.cu in
 # bf16): b, bkv, sq, sk, h, mask.  The train step's three sites; ragged q
 # tiles (64 or 128 rows) and key steps (16 or 64 keys), with a padded tail or
