@@ -100,7 +100,9 @@ Phases, each printing its own lines:
      render calls, in turn (no bar); the infer stage writing 8 EXR and 8 PNG
      files, view 0's EXR the render's fp32 output; batch_infer's per-batch
      and video loops with --no_output on in-memory dicts, each printing its
-     rays/s line;
+     rays/s line; the HF and jax_format directories and a golden image
+     (the seeded render of tools/verify_checkpoint's random scene, fp32,
+     256^2) are kept for phase 12;
   9. fine-tuning through the training entry point: train.build with
      configs/config.yml's settings (v1-base at full width and depth from a
      seeded init, bf16 stage 1, remat, 256^2, batch 1, lr 5e-6) on the
@@ -153,8 +155,11 @@ Phases, each printing its own lines:
      against the ring of the JAX partials in torch ops within 2^-16 and
      2^-6 (a recorded deviation: that function does not round q after its
      scaling), with exact launch counts (K3 1, K10 4, K8 or K9's two kernels
-     4), each kernel at the fold's shapes against its plain version, and the
-     fold's ms beside the unsharded call's;
+     4), each kernel at the fold's shapes against its plain version (K9's
+     dQ and dK/dV kernels each timed alone beside autograd of SDPA for its
+     part, the dQ kernel also by CUDA graphs, on paths of their own, 'ring
+     <site> <dtype> twokernel'), and the fold's ms beside the unsharded
+     call's;
      one v1-base fit step through train.build inside the group, exactly
      phase 7's fused launches with the gradient all-reduce run, and under
      deterministic=True the loss, the grad norm and every updated parameter
@@ -162,7 +167,26 @@ Phases, each printing its own lines:
      render on use_mesh() the bits of the render without it, with exactly a
      render's launches; --attn_impl xla raising on the card; and
      utils.profiling.trace() around a render writing a trace that names K1
-     and an annotate()d range; make_mesh() with no group a mesh of one rank.
+     and an annotate()d range; make_mesh() with no group a mesh of one rank;
+ 12. the workflow tools on the card: (a) tools/overfit_run at its defaults
+     on v1-base at full width and depth: 8 orbit frames of examples/cbox.json
+     (4,326 triangles, padded to 4,352) converted in memory, the teacher's
+     ground truth rendered in fp32 through the plain versions, the student
+     (the teacher plus the JAX tool's noise) fine-tuned 8 epochs x 8 steps at
+     256^2, bf16 with the fp32 view stage, through the trainer and dataset:
+     every step's launches exact (K1 18 / K2 6 / K3 48 / K4 3 / K5 1 / K4^T 4
+     / K8 18 + 6: no remat, as the JAX tool), the JAX pass condition (all
+     finite, last epoch < 0.5 x first, epochs 3.. below the first), the
+     losses, recovery ratio, fit seconds, trained rays/s and one profiled
+     step's idle share; (b) tools/verify_checkpoint on phase 8's two
+     directories against its golden image: steps 1, 2, 4 pass, 3 skipped,
+     205,173,391 counted; (c) tools/precision_study on v1.1-swin-large at
+     512^2, frame 0 padded to 4,352: each of its three renders exactly a
+     swin-large render's launches, its stages' weights in its precisions'
+     dtypes, the six PSNRs finite; (d) tools/gt_noise_sweep on frame 0 at
+     64^2, spp 8/32/128 against a 512-spp reference, clamp 1: the unclamped
+     PSNR rising at each step, the clamp's bias finite; (e)
+     tools/compare_renders on the golden image and a copy: PSNR inf.
 Then one JSON line with every kernel's numbers per render of each model
 and per train step, the nvidia-smi line, and the result line.  Any failed
 check exits non-zero before the result line.  Imports nothing of JAX.
@@ -176,6 +200,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -206,10 +231,24 @@ TRAIN_SWIN = 'train v1.1-swin-large'
 ROPE_TRAIN = (TRAIN, TRAIN2)
 TRAIN_PATHS = (TRAIN, TRAIN2, TRAIN_NERF, TRAIN_SWIN)
 # phase 11: the ring's one-device fold at v1-base's view-stage cross and
-# ray-self sites, in bf16 and fp32
-RING_PATHS = tuple(f'ring {site} {dt}' for site in ('cross', 'ray-self')
+# ray-self sites, in bf16 and fp32, with K8's backward and, as paths of their
+# own, under the two-kernel backward (K9)
+RING_FUSED = tuple(f'ring {site} {dt}' for site in ('cross', 'ray-self')
                    for dt in ('bf16', 'fp32'))
-ALL_PATHS = PATHS + TRAIN_PATHS + RING_PATHS
+RING_PATHS = RING_FUSED + tuple(f'{p} twokernel' for p in RING_FUSED)
+# phase 12: one student step of tools/overfit_run (v1-base at 256^2, no
+# remat), and each of tools/precision_study's three swin-large renders (512^2,
+# one view), by (stage-1, view-stage) precision; both on cbox's orbit frames,
+# 4,326 triangles padded to 4,352
+OVERFIT = 'overfit v1-base'
+PRECISION_PATHS = {pv: f'precision {SWIN} {name}' for pv, name in (
+    (('fp32', 'fp32'), 'fp32'), (('bf16', 'fp32'), 'bf16 fp32-view'), (('bf16', 'bf16'), 'bf16'))}
+PREC_F32, PREC_F32V, PREC_BF16 = PRECISION_PATHS.values()
+TOOL_PATHS = (OVERFIT,) + tuple(PRECISION_PATHS.values())
+PRECISION_RES, PRECISION_PAD = 512, 4352   # precision_study's defaults
+TOOL_SK = PRECISION_PAD + 16   # their attention sites' keys: triangles + register tokens
+ALL_PATHS = PATHS + TRAIN_PATHS + RING_PATHS + TOOL_PATHS
+MASK_VALID = 16 + NTRI * 3 // 4   # keys kept at 2,064: a padded tail of triangles masked
 TRAIN_RES = 256
 TRAIN_ST = (TRAIN_RES // 8) ** 2   # 1024 ray tokens
 SWIN_TRAIN_RES = 512               # swin-large's step: 4096 ray tokens, 64 windows
@@ -504,8 +543,9 @@ def attention_tol(ref, dtype, what):
     return amax * 2.0 ** -16, 'fp32 sums in another order: 2^-16 of max|ref|'
 
 
-def check_resize(rows, x, hw, per_run):
-    """K4 on x [B, n, n, C] to hw against its plain version."""
+def check_resize(rows, x, hw, per_run, prefix=''):
+    """K4 on x [B, n, n, C] to hw against its plain version; the row's site
+    is prefix + n 'to' hw."""
     import torch
     import torch.nn.functional as F
     from renderformer_tpu_torch.ops import reference_kernels
@@ -528,7 +568,7 @@ def check_resize(rows, x, hw, per_run):
         def lib():
             return F.interpolate(xc, size=hw, mode='bilinear', align_corners=True)
 
-        record_row(rows, 'resize_bilinear', f'{n_in}to{hw[0]}', x.dtype, per_run, out, ref,
+        record_row(rows, 'resize_bilinear', f'{prefix}{n_in}to{hw[0]}', x.dtype, per_run, out, ref,
                    tol, why, lambda: resize_bilinear(x, hw), lib,
                    b * (n_in * n_in + hw[0] * hw[1]) * c * it, 8 * b * hw[0] * hw[1] * c,
                    PEAK_FP32)
@@ -543,7 +583,7 @@ def check_resize(rows, x, hw, per_run):
               f'{row["library_burst_ms"]:.4f} (bound {row["bound_ms"]:.4f})', flush=True)
 
 
-def check_resize_s2d(rows, x, hw, per_run):
+def check_resize_s2d(rows, x, hw, per_run, prefix=''):
     """K5 on x [B, n, n, C] to hw in s2d layout against its plain version."""
     import torch
     import torch.nn.functional as F
@@ -557,7 +597,7 @@ def check_resize_s2d(rows, x, hw, per_run):
         with reference_kernels():
             ref = resize_s2d(x, hw)
         xc = x.permute(0, 3, 1, 2)
-        record_row(rows, 'resize_s2d', f'{n_in}to{hw[0]}_s2d', x.dtype, per_run,
+        record_row(rows, 'resize_s2d', f'{prefix}{n_in}to{hw[0]}_s2d', x.dtype, per_run,
                    out, ref, 0.0, 'the plain resize in fp32 rounded once, then '
                    'space_to_depth: the same ops in the same order, bit for bit',
                    lambda: resize_s2d(x, hw),
@@ -966,22 +1006,38 @@ def kernel_checks():
         c, sn = make_cos_sin(pos, rope_dim=12, head_dim=D)
         return c[:, :, 0].contiguous(), sn[:, :, 0].contiguous()
 
-    def record(kernel, site, dtype, per_render, *args):
-        # the renders run bf16: an fp32 row is checked and timed, launched by no path
-        record_row(rows, kernel, site, dtype, per_render if dtype == torch.bfloat16 else {},
-                   *args)
+    bf, f32 = torch.bfloat16, torch.float32
 
-    flash_sites = [  # name, B, Bkv, Sq, Sk, H, masked, launches per render
-        ('stage1_self', 1, 1, SK, SK, 6, True, {BASE: 12}),
-        ('cross', V, 1, ST, SK, 6, True, {BASE: 6}),
-        ('ray_self', V, V, ST, ST, 6, False, {BASE: 6}),
-        ('stage1_self_h8', 1, 1, SK, SK, 8, True, {SWIN: 12}),
-        ('cross_h8', V, 1, ST, SK, 8, True, {SWIN: 12}),
+    def record(kernel, site, dtype, launches, *args):
+        # launches: {dtype: {path: launches per render}}; a row in a dtype no
+        # path runs there is checked and timed, launched by no path
+        record_row(rows, kernel, site, dtype, launches.get(dtype, {}), *args)
+
+    # name, B, Bkv, Sq, Sk, H, keys kept by the mask (None: no mask), launches
+    # per render by dtype: the bf16 renders at 8 views, and precision_study's
+    # swin-large renders of one cbox view, each stage in its precision's dtype
+    prec_stage1 = {bf: {PREC_F32V: 12, PREC_BF16: 12}, f32: {PREC_F32: 12}}
+    prec_view = {bf: {PREC_BF16: 12}, f32: {PREC_F32: 12, PREC_F32V: 12}}
+    flash_sites = [
+        ('stage1_self', 1, 1, SK, SK, 6, MASK_VALID, {bf: {BASE: 12}}),
+        ('cross', V, 1, ST, SK, 6, MASK_VALID, {bf: {BASE: 6}}),
+        ('ray_self', V, V, ST, ST, 6, None, {bf: {BASE: 6}}),
+        ('stage1_self_h8', 1, 1, SK, SK, 8, MASK_VALID, {bf: {SWIN: 12}}),
+        ('cross_h8', V, 1, ST, SK, 8, MASK_VALID, {bf: {SWIN: 12}}),
+        ('precision_stage1_self_h8', 1, 1, TOOL_SK, TOOL_SK, 8, 16 + CBOX_TRIS, prec_stage1),
+        ('precision_cross_h8', 1, 1, ST, TOOL_SK, 8, 16 + CBOX_TRIS, prec_view),
     ]
-    for dtype in (torch.bfloat16, torch.float32):
-        it = 2 if dtype == torch.bfloat16 else 4
-        flop_rate = PEAK_BF16_TENSOR if dtype == torch.bfloat16 else PEAK_FP32
-        for site, b, bkv, sq, sk, H, masked, n in flash_sites:
+    # views, site prefix, launches of K4 and K5, and of K6 and K7 (a kind
+    # each: unshifted / shifted, forward / inverse), per render by dtype
+    view_stages = [
+        (V, '', {bf: {BASE: 1, SWIN: 1, NERF: 1}}, {bf: {SWIN: 6}}),
+        (1, 'precision_', {k: {p: 1 for p in v} for k, v in prec_view.items()},
+         {k: {p: 6 for p in v} for k, v in prec_view.items()}),
+    ]
+    for dtype in (bf, f32):
+        it = 2 if dtype == bf else 4
+        for site, b, bkv, sq, sk, H, valid, n in flash_sites:
+            masked = valid is not None
             print_plan('flash_fwd_rope', site, b, sq, H, dtype, sk)
             q = randn(b, sq, H, D, dtype=dtype)
             k = randn(bkv, sk, H, D, dtype=dtype)
@@ -991,7 +1047,7 @@ def kernel_checks():
             mask = None
             if masked:
                 mask = torch.ones(b, sk, dtype=torch.bool, device=dev)
-                mask[:, 16 + NTRI * 3 // 4:] = False  # a padded tail of triangles
+                mask[:, valid:] = False  # a padded tail of triangles
             with torch.inference_mode():
                 # K3 at this site
                 out = rot_kv_broadcast(k, ck, sk_t)
@@ -1023,69 +1079,68 @@ def kernel_checks():
             del q, k, v, k_rot, out, ref, qr, qs, ks, vs
             torch.cuda.empty_cache()
 
-        # K4: refinenet4/3/2 upsamples of both DPT heads; K5: refinenet1's
-        # upsample into s2d layout, the composed tail's input
-        per_render = {BASE: 1, SWIN: 1, NERF: 1} if dtype == torch.bfloat16 else {}
-        for n_in in (32, 64, 128):
-            check_resize(rows, randn(V, n_in, n_in, DPT_C, dtype=dtype), (2 * n_in, 2 * n_in),
-                         per_render)
-        check_resize_s2d(rows, randn(V, RES // 2, RES // 2, DPT_C, dtype=dtype), (RES, RES),
-                         per_render)
-        torch.cuda.empty_cache()
+        for nv, prefix, head, swin in view_stages:
+            # K4: refinenet4/3/2 upsamples of both DPT heads; K5: refinenet1's
+            # upsample into s2d layout, the composed tail's input
+            for n_in in (32, 64, 128):
+                check_resize(rows, randn(nv, n_in, n_in, DPT_C, dtype=dtype),
+                             (2 * n_in, 2 * n_in), head.get(dtype, {}), prefix)
+            check_resize_s2d(rows, randn(nv, RES // 2, RES // 2, DPT_C, dtype=dtype),
+                             (RES, RES), head.get(dtype, {}), prefix)
+            torch.cuda.empty_cache()
 
-        # K7 and K6 at the swin-large shapes: [8, 4096, 1024] window-ordered
-        # stream, [512, 64, 1024] window batches of 8 heads of 128
-        x = randn(V, ST, SWIN_C, dtype=dtype)
-        with torch.inference_mode():
-            for inverse in (False, True):
-                out = shifted_regroup(x, (GRID, GRID), 8, inverse=inverse)
-                with reference_kernels():
-                    ref = shifted_regroup(x, (GRID, GRID), 8, inverse=inverse)
-                # library yardstick: the same permutation as one gather
-                idx = torch.from_numpy(regroup_index(GRID, GRID, 8, inverse)).to(dev)
-                if not torch.equal(x.index_select(1, idx), ref):
-                    fail(f'regroup_index inverse={inverse} is not the regroup')
-                record('shifted_regroup', 'inverse' if inverse else 'forward', dtype,
-                       {SWIN: 6}, out, ref, 0.0, 'a permutation: exact',
-                       lambda: shifted_regroup(x, (GRID, GRID), 8, inverse=inverse),
-                       lambda: x.index_select(1, idx),
-                       2 * V * ST * SWIN_C * it, 0, PEAK_FP32)
-        del x, out, ref
-        bw = V * NW
-        q, k, v = (randn(bw, 64, SWIN_C, dtype=dtype) for _ in range(3))
-        qh, kh, vh = (t.reshape(bw, 64, SWIN_H, D).transpose(1, 2).contiguous()
-                      for t in (q, k, v))
-        for shift in (0, 4):
-            regions = region_table(GRID, GRID, 8, shift, dev) if shift else None
-            am = None
-            if shift:
-                am = torch.from_numpy(swin_attn_mask(GRID, GRID, 8, shift)).to(dev)
-                am = am.repeat(V, 1, 1)[:, None]
+            # K7 and K6 at the swin-large shapes: [nv, 4096, 1024] window-ordered
+            # stream, [nv * 64, 64, 1024] window batches of 8 heads of 128
+            x = randn(nv, ST, SWIN_C, dtype=dtype)
             with torch.inference_mode():
-                out = swin_window_attention(q, k, v, num_heads=SWIN_H, regions=regions)
-                with reference_kernels():
-                    ref = swin_window_attention(q, k, v, num_heads=SWIN_H,
-                                                regions=regions)
-                tol, why = attention_tol(ref, dtype, 'sums of e and P.V in another order')
-                record('swin_window_attention', 'shifted' if shift else 'unshifted',
-                       dtype, {SWIN: 6}, out, ref, tol, why,
-                       lambda: swin_window_attention(q, k, v, num_heads=SWIN_H,
-                                                     regions=regions),
-                       lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am),
-                       4 * bw * 64 * SWIN_C * it + (NW * 64 if shift else 0),
-                       4 * bw * SWIN_H * 64 * 64 * D, flash_rate(dtype))
-            del out, ref
-        del q, k, v, qh, kh, vh
-        torch.cuda.empty_cache()
+                for inverse in (False, True):
+                    out = shifted_regroup(x, (GRID, GRID), 8, inverse=inverse)
+                    with reference_kernels():
+                        ref = shifted_regroup(x, (GRID, GRID), 8, inverse=inverse)
+                    # library yardstick: the same permutation as one gather
+                    idx = torch.from_numpy(regroup_index(GRID, GRID, 8, inverse)).to(dev)
+                    if not torch.equal(x.index_select(1, idx), ref):
+                        fail(f'regroup_index inverse={inverse} is not the regroup')
+                    record('shifted_regroup', prefix + ('inverse' if inverse else 'forward'),
+                           dtype, swin, out, ref, 0.0, 'a permutation: exact',
+                           lambda: shifted_regroup(x, (GRID, GRID), 8, inverse=inverse),
+                           lambda: x.index_select(1, idx),
+                           2 * nv * ST * SWIN_C * it, 0, PEAK_FP32)
+            del x, out, ref
+            bw = nv * NW
+            q, k, v = (randn(bw, 64, SWIN_C, dtype=dtype) for _ in range(3))
+            qh, kh, vh = (t.reshape(bw, 64, SWIN_H, D).transpose(1, 2).contiguous()
+                          for t in (q, k, v))
+            for shift in (0, 4):
+                regions = region_table(GRID, GRID, 8, shift, dev) if shift else None
+                am = None
+                if shift:
+                    am = torch.from_numpy(swin_attn_mask(GRID, GRID, 8, shift)).to(dev)
+                    am = am.repeat(nv, 1, 1)[:, None]
+                with torch.inference_mode():
+                    out = swin_window_attention(q, k, v, num_heads=SWIN_H, regions=regions)
+                    with reference_kernels():
+                        ref = swin_window_attention(q, k, v, num_heads=SWIN_H,
+                                                    regions=regions)
+                    tol, why = attention_tol(ref, dtype, 'sums of e and P.V in another order')
+                    record('swin_window_attention', prefix + ('shifted' if shift else 'unshifted'),
+                           dtype, swin, out, ref, tol, why,
+                           lambda: swin_window_attention(q, k, v, num_heads=SWIN_H,
+                                                         regions=regions),
+                           lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am),
+                           4 * bw * 64 * SWIN_C * it + (NW * 64 if shift else 0),
+                           4 * bw * SWIN_H * 64 * 64 * D, flash_rate(dtype))
+                del out, ref
+            del q, k, v, qh, kh, vh
+            torch.cuda.empty_cache()
 
     # K10 and K11 at the v1-base nerf render's shapes, in its bf16
-    bf = torch.bfloat16
     for site, b, sq, sk, masked, n in (('nerf_stage1_self', 1, SK, SK, True, 12),
                                        ('nerf_cross', V, ST, SK, True, 6),
                                        ('nerf_ray_self', V, ST, ST, False, 6)):
         print_plan('flash_fwd', site, b, sq, 6)
         check_flash_fwd(rows, randn, site, b, sq, sk, masked, bf, {NERF: n})
-    for dtype in (bf, torch.float32):
+    for dtype in (bf, f32):
         check_flash_edges(rows, randn, tables, False, dtype)
     eps_tiny = float(np.finfo(np.float32).eps)  # torch's RMSNorm default
     for site, r, eps, n in (('embed_2048', NTRI, eps_tiny, 3), ('stage1_2064', SK, 1e-6, 48),
@@ -1314,23 +1369,34 @@ def train_kernel_checks():
         c, sn = make_cos_sin(randn(b, s, 9) * 0.3, rope_dim=12, head_dim=D)
         return c[:, :, 0].contiguous(), sn[:, :, 0].contiguous()
 
-    # name, Sq, Sk, heads, masked, dtype of the step there, sites a step, and
-    # the paths that launch K3 and K1/K2 there, K8, and K9; the swin-large
-    # step's sites are checked in the step's dtype only
-    base = (ROPE_TRAIN, (TRAIN, TRAIN_NERF), (TRAIN2,))
-    swin = ((TRAIN_SWIN,), (TRAIN_SWIN,), ())
+    # name, Sq, Sk, heads, keys kept by the mask (None: no mask), dtype of the
+    # step there, sites a step, launches a site by path (of K3, of K1/K2 with
+    # the logsumexp, of K8, of K9's kernels), and whether the site is checked
+    # in the other dtype too.  With remat K3 runs three times a site (forward,
+    # recomputation, backward) and K1/K2 twice; tools/overfit_run's step keeps
+    # remat off (K3 twice, K1/K2 once) and shares the ray-self site's shape
+    bf, f32 = torch.bfloat16, torch.float32
+    remat = dict(k3={TRAIN: 3, TRAIN2: 3}, fwd={TRAIN: 2, TRAIN2: 2},
+                 k8={TRAIN: 1, TRAIN_NERF: 1}, k9={TRAIN2: 1})
+    overfit = dict(k3={OVERFIT: 2}, fwd={OVERFIT: 1}, k8={OVERFIT: 1}, k9={})
+    swin = dict(k3={TRAIN_SWIN: 3}, fwd={TRAIN_SWIN: 2}, k8={TRAIN_SWIN: 1}, k9={})
     swin_st = (SWIN_TRAIN_RES // 8) ** 2
+    cbox = 16 + CBOX_TRIS
     sites = [
-        ('train_stage1_self', SK, SK, 6, True, torch.bfloat16, 12, base),
-        ('train_cross', TRAIN_ST, SK, 6, True, torch.float32, 6, base),
-        ('train_ray_self', TRAIN_ST, TRAIN_ST, 6, False, torch.float32, 6, base),
-        ('swin_train_stage1_self', SK, SK, SWIN_H, True, torch.bfloat16, 12, swin),
-        ('swin_train_cross', swin_st, SK, SWIN_H, True, torch.float32, 12, swin),
+        ('train_stage1_self', SK, SK, 6, MASK_VALID, bf, 12, remat, True),
+        ('train_cross', TRAIN_ST, SK, 6, MASK_VALID, f32, 6, remat, True),
+        ('train_ray_self', TRAIN_ST, TRAIN_ST, 6, None, f32, 6,
+         {k: {**remat[k], **overfit[k]} for k in remat}, True),
+        ('swin_train_stage1_self', SK, SK, SWIN_H, MASK_VALID, bf, 12, swin, False),
+        ('swin_train_cross', swin_st, SK, SWIN_H, MASK_VALID, f32, 12, swin, False),
+        ('overfit_stage1_self', TOOL_SK, TOOL_SK, 6, cbox, bf, 12, overfit, False),
+        ('overfit_cross', TRAIN_ST, TOOL_SK, 6, cbox, f32, 6, overfit, False),
     ]
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (bf, f32):
         it = 2 if dtype == torch.bfloat16 else 4
-        for site, sq, sk, H, masked, step_dtype, n, (rope_paths, k8_paths, k9_paths) in sites:
-            if rope_paths == (TRAIN_SWIN,) and dtype != step_dtype:
+        for site, sq, sk, H, valid, step_dtype, n, launches, both in sites:
+            masked = valid is not None
+            if not both and dtype != step_dtype:
                 continue
             if dtype == step_dtype:
                 print_plan('flash_fwd_rope', site, 1, sq, H, dtype, sk)
@@ -1343,8 +1409,9 @@ def train_kernel_checks():
                       f'{sk}: {keys} keys a block, {step}, q steps split {splits} ways, '
                       f'{-(-sk // keys) * H * splits} blocks on {sms} SMs', flush=True)
 
-            def per_step(k, paths=rope_paths):
-                return {p: k * n for p in paths} if dtype == step_dtype else {}
+            def per_step(kind):
+                return ({p: m * n for p, m in launches[kind].items()} if dtype == step_dtype
+                        else {})
             q, do = randn(1, sq, H, D, dtype=dtype), randn(1, sq, H, D, dtype=dtype)
             k, v = randn(1, sk, H, D, dtype=dtype), randn(1, sk, H, D, dtype=dtype)
             cq, sq_t = tables(1, sq)
@@ -1352,16 +1419,16 @@ def train_kernel_checks():
             mask = None
             if masked:
                 mask = torch.ones(1, sk, dtype=torch.bool, device=dev)
-                mask[:, 16 + NTRI * 3 // 4:] = False
+                mask[:, valid:] = False
             with torch.no_grad():
-                # K3: three times a step (forward, remat recompute, backward)
+                # K3
                 k_rot = rot_kv_broadcast(k, ck, sk_t)
                 ref_rot = rot_kv_broadcast_plain(k, ck, sk_t)
-                record_row(rows, 'rot_kv_broadcast', site, dtype, per_step(3), k_rot, ref_rot,
+                record_row(rows, 'rot_kv_broadcast', site, dtype, per_step('k3'), k_rot, ref_rot,
                            k3_tol(ref_rot), K3_WHY, lambda: rot_kv_broadcast(k, ck, sk_t), None,
                            k3_bytes(1, 1, sk, H, it), 3 * sk * H * D, PEAK_FP32)
                 k3_burst(rows, lambda: rot_kv_broadcast(k, ck, sk_t))
-                # K1/K2 with the logsumexp: twice a step (forward, remat recompute)
+                # K1/K2 with the logsumexp
                 kname = 'flash_fwd_rope_mask' if masked else 'flash_fwd_rope_nomask'
                 out, lse = flash_fwd_rope(q, k_rot, v, mask, cq, sq_t, with_lse=True)
                 with reference_kernels():
@@ -1375,7 +1442,7 @@ def train_kernel_checks():
                 am = mask[:, None, None, :] if mask is not None else None
                 fwd_bytes = (2 * sq + 2 * sk) * H * D * it + (sk if masked else 0) \
                     + 2 * sq * D * 4 + H * sq * 4
-                record_row(rows, kname, site + '_lse', dtype, per_step(2), (out, lse),
+                record_row(rows, kname, site + '_lse', dtype, per_step('fwd'), (out, lse),
                            (ref_out, ref_lse), (tol, lse_tol),
                            why + '; lse m*ln2 + ln(l) in fp32: 1e-5 of max|lse| + 2e-5',
                            lambda: flash_fwd_rope(q, k_rot, v, mask, cq, sq_t, with_lse=True),
@@ -1421,7 +1488,7 @@ def train_kernel_checks():
                 # timed one at a time, each against the plain version of its part
                 fused = flash_bwd(*io, 'fused')
                 record_row(rows, 'flash_bwd_mask' if masked else 'flash_bwd_nomask', site, dtype,
-                           per_step(1, k8_paths), fused, ref, tols, why,
+                           per_step('k8'), fused, ref, tols, why,
                            lambda: flash_bwd(*io, 'fused'), lib_grad(ql, kl, vl),
                            b_in + sq * H * D * it + b_out_kv + b_out_q,
                            10 * H * sq * sk * D, flash_rate(dtype))
@@ -1438,12 +1505,12 @@ def train_kernel_checks():
                   f'{row["library_ms"]:.4f}', flush=True)
             with torch.no_grad():
                 two = flash_bwd(*io, 'twokernel')
-                record_row(rows, 'flash_bwd_dq', site, dtype, per_step(1, k9_paths), two[0],
+                record_row(rows, 'flash_bwd_dq', site, dtype, per_step('k9'), two[0],
                            ref[0], tols[0], why, lambda: launch_flash_bwd(lib, 'dq', *io),
                            lib_grad(ql), b_in + b_out_q, 6 * H * sq * sk * D,
                            flash_rate(dtype), plain_fn=lambda: flash_bwd_dq_plain(*io))
                 check_dq(rows[-1], lib, io, (qs, ks, vs, am, gl), site, dtype)
-                record_row(rows, 'flash_bwd_dkv', site, dtype, per_step(1, k9_paths), two[1:],
+                record_row(rows, 'flash_bwd_dkv', site, dtype, per_step('k9'), two[1:],
                            ref[1:], tols[1:], why, lambda: launch_flash_bwd(lib, 'dkv', *io),
                            lib_grad(kl, vl), b_in + b_out_kv, 8 * H * sq * sk * D,
                            flash_rate(dtype), plain_fn=lambda: flash_bwd_dkv_plain(*io))
@@ -1452,8 +1519,8 @@ def train_kernel_checks():
             torch.cuda.empty_cache()
 
         # K4 and K5 in the fp32 view stage's DPT head (refinenet4/3/2, refinenet1)
-        view_stage = ({p: 1 for p in (TRAIN, TRAIN2, TRAIN_NERF)} if dtype == torch.float32
-                      else {})
+        view_stage = ({p: 1 for p in (TRAIN, TRAIN2, TRAIN_NERF, OVERFIT)}
+                      if dtype == torch.float32 else {})
         for n_in in (16, 32, 64):
             check_resize(rows, randn(1, n_in, n_in, DPT_C, dtype=dtype), (2 * n_in, 2 * n_in),
                          view_stage)
@@ -1471,7 +1538,6 @@ def train_kernel_checks():
     # the nerf train step: K10 with the logsumexp twice a site (the forward and
     # the remat recomputation); K11 forward at each norm, again in the
     # recomputed blocks, and backward once
-    bf, f32 = torch.bfloat16, torch.float32
     for site, sq, sk, masked, dtype, n in (
             ('train_nerf_stage1_self', SK, SK, True, bf, 12),
             ('train_nerf_cross', TRAIN_ST, SK, True, f32, 6),
@@ -2005,6 +2071,7 @@ def train_swin_checks(card):
 # ---------------------------------------------------------------------------
 
 ENTRY_K = 4  # camera chunks of render_many, of V views each
+VERIFY_RES = 256  # tools/verify_checkpoint's default resolution
 
 
 def max_abs(a, b):
@@ -2037,21 +2104,25 @@ def entry_cameras():
     return c2w, np.full((ENTRY_K, 1, V, 1), 40.0, np.float32)
 
 
-def entry_point_checks(card):
+def entry_point_checks(card, keep):
     """Phase 8 on full-width, full-depth v1-base from the seeded init, bf16,
     the bench.py scene: (a) from_pretrained on an HF directory and on a
-    jax_format directory renders what the seeded pipeline renders; (b)
-    render_many over ENTRY_K chunks launches ENTRY_K times a render's
-    kernels, each chunk what render gives; (c) the infer stage writes the
-    EXR and PNG files, the EXR the render's fp32 output; (d) both loops of
-    batch_infer run with --no_output on in-memory dicts."""
+    jax_format directory, both written into ``keep`` for phase 12, renders
+    what the seeded pipeline renders; (b) render_many over ENTRY_K chunks
+    launches ENTRY_K times a render's kernels, each chunk what render gives;
+    (c) the infer stage writes the EXR and PNG files, the EXR the render's
+    fp32 output; (d) both loops of batch_infer run with --no_output on
+    in-memory dicts.  Then the seeded pipeline renders verify_checkpoint's
+    random scene at its defaults (fp32, 256^2) into ``keep``/golden.exr,
+    phase 12's golden image."""
     import tempfile
 
     import torch
     from renderformer_tpu_torch import RenderingPipeline, batch_infer, export_params, infer
     from renderformer_tpu_torch.io import safetensors
-    from renderformer_tpu_torch.io.image import read_exr
+    from renderformer_tpu_torch.io.image import read_exr, write_exr
     from renderformer_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from renderformer_tpu_torch.tools import verify_checkpoint
 
     t0 = time.time()
     seeded = render_pipeline(BASE)
@@ -2072,7 +2143,7 @@ def entry_point_checks(card):
 
     with tempfile.TemporaryDirectory(prefix='rf_entry_') as tmp:
         # (a) loading
-        hf, jx = os.path.join(tmp, 'hf'), os.path.join(tmp, 'jax_format')
+        hf, jx = os.path.join(keep, 'hf'), os.path.join(keep, 'jax_format')
         os.makedirs(hf)
         seeded.config.save_json(os.path.join(hf, 'config.json'))
         safetensors.save_file(seeded.model.state_dict(), os.path.join(hf, 'model.safetensors'))
@@ -2179,7 +2250,11 @@ def entry_point_checks(card):
             print(f'speed: batch_infer {name} loop, --no_output, {len(meter._times)} calls of '
                   f'{meter.rays_per_step} rays: {s["rays_per_s_median"]:.1f} rays/s median '
                   f'(informational, no bar) on {card}', flush=True)
-    del seeded, dargs, ref, again
+    sc = verify_checkpoint.random_scene()
+    golden = seeded.render(*(sc[k] for k in ('triangles', 'texture', 'mask', 'vn', 'c2w', 'fov')),
+                           resolution=VERIFY_RES, precision='fp32')
+    write_exr(os.path.join(keep, 'golden.exr'), golden[0, 0].float().cpu().numpy())
+    del seeded, dargs, ref, again, golden
     torch.cuda.empty_cache()
     print(f'entry: phase 8 in {time.time() - t0:.1f} s', flush=True)
 
@@ -2235,27 +2310,15 @@ def fit_scenes():
 
 
 def memory_dataset(scenes, root):
-    """The port's RenderFormerDataset on in-memory scenes: a subclass that
-    replaces only the H5 read; the ground truth is PNGs in ``root`` that
+    """The port's dataset on in-memory scenes (``InMemoryDataset``: only the
+    H5 read replaced); the ground truth is PNGs in ``root`` that
     io/image.write_png wrote, which the dataset reads and downsizes."""
-    from renderformer_tpu_torch.io.h5 import pad_scene
     from renderformer_tpu_torch.io.image import write_png
-    from renderformer_tpu_torch.training.dataset import RenderFormerDataset
-    paths = {os.path.join(root, f'scene_{i}.h5'): sc for i, sc in enumerate(scenes)}
-    for path, sc in paths.items():
-        write_png(path[:-3] + '.png', sc['gt'])
-
-    class MemoryDataset(RenderFormerDataset):
-        def _list_scenes(self, h5_dir):
-            return sorted(paths)
-
-        def _scene_shape(self, path):
-            return paths[path]['triangles'].shape[0], paths[path]['texture'].shape[-1]
-
-        def _read_scene(self, path):
-            return pad_scene(paths[path], self.padding_length, texture_dtype=np.float16)
-
-    return MemoryDataset(root, root, max_resolution=FIT_RES)
+    from renderformer_tpu_torch.training.dataset import InMemoryDataset
+    for i, sc in enumerate(scenes):
+        write_png(os.path.join(root, f'scene_{i}.png'), sc['gt'])
+    return InMemoryDataset({f'scene_{i}': sc for i, sc in enumerate(scenes)}, root,
+                           max_resolution=FIT_RES)
 
 
 def fit_trainer(dataset, ckpt, resume=None, **train_kw):
@@ -2960,26 +3023,35 @@ def ring_kernel_rows(rows, path, site, q, k, v, mask, tabs, g):
     against its plain version: K3 at the site (its one launch), and for
     each of the RING_N K/V slices K10 with its logsumexp and K8 against the
     global logsumexp and delta (one launch of each a slice), per_run
-    {path: 1} a row.  SDPA and autograd through it on the slice are the
-    library yardsticks (a row of the slice with every key masked gives
-    SDPA NaNs, which only its time reads).  The logsumexp of such a row is
-    left out of the comparison and must lie below -1e29, where it weighs
-    exactly 0 in the merge; its output (uniform over the keys) is not."""
+    {path: 1} a row, and K9's dQ and dK/dV kernels, each timed alone
+    against the plain version of its part (per_run {path twokernel: 1};
+    K3 and K10 count there too), K9's dQ also by CUDA graphs and for the
+    same bits over calls and replays (check_dq).  SDPA and autograd through
+    it on the slice are the library yardsticks, for all three gradients
+    (K8), dq alone and (dk, dv) alone (K9's kernels); a row of the slice
+    with every key masked gives SDPA NaNs, which only its time reads.  The
+    logsumexp of such a row is left out of the comparison and must lie below
+    -1e29, where it weighs exactly 0 in the merge; its output (uniform over
+    the keys) is not."""
     import torch
     import torch.nn.functional as F
+    from renderformer_tpu_torch import _build
     from renderformer_tpu_torch.ops import reference_kernels
     from renderformer_tpu_torch.ops.flash_attention import (
-        flash_bwd, flash_fwd, rot_kv_broadcast, rot_kv_broadcast_plain)
+        flash_bwd, flash_bwd_dkv_plain, flash_bwd_dq_plain, flash_fwd, launch_flash_bwd,
+        rot_kv_broadcast, rot_kv_broadcast_plain)
     dtype = q.dtype
     it = 2 if dtype == torch.bfloat16 else 4
     b, sq, h, _ = q.shape
     bkv, sk = k.shape[0], k.shape[1]
-    one = {path: 1}
+    lib = _build.library()
+    tk = f'{path} twokernel'
+    one, both = {path: 1}, {path: 1, tk: 1}
     _, _, ck, sk_t = tabs
     with torch.no_grad():
         k_rot = rot_kv_broadcast(k, ck, sk_t)
         ref_rot = rot_kv_broadcast_plain(k, ck, sk_t)
-        record_row(rows, 'rot_kv_broadcast', f'ring_{site}', dtype, one, k_rot, ref_rot,
+        record_row(rows, 'rot_kv_broadcast', f'ring_{site}', dtype, both, k_rot, ref_rot,
                    k3_tol(ref_rot), K3_WHY, lambda: rot_kv_broadcast(k, ck, sk_t), None,
                    k3_bytes(b, bkv, sk, h, it), 3 * b * sk * h * D, PEAK_FP32)
         del k_rot, ref_rot
@@ -3006,7 +3078,7 @@ def ring_kernel_rows(rows, path, site, q, k, v, mask, tabs, g):
                     '+ 2e-5')
             ks_, vs_ = ki.transpose(1, 2).contiguous(), vi.transpose(1, 2).contiguous()
             am = None if mi is None else mi[:, None, None, :]
-            record_row(rows, kname, name + '_lse', dtype, one, (o_i, lse_i[keep]),
+            record_row(rows, kname, name + '_lse', dtype, both, (o_i, lse_i[keep]),
                        (ref_o, ref_lse[keep]), tol, why,
                        lambda: flash_fwd(qr, ki, vi, mi, with_lse=True),
                        lambda: F.scaled_dot_product_attention(qs, ks_, vs_, attn_mask=am),
@@ -3027,17 +3099,37 @@ def ring_kernel_rows(rows, path, site, q, k, v, mask, tabs, g):
                 ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (qs, ks_, vs_))
                 yl = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=am)
 
-            def lib_grad():
-                return torch.autograd.grad(yl, (ql, kl, vl), gs, retain_graph=True)
+            def lib_grad(*wrt):
+                return lambda: torch.autograd.grad(yl, wrt, gs, retain_graph=True)
 
+            b_in = ((2 * b * sq + 2 * b * n) * h * D * it + 2 * b * h * sq * 4
+                    + (b * n if mi is not None else 0))
             record_row(rows, 'flash_bwd_mask' if mi is not None else 'flash_bwd_nomask', name,
                        dtype, one, got, ref, tols, why,
-                       lambda: flash_bwd(*io, 'fused', dq_acc=scratch), lib_grad,
-                       (2 * b * sq + 2 * b * n) * h * D * it + 2 * b * h * sq * 4
-                       + (b * n if mi is not None else 0) + 2 * b * n * h * D * it
+                       lambda: flash_bwd(*io, 'fused', dq_acc=scratch), lib_grad(ql, kl, vl),
+                       b_in + 2 * b * n * h * D * it
                        + 2 * b * sq * h * D * 4,  # dk, dv; the fp32 dQ sum read and written
                        10 * b * h * sq * n * D, flash_rate(dtype))
-            del got, ref, ql, kl, vl, yl, io, ki, vi, ks_, vs_, acc, ref_acc, scratch
+            # K9 as the ring calls it under 'twokernel': dQ written in the dtype
+            # (then added into the ring's fp32 sum), dK and dV
+            two = flash_bwd(*io, 'twokernel')
+            with reference_kernels():
+                ref9 = flash_bwd(*io)
+            tols9 = tuple(attention_tol(r, dtype, '')[0] * 2 for r in ref9)
+            why9 = ('q, P and dS round to the dtype in both, in another summation order: '
+                    '8 bf16 ulps / 2^-15 of max|ref| per output')
+            record_row(rows, 'flash_bwd_dq', name, dtype, {tk: 1}, two[0], ref9[0], tols9[0],
+                       why9, lambda: launch_flash_bwd(lib, 'dq', *io), lib_grad(ql),
+                       b_in + b * sq * h * D * it, 6 * b * h * sq * n * D, flash_rate(dtype),
+                       plain_fn=lambda: flash_bwd_dq_plain(*io))
+            check_dq(rows[-1], lib, io, (qs, ks_, vs_, am, gs), name, dtype)
+            record_row(rows, 'flash_bwd_dkv', name, dtype, {tk: 1}, two[1:], ref9[1:],
+                       tols9[1:], why9, lambda: launch_flash_bwd(lib, 'dkv', *io),
+                       lib_grad(kl, vl), b_in + 2 * b * n * h * D * it,
+                       8 * b * h * sq * n * D, flash_rate(dtype),
+                       plain_fn=lambda: flash_bwd_dkv_plain(*io))
+            del got, ref, ql, kl, vl, yl, io, two, ref9, ki, vi, ks_, vs_, acc, ref_acc
+            del scratch
         del qr, kr, vr, out, lse, delta, qs, gs
     torch.cuda.empty_cache()
 
@@ -3051,8 +3143,9 @@ def ring_checks(card, rows):
     against its plain ring (K9's dQ rounds to the dtype a slice; RING_TOL), the
     kernels at the fold's shapes (ring_kernel_rows), exact launch counts
     (K3 once, K10 and K8 RING_N times each), K9 in place of K8 under
-    flash_backward('twokernel'), and the fold's ms beside one unsharded call.
-    Returns the launches of each RING_PATHS path."""
+    flash_backward('twokernel') (the '<path> twokernel' paths), and the
+    fold's ms beside one unsharded call.  Returns the launches of each
+    RING_PATHS path."""
     import torch
     from renderformer_tpu_torch.ops import LAUNCHES, reference_kernels, reset_launch_counts
     from renderformer_tpu_torch.ops.flash_attention import flash_backward, flash_fwd
@@ -3083,6 +3176,7 @@ def ring_checks(card, rows):
             with flash_backward('twokernel'):
                 det = ring_site_run(True, q, k, v, mask, tabs, g)
             torch.cuda.synchronize()
+            launches[f'{path} twokernel'] = dict(LAUNCHES)
             k9 = {n: c for n, c in LAUNCHES.items() if c}
             if k9 != {'rot_kv_broadcast': 1, f'flash_fwd_{kind}': RING_N,
                       'flash_bwd_dq': RING_N, 'flash_bwd_dkv': RING_N}:
@@ -3282,6 +3376,232 @@ def parallel_checks(card, rows):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the workflow tools on the card
+# ---------------------------------------------------------------------------
+
+# one student step of tools/overfit_run at its defaults, whose TrainConfig
+# keeps remat off as the JAX tool's does: each of the 24 attention sites
+# runs K3 and K1/K2 with the logsumexp in the forward, then K3 again and K8
+# in the backward; the DPT head's K4 x3 and K5, and K4^T for the VJP of each
+OVERFIT_LAUNCHES = _launches(flash_fwd_rope_mask=18, flash_fwd_rope_nomask=6,
+                             rot_kv_broadcast=48, flash_bwd_mask=18, flash_bwd_nomask=6,
+                             resize_bilinear=3, resize_bilinear_t=4, resize_s2d=1)
+OVERFIT_FRAMES = 8                    # the JAX tool's 8 orbit frames of cbox
+# gt_noise_sweep cut to the phase's time (the tool: 256^2, 1024-spp
+# reference, spp 8..256, clamp 10); at clamp 10 cbox's clamped and unclamped
+# references are the same image once clipped to [0, 1] (an infinite bias),
+# so the clamp here is 1, where it bites
+SWEEP_RES, SWEEP_REF_SPP, SWEEP_SPPS, SWEEP_CLAMP = 64, 512, (8, 32, 128), 1.0
+
+
+def run_tool(main, argv):
+    """(exit code, printed lines) of a tool's main(argv), its lines echoed."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(f'  | {ln}', flush=True)
+    return rc, lines
+
+
+def overfit_checks(card, frames, root):
+    """(a) tools/overfit_run at its defaults on v1-base at full width and
+    depth: the teacher (the seeded init) renders the 8 frames' ground truth
+    through the plain versions in fp32, the student (the teacher plus the
+    JAX tool's noise) fine-tunes 8 epochs x 8 steps through the trainer and
+    the dataset (in memory: no h5py here), bf16 with the fp32 view stage;
+    every step launches exactly OVERFIT_LAUNCHES (counts set to 0 just
+    before it, read just after), and the JAX pass condition holds.  Then the
+    timings of the student's step (step_speed).  Returns the first step's
+    launches."""
+    import torch
+    from renderformer_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from renderformer_tpu_torch.tools import overfit_run
+    args = overfit_run.build_parser().parse_args(['--workdir', os.path.join(root, 'overfit')])
+    counts, bad, steps = [], [], []
+
+    def hook(tr):
+        step = tr._train_step
+        steps.append(step)
+
+        def counted(state, batch):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            counts.append(dict(LAUNCHES))
+            if counts[-1] != OVERFIT_LAUNCHES:
+                bad.append((len(counts) - 1, counts[-1]))
+            return out
+
+        tr._train_step = counted
+
+    t = time.time()
+    res = overfit_run.run(args, frames=frames, trainer_hook=hook,
+                          log=lambda *a: print('overfit:', *a, flush=True))
+    out, tr = res['out'], res['trainer']
+    print('overfit ' + json.dumps(out), flush=True)
+    print(f'overfit: step 0 launches ' + json.dumps(counts[0] if counts else {}), flush=True)
+    if len(counts) != out['steps_total'] or bad:
+        fail(f'overfit: {len(counts)} of {out["steps_total"]} steps counted; steps off '
+             f'{OVERFIT_LAUNCHES}: {bad[:2]}')
+    losses = out['losses']
+    rays = out['steps_total'] * out['resolution'] ** 2 / res['fit_s']
+    print(f'overfit: {out["preset"]} {out["epochs"]} epochs x {out["scenes"]} steps at '
+          f'{out["resolution"]}^2 ({out["padding_length"]} triangles a scene, {out["precision"]} '
+          f'with the fp32 view stage): epoch losses {losses}, recovery ratio '
+          f'{out["recovery_ratio"]:.4f} (pass: all finite, last < 0.5 x first, epochs 3.. below '
+          f'the first: {res["ok"]}); every step exactly {json.dumps({k: v for k, v in OVERFIT_LAUNCHES.items() if v})}; '
+          f'fit {res["fit_s"]:.2f} s, {rays:.1f} trained rays/s; the whole run '
+          f'{time.time() - t:.1f} s, on {card}', flush=True)
+    if not res['ok']:
+        fail(f'overfit: the student did not converge: {losses}')
+    batch = tr._put(tr._host(next(tr.dataset.batches([0], 1, shuffle=False))))
+    step_speed(card, OVERFIT, steps[0], tr.state, batch,
+               {'recovery_ratio': out['recovery_ratio'], 'fit_s': res['fit_s']},
+               res=out['resolution'])
+    tr.dataset.close()
+    del res, tr, batch
+    torch.cuda.empty_cache()
+    return counts[0]
+
+
+def verify_checks(card, keep):
+    """(b) tools/verify_checkpoint on phase 8's HF and jax_format
+    directories with the golden image the seeded pipeline wrote: steps 1, 2
+    and 4 pass, step 3 says it is skipped, exit code 0, and the count is
+    the JAX param_count of v1-base."""
+    import torch
+    from renderformer_tpu_torch.config import PRESETS
+    from renderformer_tpu_torch.models.renderformer import RenderFormer
+    from renderformer_tpu_torch.tools import verify_checkpoint
+    with torch.device('meta'):
+        model = RenderFormer(PRESETS[BASE])
+    n = verify_checkpoint.param_count(model)
+    n_par = sum(p.numel() for p in model.parameters())
+    golden = os.path.join(keep, 'golden.exr')
+    for name in ('hf', 'jax_format'):
+        t = time.time()
+        rc, lines = run_tool(verify_checkpoint.main,
+                             ['--checkpoint', os.path.join(keep, name), '--golden_exr', golden])
+        text = '\n'.join(lines)
+        want = [f'params: {n / 1e6:.1f}M', '[1/4] loaded', 'finite=True',
+                '[3/4] torch parity: skipped', '(OK at the >30dB', 'checkpoint verified OK']
+        missing = [w for w in want if w not in text]
+        print(f'verify: {name} directory: exit code {rc} in {time.time() - t:.1f} s; '
+              f'{n:,} parameters counted ({n_par:,} parameters and {n - n_par} RoPE '
+              f'frequency elements, as the JAX param_count), on {card}', flush=True)
+        if rc != 0 or missing:
+            fail(f'verify_checkpoint on the {name} directory: exit code {rc}, lines '
+                 f'missing {missing}')
+
+
+def precision_checks(card, frame):
+    """(c) tools/precision_study on v1.1-swin-large at full width and depth
+    from the seeded init, PRECISION_RES^2, frame 0 of the cbox orbit padded
+    to PRECISION_PAD: each of its three renders launches exactly a
+    swin-large render's kernels (counts set to 0 just before it, read just
+    after) with its stages' weights in the dtypes of its precisions, and
+    the six PSNRs are finite.  Returns each render's launches by path."""
+    import torch
+    from renderformer_tpu_torch import RenderingPipeline
+    from renderformer_tpu_torch.io.h5 import pad_scene
+    from renderformer_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from renderformer_tpu_torch.pipelines.rendering_pipeline import _DTYPES
+    from renderformer_tpu_torch.tools import precision_study
+    t = time.time()
+    pipe = RenderingPipeline.from_pretrained(SWIN)
+    real, seen = pipe.render, []
+
+    def counted(*a, precision, view_precision, **kw):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        img = real(*a, precision=precision, view_precision=view_precision, **kw)
+        torch.cuda.synchronize()
+        model = pipe._model_for(_DTYPES[precision], _DTYPES[view_precision])
+        dts = (next(model.transformer.parameters()).dtype,
+               next(model.view_transformer.parameters()).dtype)
+        seen.append((precision, view_precision, dict(LAUNCHES), dts))
+        return img
+
+    pipe.render = counted
+    out, _ = precision_study.study(pipe, pad_scene(frame, PRECISION_PAD), PRECISION_RES, SWIN,
+                                   h5='cbox orbit frame 0, in memory')
+    print('precision ' + json.dumps(out), flush=True)
+    for p, vp, launches, dts in seen:
+        print(f'precision: {SWIN} {p} / view {vp}: weights {[str(d) for d in dts]}, launches '
+              + json.dumps({k: v for k, v in launches.items() if v}), flush=True)
+        if launches != EXPECTED_LAUNCHES[SWIN] or dts != (_DTYPES[p], _DTYPES[vp]):
+            fail(f'precision_study {p}/{vp}: launches {launches} or weight dtypes {dts}')
+    psnrs = [v for k in ('psnr_hdr', 'psnr_ldr_pbr_neutral') for v in out[k].values()]
+    if len(seen) != 3 or not all(np.isfinite(psnrs)):
+        fail(f'precision_study: {len(seen)} renders, PSNRs {psnrs}')
+    print(f'precision: {SWIN} at {PRECISION_RES}^2, {out["n_tris"]} triangles: three renders '
+          f'in {time.time() - t:.1f} s (the seeded init included), on {card}', flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    return {PRECISION_PATHS[p, vp]: launches for p, vp, launches, _ in seen}
+
+
+def sweep_checks(card, frame):
+    """(d) tools/gt_noise_sweep on cbox's orbit frame 0 at the cut of
+    SWEEP_*: the unclamped PSNR rises at each spp step, the clamp's bias is
+    finite."""
+    from renderformer_tpu_torch.io.h5 import pad_scene
+    from renderformer_tpu_torch.tools import gt_noise_sweep
+    t = time.time()
+    rows, biases = gt_noise_sweep.sweep(
+        [('cbox', pad_scene(frame))], SWEEP_RES, SWEEP_REF_SPP, SWEEP_SPPS, SWEEP_CLAMP,
+        log=lambda s: print(f'sweep: {s}', flush=True))
+    secs = time.time() - t
+    spp = 2 * (SWEEP_REF_SPP + sum(SWEEP_SPPS))
+    print(f'sweep: {len(rows)} rows and 2 references at {SWEEP_RES}^2 in {secs:.1f} s '
+          f'({spp * SWEEP_RES ** 2 / secs / 1e6:.3f} M path samples/s), on {card}', flush=True)
+    unclamped = [r[2] for r in rows]
+    if not all(b > a for a, b in zip(unclamped, unclamped[1:])) or not np.isfinite(biases[0][1]):
+        fail(f'gt_noise_sweep: unclamped PSNRs {unclamped} do not rise, or the bias '
+             f'{biases} is not finite')
+
+
+def compare_checks(keep):
+    """(e) tools/compare_renders on the golden image and a copy of it
+    written again: PSNR inf, max|diff| 0, exit code 0."""
+    from renderformer_tpu_torch.io.image import read_exr, write_exr
+    from renderformer_tpu_torch.tools import compare_renders
+    golden, copy = os.path.join(keep, 'golden.exr'), os.path.join(keep, 'golden_again.exr')
+    write_exr(copy, read_exr(golden))
+    rc, lines = run_tool(compare_renders.main, [golden, copy])
+    if rc != 0 or not lines or not lines[0].startswith('PSNR: inf dB') \
+            or 'max|diff|=0.000e+00' not in lines[0]:
+        fail(f'compare_renders on an image and its copy: exit code {rc}, {lines}')
+
+
+def tool_checks(card, keep):
+    """Phase 12: the workflow tools on the card, (a) to (e); returns the
+    launches of TOOL_PATHS (the kernels at their shapes are rows of phases
+    3 and 6)."""
+    from renderformer_tpu_torch.tools import make_video_frames
+    t0 = time.time()
+    frames = make_video_frames.orbit_frames(os.path.join(EXAMPLES, 'cbox.json'),
+                                            OVERFIT_FRAMES, 360.0)
+    print(f'tools: {OVERFIT_FRAMES} cbox orbit frames in memory, '
+          f'{frames[0]["triangles"].shape[0]} triangles ({time.time() - t0:.1f} s)', flush=True)
+    launches = {OVERFIT: overfit_checks(card, frames, keep)}
+    print(f'tools: (a) done ({time.time() - t0:.1f} s)', flush=True)
+    verify_checks(card, keep)
+    print(f'tools: (b) done ({time.time() - t0:.1f} s)', flush=True)
+    launches.update(precision_checks(card, frames[0]))
+    print(f'tools: (c) done ({time.time() - t0:.1f} s)', flush=True)
+    sweep_checks(card, frames[0])
+    print(f'tools: (d) done ({time.time() - t0:.1f} s)', flush=True)
+    compare_checks(keep)
+    print(f'tools: phase 12 in {time.time() - t0:.1f} s on {card}', flush=True)
+    return launches
+
+
 def _times(weighted):
     """ms, plain_ms, bound_ms and library_ms of (row, launches) pairs: each
     row's median times its launches, summed; library_ms None where a row has
@@ -3305,6 +3625,10 @@ def kernel_summary(rows, launches):
         for p in ALL_PATHS:
             if launches[p][name] and not any(p in r['per_run'] for r in mine):
                 fail(f'{name} was launched on {p!r}, where no row measured it')
+            counted = sum(r['per_run'].get(p, 0) for r in mine)
+            if counted != launches[p][name]:
+                fail(f'{name} on {p!r}: its rows count {counted} launches, the run '
+                     f'{launches[p][name]}')
         on_path = [(r, sum(r['per_run'].values())) for r in mine if r['per_run']]
         total = _times(on_path)
         by_ops = sum(r['bound_ms'] * n for r, n in on_path if r['bound_by'] == 'operations')
@@ -3349,10 +3673,15 @@ def main():
     launches.update(train_checks(card))
     launches.update(train_nerf_checks(card))
     launches.update(train_swin_checks(card))
-    entry_point_checks(card)
-    fit_checks(card)
-    scene_checks(card)
-    launches.update(parallel_checks(card, rows))
+    keep = tempfile.mkdtemp(prefix='rf_smoke_')  # phase 8's checkpoints for phase 12
+    try:
+        entry_point_checks(card, keep)
+        fit_checks(card)
+        scene_checks(card)
+        launches.update(parallel_checks(card, rows))
+        launches.update(tool_checks(card, keep))
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     for name in KERNELS:
         if not any(launches[p][name] for p in ALL_PATHS):
             fail(f'{name} was launched by no path')

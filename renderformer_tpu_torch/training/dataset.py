@@ -16,8 +16,8 @@ scenes' patch size, for the trainer to hold against the model's.
 
 ``h5py`` is imported by the H5 read (``_list_scenes``, ``_scene_shape``
 and ``_read_scene``, which a subclass may replace to read scenes from
-elsewhere), ``cv2`` by the ground-truth read, so the module imports
-without either.  Data-parallel runs pass ``batches`` their ``rank`` and
+elsewhere, as ``InMemoryDataset`` reads arrays), ``cv2`` by the
+ground-truth read, so the module imports without either.  Data-parallel runs pass ``batches`` their ``rank`` and
 ``world``: every rank shuffles alike and takes its slice of each global
 batch, as the reference's DistributedSampler deals it.
 """
@@ -29,7 +29,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from renderformer_tpu_torch.io.h5 import list_scene_files, load_scene_h5
+from renderformer_tpu_torch.io.h5 import list_scene_files, load_scene_h5, pad_scene
 from renderformer_tpu_torch.io.image import read_png
 
 PATCH_SIZE = 32
@@ -226,3 +226,28 @@ class RenderFormerDataset:
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
+
+
+class InMemoryDataset(RenderFormerDataset):
+    """The dataset over scenes held in memory, for a machine without
+    ``h5py``: ``scenes`` maps a name to a scene's arrays (``triangles``,
+    ``texture``, ``vn``, ``c2w``, ``fov``, as an H5 file holds them), taken
+    in the order given; the ground truth of scene ``name`` is
+    ``gt_dir/<name>.png``.  Only the H5 read is replaced: the items are the
+    H5 dataset's, texture in float16."""
+
+    def __init__(self, scenes: Dict[str, Dict[str, np.ndarray]], gt_dir: str,
+                 max_resolution: int = 256, padding_length: Optional[int] = None,
+                 cache: bool = True):
+        self._scenes = {os.path.join(gt_dir, f'{name}.h5'): sc for name, sc in scenes.items()}
+        super().__init__(gt_dir, gt_dir, max_resolution, padding_length, cache)
+
+    def _list_scenes(self, h5_dir: str) -> List[str]:
+        return list(self._scenes)
+
+    def _scene_shape(self, path: str) -> Tuple[int, int]:
+        sc = self._scenes[path]
+        return int(sc['triangles'].shape[0]), int(sc['texture'].shape[-1])
+
+    def _read_scene(self, path: str) -> Dict[str, np.ndarray]:
+        return pad_scene(self._scenes[path], self.padding_length, texture_dtype=np.float16)

@@ -45,7 +45,11 @@ for n in ('nn.swin', 'ops.swin_attention', 'ops.shifted_regroup', 'ops.s2d_conv'
           'scene.mesh', 'scene.remesh', 'scene.scene_mesh', 'scene.to_h5', 'scene.h5_tools',
           'scene.convert_scene', 'scene.path_tracer', 'scene.render_scene',
           'scene.blender_render', 'render_h5_to_png', 'generate_dataset', 'convert',
-          'parallel.distributed', 'parallel.sharding', 'parallel.ring_attention'):
+          'parallel.distributed', 'parallel.sharding', 'parallel.ring_attention',
+          'create_sample_meshes', 'create_scene_configs', 'create_examples',
+          'tools.make_video_frames', 'tools.compare_renders', 'tools.verify_checkpoint',
+          'tools.overfit_run', 'tools.precision_study', 'tools.gt_noise_sweep',
+          'tools.tone_map_fidelity'):
     assert 'renderformer_tpu_torch.' + n in names, n
 '''
 
@@ -83,6 +87,17 @@ CLI_FLAGS = {
     'generate_dataset': ['--gt_mode', '--gt_spp', '--seed', '--cpu'],
     'render_h5_to_png': ['--pathtrace', '--spp', '--cpu'],
     'scene.convert_scene': ['json_file', 'output_h5'],
+    'create_sample_meshes': ['--help'],
+    'create_scene_configs': ['--help'],
+    'create_examples': ['--help'],
+    'tools.make_video_frames': ['--scene', '--out', '--frames', '--arc'],
+    'tools.compare_renders': ['--peak'],
+    'tools.verify_checkpoint': ['--checkpoint', '--golden_exr', '--torch_compare',
+                                '--reference_root', '--cpu'],
+    'tools.overfit_run': ['--preset', '--workdir', '--artifacts', '--cpu'],
+    'tools.precision_study': ['--preset', '--h5', '--pad', '--cpu'],
+    'tools.gt_noise_sweep': ['--h5_dir', '--spps', '--clamp', '--out', '--cpu'],
+    'tools.tone_map_fidelity': ['--out', '--golden'],
 }
 
 
