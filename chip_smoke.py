@@ -27,7 +27,9 @@ Phases, each printing its own lines:
      and three replays of a CUDA graph), the tile plan of the bf16 flash
      forward at each site, and the flash forward (K1/K2 and K10, with and
      without the logsumexp) at its tile edges: Sq and Sk of 129 and 257, a
-     batch row whose mask is all zero, a view fan-out;
+     batch row whose mask is all zero, a view fan-out; K1, K2 and K3 also at
+     the shapes of phase 13's renders: infer's unpadded scene (1,809 keys,
+     one view) and batch_infer's batches of 8 scenes at 3,728 keys;
   4. render, for each of v1-base, v1.1-swin-large and v1-base nerf
      (V1_BASE_NERF, pe_type='nerf', with RuntimeConfig(fused_norm=True)) at
      full width and full depth from a seeded init, with the default composed
@@ -187,6 +189,28 @@ Phases, each printing its own lines:
      64^2, spp 8/32/128 against a 512-spp reference, clamp 1: the unclamped
      PSNR rising at each step, the clamp's bias finite; (e)
      tools/compare_renders on the golden image and a copy: PSNR inf.
+ 13. the ft128 fine-tune cycle from files, with h5py and PyYAML made
+     unimportable by a sys.meta_path finder (a line first says which of
+     h5py, yaml, cv2, matplotlib and torch.utils.tensorboard import on the
+     machine): the first 24 scene JSONs of datasets/ft128/json (sorted)
+     converted from the repo root by the generator's function,
+     scene/h5_tools.save_dict_to_h5_renderformer_method, into H5 files
+     under build/ft128, each read back through io/h5 the bits of
+     scene_tensors of its JSON; train.main -c on a copy of
+     configs/config_tpu_finetune.yml whose h5_dir, checkpoint_dir and
+     log_dir point there and which saves every epoch (v1-base at full
+     width and depth from the seeded init, 256^2, bf16, remat, 2 epochs of
+     21 steps, 3 scenes validated, all padded to 3,712 triangles): every
+     step exactly phase 7's fused counts, finite losses and validation
+     losses, the checkpoints best, epoch_0, epoch_1 and final, the step's
+     ms and trained rays/s; infer --h5_file on one file and batch_infer over
+     the folder (--padding_length 3712, batches of 8), each render exactly
+     a v1-base render's launches, every EXR and PNG read back equal to its
+     render, and the MP4; render_h5_to_png as a raster and path traced at
+     4 spp with no kernel launched.  Its step's kernels are rows of phase
+     6 at 3,728 keys (path 'ft128 fit v1-base'); infer's and batch_infer's
+     are rows of phase 3 at their shapes (paths 'ft128 infer v1-base' and
+     'ft128 batch_infer v1-base', one render each).
 Then one JSON line with every kernel's numbers per render of each model
 and per train step, the nvidia-smi line, and the result line.  Any failed
 check exits non-zero before the result line.  Imports nothing of JAX.
@@ -247,7 +271,16 @@ PREC_F32, PREC_F32V, PREC_BF16 = PRECISION_PATHS.values()
 TOOL_PATHS = (OVERFIT,) + tuple(PRECISION_PATHS.values())
 PRECISION_RES, PRECISION_PAD = 512, 4352   # precision_study's defaults
 TOOL_SK = PRECISION_PAD + 16   # their attention sites' keys: triangles + register tokens
-ALL_PATHS = PATHS + TRAIN_PATHS + RING_PATHS + TOOL_PATHS
+# phase 13: one step of the ft128 fine-tune that train.main runs from
+# configs/config_tpu_finetune.yml (v1-base at 256^2, remat), its scenes
+# padded to 3,712 triangles
+FT128 = 'ft128 fit v1-base'
+# and one render of each of phase 13's infer (random_scene_0_sphere3
+# unpadded: 1,793 triangles, one view) and batch_infer (8 scenes of one view
+# padded to 3,712 triangles) at 512^2 in bf16
+FT_INFER, FT_BATCH = 'ft128 infer v1-base', 'ft128 batch_infer v1-base'
+FT_PATHS = (FT128, FT_INFER, FT_BATCH)
+ALL_PATHS = PATHS + TRAIN_PATHS + RING_PATHS + TOOL_PATHS + FT_PATHS
 MASK_VALID = 16 + NTRI * 3 // 4   # keys kept at 2,064: a padded tail of triangles masked
 TRAIN_RES = 256
 TRAIN_ST = (TRAIN_RES // 8) ** 2   # 1024 ray tokens
@@ -367,6 +400,7 @@ EXPECTED_LAUNCHES = {
                     rms_norm_fwd=102),
     TRAIN: _launches(**_TRAIN, flash_bwd_mask=18, flash_bwd_nomask=6),
     TRAIN2: _launches(**_TRAIN, flash_bwd_dq=24, flash_bwd_dkv=24),
+    FT128: _launches(**_TRAIN, flash_bwd_mask=18, flash_bwd_nomask=6),
     TRAIN_NERF: _launches(flash_fwd_mask=36, flash_fwd_nomask=12, flash_bwd_mask=18,
                           flash_bwd_nomask=6, resize_bilinear=3, resize_bilinear_t=4,
                           resize_s2d=1, rms_norm_fwd=198, rms_norm_bwd=102),
@@ -1013,26 +1047,37 @@ def kernel_checks():
         # path runs there is checked and timed, launched by no path
         record_row(rows, kernel, site, dtype, launches.get(dtype, {}), *args)
 
-    # name, B, Bkv, Sq, Sk, H, keys kept by the mask (None: no mask), launches
-    # per render by dtype: the bf16 renders at 8 views, and precision_study's
-    # swin-large renders of one cbox view, each stage in its precision's dtype
+    # name, B, Bkv, Sq, Sk, H, keys kept by the mask (None: no mask; a tuple:
+    # a batch row's each), launches per render by dtype: the bf16 renders at
+    # 8 views, precision_study's swin-large renders of one cbox view, each
+    # stage in its precision's dtype, and phase 13's renders: infer's one
+    # view of an unpadded scene, batch_infer's batches of 8 scenes of one
+    # view (its ray self-attention the 8-view render's shape)
     prec_stage1 = {bf: {PREC_F32V: 12, PREC_BF16: 12}, f32: {PREC_F32: 12}}
     prec_view = {bf: {PREC_BF16: 12}, f32: {PREC_F32: 12, PREC_F32V: 12}}
     flash_sites = [
         ('stage1_self', 1, 1, SK, SK, 6, MASK_VALID, {bf: {BASE: 12}}),
         ('cross', V, 1, ST, SK, 6, MASK_VALID, {bf: {BASE: 6}}),
-        ('ray_self', V, V, ST, ST, 6, None, {bf: {BASE: 6}}),
+        ('ray_self', V, V, ST, ST, 6, None, {bf: {BASE: 6, FT_BATCH: 6}}),
         ('stage1_self_h8', 1, 1, SK, SK, 8, MASK_VALID, {bf: {SWIN: 12}}),
         ('cross_h8', V, 1, ST, SK, 8, MASK_VALID, {bf: {SWIN: 12}}),
         ('precision_stage1_self_h8', 1, 1, TOOL_SK, TOOL_SK, 8, 16 + CBOX_TRIS, prec_stage1),
         ('precision_cross_h8', 1, 1, ST, TOOL_SK, 8, 16 + CBOX_TRIS, prec_view),
+        ('ft128_infer_stage1_self', 1, 1, FT_INFER_SK, FT_INFER_SK, 6, FT_INFER_SK,
+         {bf: {FT_INFER: 12}}),
+        ('ft128_infer_cross', 1, 1, ST, FT_INFER_SK, 6, FT_INFER_SK, {bf: {FT_INFER: 6}}),
+        ('ft128_infer_ray_self', 1, 1, ST, ST, 6, None, {bf: {FT_INFER: 6}}),
+        ('ft128_batch_stage1_self', V, V, FT_SK, FT_SK, 6, FT_BATCH_KEPT, {bf: {FT_BATCH: 12}}),
+        ('ft128_batch_cross', V, V, ST, FT_SK, 6, FT_BATCH_KEPT, {bf: {FT_BATCH: 6}}),
     ]
     # views, site prefix, launches of K4 and K5, and of K6 and K7 (a kind
     # each: unshifted / shifted, forward / inverse), per render by dtype
+    # (K4 and K5 at one view: precision_study's and infer's renders)
+    one_view = {k: {p: 1 for p in v} for k, v in prec_view.items()}
+    one_view[bf][FT_INFER] = 1
     view_stages = [
-        (V, '', {bf: {BASE: 1, SWIN: 1, NERF: 1}}, {bf: {SWIN: 6}}),
-        (1, 'precision_', {k: {p: 1 for p in v} for k, v in prec_view.items()},
-         {k: {p: 6 for p in v} for k, v in prec_view.items()}),
+        (V, '', {bf: {BASE: 1, SWIN: 1, NERF: 1, FT_BATCH: 1}}, {bf: {SWIN: 6}}),
+        (1, 'precision_', one_view, {k: {p: 6 for p in v} for k, v in prec_view.items()}),
     ]
     for dtype in (bf, f32):
         it = 2 if dtype == bf else 4
@@ -1045,9 +1090,9 @@ def kernel_checks():
             cq, sq_t = tables(b, sq)
             ck, sk_t = (cq, sq_t) if sq == sk and b == bkv else tables(b, sk)
             mask = None
-            if masked:
-                mask = torch.ones(b, sk, dtype=torch.bool, device=dev)
-                mask[:, valid:] = False  # a padded tail of triangles
+            if masked:   # a padded tail of triangles
+                kept = torch.tensor(valid, device=dev).reshape(-1, 1)
+                mask = (torch.arange(sk, device=dev) < kept).expand(b, sk).contiguous()
             with torch.inference_mode():
                 # K3 at this site
                 out = rot_kv_broadcast(k, ck, sk_t)
@@ -1379,6 +1424,7 @@ def train_kernel_checks():
     remat = dict(k3={TRAIN: 3, TRAIN2: 3}, fwd={TRAIN: 2, TRAIN2: 2},
                  k8={TRAIN: 1, TRAIN_NERF: 1}, k9={TRAIN2: 1})
     overfit = dict(k3={OVERFIT: 2}, fwd={OVERFIT: 1}, k8={OVERFIT: 1}, k9={})
+    ft128 = dict(k3={FT128: 3}, fwd={FT128: 2}, k8={FT128: 1}, k9={})
     swin = dict(k3={TRAIN_SWIN: 3}, fwd={TRAIN_SWIN: 2}, k8={TRAIN_SWIN: 1}, k9={})
     swin_st = (SWIN_TRAIN_RES // 8) ** 2
     cbox = 16 + CBOX_TRIS
@@ -1386,11 +1432,13 @@ def train_kernel_checks():
         ('train_stage1_self', SK, SK, 6, MASK_VALID, bf, 12, remat, True),
         ('train_cross', TRAIN_ST, SK, 6, MASK_VALID, f32, 6, remat, True),
         ('train_ray_self', TRAIN_ST, TRAIN_ST, 6, None, f32, 6,
-         {k: {**remat[k], **overfit[k]} for k in remat}, True),
+         {k: {**remat[k], **overfit[k], **ft128[k]} for k in remat}, True),
         ('swin_train_stage1_self', SK, SK, SWIN_H, MASK_VALID, bf, 12, swin, False),
         ('swin_train_cross', swin_st, SK, SWIN_H, MASK_VALID, f32, 12, swin, False),
         ('overfit_stage1_self', TOOL_SK, TOOL_SK, 6, cbox, bf, 12, overfit, False),
         ('overfit_cross', TRAIN_ST, TOOL_SK, 6, cbox, f32, 6, overfit, False),
+        ('ft128_stage1_self', FT_SK, FT_SK, 6, 16 + FT_MAX_TRIS, bf, 12, ft128, False),
+        ('ft128_cross', TRAIN_ST, FT_SK, 6, 16 + FT_MAX_TRIS, f32, 6, ft128, False),
     ]
     for dtype in (bf, f32):
         it = 2 if dtype == torch.bfloat16 else 4
@@ -1519,7 +1567,7 @@ def train_kernel_checks():
             torch.cuda.empty_cache()
 
         # K4 and K5 in the fp32 view stage's DPT head (refinenet4/3/2, refinenet1)
-        view_stage = ({p: 1 for p in (TRAIN, TRAIN2, TRAIN_NERF, OVERFIT)}
+        view_stage = ({p: 1 for p in (TRAIN, TRAIN2, TRAIN_NERF, OVERFIT, FT128)}
                       if dtype == torch.float32 else {})
         for n_in in (16, 32, 64):
             check_resize(rows, randn(1, n_in, n_in, DPT_C, dtype=dtype), (2 * n_in, 2 * n_in),
@@ -3412,7 +3460,7 @@ def overfit_checks(card, frames, root):
     depth: the teacher (the seeded init) renders the 8 frames' ground truth
     through the plain versions in fp32, the student (the teacher plus the
     JAX tool's noise) fine-tunes 8 epochs x 8 steps through the trainer and
-    the dataset (in memory: no h5py here), bf16 with the fp32 view stage;
+    the dataset (in memory, as the JAX tool keeps them), bf16 with the fp32 view stage;
     every step launches exactly OVERFIT_LAUNCHES (counts set to 0 just
     before it, read just after), and the JAX pass condition holds.  Then the
     timings of the student's step (step_speed).  Returns the first step's
@@ -3602,6 +3650,345 @@ def tool_checks(card, keep):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the ft128 fine-tune cycle from files
+# ---------------------------------------------------------------------------
+
+FT_SCENES = 24                    # the first scene JSONs of datasets/ft128/json, sorted
+FT_JSON = os.path.join('datasets', 'ft128', 'json')
+FT_CONFIG = os.path.join('configs', 'config_tpu_finetune.yml')
+FT_MAX_TRIS = 3585                # random_scene_110_3k, the largest of the cut
+FT_PAD = 3712                     # the dataset's bucket: 3,585 rounded up to 128
+FT_SK = FT_PAD + 16               # the step's keys: triangles + register tokens
+FT_INFER_TRIS = 1793              # random_scene_0_sphere3, the first file, infer's scene
+FT_INFER_SK = FT_INFER_TRIS + 16
+# keys kept in batch_infer's second batch (natural order: random_scene_105 to
+# 113), the cut's two largest scenes among them; phase 3's rows mask so
+FT_BATCH_KEPT = tuple(16 + n for n in (525, 525, 3113, 1793, 3585, 549, 525, 1793))
+FT_SCRATCH = os.path.join(HERE, 'build', 'ft128')   # .gitignore lists build/
+FT_PROBED = ('h5py', 'yaml', 'cv2', 'matplotlib', 'torch.utils.tensorboard')
+FT_BLOCKED = ('h5py', 'yaml')
+
+
+class _Blocked:
+    """A sys.meta_path finder that makes FT_BLOCKED unimportable."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in FT_BLOCKED:
+            raise ImportError(f'{name} made unimportable for phase 13')
+        return None
+
+
+def ft_config(root):
+    """configs/config_tpu_finetune.yml with h5_dir, checkpoint_dir and log_dir
+    under ``root`` and a checkpoint every epoch, written as a YAML file;
+    every other line as it is (gt_dir stays datasets/ft128/gt)."""
+    import re
+    with open(os.path.join(HERE, FT_CONFIG)) as f:
+        text = f.read()
+    for key, value in (('h5_dir', os.path.join(root, 'h5')),
+                       ('checkpoint_dir', os.path.join(root, 'checkpoints')),
+                       ('log_dir', os.path.join(root, 'runs')), ('save_interval', '1')):
+        text, n = re.subn(rf'^(\s*{key}:).*$', rf'\g<1> "{value}"' if key != 'save_interval'
+                          else rf'\g<1> {value}', text, flags=re.M)
+        if n != 1:
+            fail(f'{FT_CONFIG}: {n} lines of {key}')
+    path = os.path.join(root, 'config_ft128.yml')
+    with open(path, 'w') as f:
+        f.write(text)
+    return path
+
+
+def counted_renders(rendered):
+    """RenderingPipeline.render wrapped: each call's launches (counts set to
+    0 just before it, read just after) and its output on the host are
+    appended to ``rendered``; returns the function that restores it."""
+    import torch
+    from renderformer_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    from renderformer_tpu_torch.pipelines.rendering_pipeline import RenderingPipeline
+    real = RenderingPipeline.render
+
+    def render(self, *a, **kw):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = real(self, *a, **kw)
+        torch.cuda.synchronize()
+        rendered.append((dict(LAUNCHES), out.cpu().numpy()))
+        return out
+
+    RenderingPipeline.render = render
+    return lambda: setattr(RenderingPipeline, 'render', real)
+
+
+def ft_convert(root):
+    """(a) the first FT_SCENES JSONs converted from the repo root by the
+    generator's function into ``root``/h5, each read back through
+    io/h5.load_scene_h5 against scene_tensors of the same JSON; returns the
+    files and their triangle counts by scene name."""
+    from renderformer_tpu_torch.generate_dataset import scene_tensors
+    from renderformer_tpu_torch.io.h5 import load_scene_h5
+    from renderformer_tpu_torch.scene.h5_tools import save_dict_to_h5_renderformer_method
+    names = sorted(f for f in os.listdir(os.path.join(HERE, FT_JSON)) if f.endswith('.json'))
+    h5_dir = os.path.join(root, 'h5')
+    os.makedirs(h5_dir)
+    files, tris, t_write, t_check = [], [], 0.0, 0.0
+    for name in names[:FT_SCENES]:
+        with open(os.path.join(HERE, FT_JSON, name)) as f:
+            scene = json.load(f)
+        path = os.path.join(h5_dir, name[:-len('.json')] + '.h5')
+        t = time.perf_counter()
+        save_dict_to_h5_renderformer_method(scene, path, '')
+        t_write += time.perf_counter() - t
+        t = time.perf_counter()
+        got, want = load_scene_h5(path), scene_tensors(scene)
+        t_check += time.perf_counter() - t
+        bad = [k for k in want if got[k].dtype != want[k].dtype or got[k].shape != want[k].shape
+               or got[k].tobytes() != want[k].tobytes()]
+        if bad:
+            fail(f'ft128: {path} read back differs from scene_tensors in {bad}')
+        files.append(path)
+        tris.append(got['triangles'].shape[0])
+    sizes = [os.path.getsize(p) for p in files]
+    print(f'ft128: the cut: the first {len(files)} of {len(names)} scene JSONs of {FT_JSON} '
+          f'(sorted) converted by scene/h5_tools.save_dict_to_h5_renderformer_method in '
+          f'{t_write:.1f} s ({t_write / len(files):.2f} s a scene), {min(tris)}-{max(tris)} '
+          f'triangles, {sum(sizes)} bytes of H5 ({min(sizes)}-{max(sizes)} a file); each read '
+          f'back through io/h5.load_scene_h5 the bits of scene_tensors of its JSON '
+          f'({t_check:.1f} s with the second conversion)', flush=True)
+    if max(tris) != FT_MAX_TRIS:
+        fail(f'ft128: the cut\'s largest scene has {max(tris)} triangles, not {FT_MAX_TRIS}')
+    return files, {os.path.splitext(os.path.basename(p))[0]: n for p, n in zip(files, tris)}
+
+
+def ft_fit(card, root):
+    """(b) train.main(['-c', ft_config(root)]): every step's launches exactly
+    phase 7's fused rope counts with remat, finite losses, the four
+    checkpoints; returns (a step's launches, the fit's numbers)."""
+    import torch
+    from renderformer_tpu_torch import train
+    from renderformer_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    counts, bad, step_s, epoch_s, trainers = [], [], [], [], []
+
+    def hook(tr):
+        step, epoch = tr._train_step, tr.train_epoch
+
+        def counted(state, batch):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            counts.append(dict(LAUNCHES))
+            if counts[-1] != EXPECTED_LAUNCHES[FT128]:
+                bad.append((len(counts) - 1, counts[-1]))
+            return out
+
+        def timed(e, indices):
+            t = time.perf_counter()
+            out = epoch(e, indices)
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - t)
+            return out
+
+        tr._train_step, tr.train_epoch = counted, timed
+        trainers.append(tr)
+
+    real_build = train.build
+
+    def build(*a, **kw):
+        tr = real_build(*a, **kw)
+        hook(tr)
+        return tr
+
+    config = ft_config(root)
+    train.build = build
+    t = time.perf_counter()
+    try:
+        rc = train.main(['-c', config])
+    finally:
+        train.build = real_build
+    fit_s = time.perf_counter() - t
+    if rc != 0 or not trainers:
+        fail(f'ft128: train.main exit code {rc}')
+    tr = trainers[0]
+    ds = tr.dataset
+    n_train = len(ds.split(tr.cfg.train_val_split, tr.cfg.seed)[0])
+    print(f'ft128: the bucket: {len(ds)} scenes padded to {ds.padding_length} triangles '
+          f'({ds.padding_length + 16} keys with the register tokens), {n_train} to train, '
+          f'{len(ds) - n_train} to validate', flush=True)
+    if ds.padding_length != FT_PAD:
+        fail(f'ft128: the bucket is {ds.padding_length} triangles, not {FT_PAD}')
+    metrics = [(m['loss'], m['grad_norm']) for m in tr.step_metrics]
+    res = tr.tc.resolution
+    print(f'ft128: train.main -c {os.path.relpath(config, HERE)}: exit code {rc}; '
+          f'{len(counts)} steps, each ' + json.dumps(counts[0] if counts else {}), flush=True)
+    print(f'ft128: epoch losses {tr.train_losses}, validation {tr.val_losses}; step losses '
+          f'{[round(m[0], 6) for m in metrics]}', flush=True)
+    if len(counts) != tr.tc.num_epochs * n_train or bad:
+        fail(f'ft128: {len(counts)} steps counted; steps off {EXPECTED_LAUNCHES[FT128]}: '
+             f'{bad[:2]}')
+    if not (np.isfinite(np.array(metrics)).all() and np.isfinite(tr.train_losses).all()
+            and np.isfinite(tr.val_losses).all() and len(tr.val_losses) == tr.tc.num_epochs):
+        fail('ft128: a non-finite loss, grad norm or validation loss')
+    ckpt = tr.cfg.checkpoint_dir
+    missing = [k for k in ('best', 'epoch_0', 'epoch_1', 'final')
+               if not os.path.exists(os.path.join(ckpt, k, 'state.pt'))]
+    print(f'ft128: checkpoints {sorted(os.listdir(ckpt))}, missing {missing}', flush=True)
+    if missing:
+        fail(f'ft128: checkpoints {missing} missing')
+    med = statistics.median(step_s[n_train:])   # epoch 1: the scenes decoded and cached
+    numbers = {'fit_s': fit_s, 'step_ms': med * 1e3, 'steps': len(counts),
+               'epoch_s': epoch_s, 'rays_per_s_step': res ** 2 / med,
+               'rays_per_s_epoch1': n_train * res ** 2 / epoch_s[1],
+               'train_losses': tr.train_losses, 'val_losses': tr.val_losses}
+    print(f'ft128: a step {med * 1e3:.2f} ms (median of epoch 1, each step synchronized and '
+          f'counted; {res ** 2 / med:.1f} trained rays/s at {res}^2); epoch 1 {epoch_s[1]:.2f} s '
+          f'for {n_train} steps ({numbers["rays_per_s_epoch1"]:.1f} trained rays/s with the '
+          f'loader), epoch 0 {epoch_s[0]:.2f} s; train.main {fit_s:.1f} s (the seeded init, '
+          f'validation and checkpoints included), on {card}', flush=True)
+    ds.close()
+    del trainers, tr
+    torch.cuda.empty_cache()
+    return counts[0], numbers
+
+
+def ft_render_checks(card, root, files, tris):
+    """(c) infer.main on one file and batch_infer.main over the folder, each
+    render exactly a v1-base render's launches at the shapes of phase 3's
+    ft128 rows, the EXR and PNG files read back equal to the render;
+    render_h5_to_png.main as a raster and path traced at 4 spp, no kernel
+    launched, a PNG of the image's shape.  Returns the launches of one
+    render of each of FT_INFER and FT_BATCH."""
+    import torch
+    from renderformer_tpu_torch import batch_infer, infer, render_h5_to_png
+    from renderformer_tpu_torch.io.image import read_exr, read_png
+    from renderformer_tpu_torch.ops import LAUNCHES, reset_launch_counts
+    h5_dir = os.path.dirname(files[0])
+
+    def read_back(name, out_dir, base, hdr):
+        exr = read_exr(os.path.join(out_dir, f'{base}_view_0.exr'))
+        png = read_png(os.path.join(out_dir, f'{base}_view_0.png'))
+        hdr = hdr.astype(np.float32)
+        if not (np.isfinite(exr).all() and exr.tobytes() == hdr.tobytes()
+                and np.array_equal(png, infer.to_ldr(hdr))):
+            fail(f'ft128: {name}: {base} read back differs from its render')
+
+    rendered = []
+    restore = counted_renders(rendered)
+    try:
+        out_dir = os.path.join(root, 'infer')
+        t = time.perf_counter()
+        rc = infer.main(['--h5_file', files[0], '--model_id', BASE, '--output_dir', out_dir])
+        infer_s = time.perf_counter() - t
+        if rc != 0 or len(rendered) != 1:
+            fail(f'ft128: infer exit code {rc}, {len(rendered)} renders')
+        launches, hdr = rendered[0]
+        print(f'ft128: infer --h5_file {os.path.basename(files[0])}: exit code {rc} in '
+              f'{infer_s:.1f} s (the seeded init included), {hdr.shape} '
+              + json.dumps(launches), flush=True)
+        if launches != EXPECTED_LAUNCHES[BASE]:
+            fail(f'ft128: infer launches {launches} != {EXPECTED_LAUNCHES[BASE]}')
+        infer_tris = tris[os.path.splitext(os.path.basename(files[0]))[0]]
+        if hdr.shape != (1, 1, RES, RES, 3) or infer_tris != FT_INFER_TRIS:
+            fail(f'ft128: infer rendered {hdr.shape} of {infer_tris} triangles, not the '
+                 f'shapes of phase 3\'s ft128_infer rows')
+        ran = {FT_INFER: launches}
+        read_back('infer', out_dir, os.path.splitext(os.path.basename(files[0]))[0],
+                  hdr[0, 0])
+        rendered.clear()
+        out_dir = os.path.join(root, 'batch')
+        t = time.perf_counter()
+        rc = batch_infer.main(['--h5_folder', h5_dir, '--model_id', BASE, '--output_dir',
+                               out_dir, '--padding_length', str(FT_PAD)])
+        batch_s = time.perf_counter() - t
+        per = [l for l, _ in rendered]
+        print(f'ft128: batch_infer over {len(files)} files: exit code {rc} in {batch_s:.1f} s '
+              f'(the seeded init included), {len(rendered)} renders of '
+              f'{[o.shape[0] for _, o in rendered]} scenes, each ' + json.dumps(per[0]),
+              flush=True)
+        if rc != 0 or sum(o.shape[0] for _, o in rendered) != len(files) \
+                or any(l != EXPECTED_LAUNCHES[BASE] for l in per):
+            fail(f'ft128: batch_infer exit code {rc} or launches {per}')
+        names = batch_infer_order(h5_dir)
+        kept = tuple(16 + tris[n] for n in names[V:2 * V])
+        if any(o.shape[:2] != (V, 1) or o.shape[2:4] != (RES, RES) for _, o in rendered) \
+                or kept != FT_BATCH_KEPT:
+            fail(f'ft128: batch_infer rendered {[o.shape for _, o in rendered]}, its second '
+                 f'batch keeps {kept} keys: not the shapes of phase 3\'s ft128_batch rows')
+        ran[FT_BATCH] = per[0]
+        order = iter(names)
+        for _, out in rendered:
+            for i in range(out.shape[0]):
+                read_back('batch_infer', out_dir, next(order), out[i, 0])
+        if not os.path.exists(os.path.join(out_dir, 'video.mp4')):
+            fail('ft128: batch_infer wrote no video.mp4')
+    finally:
+        restore()
+    for flags, suffix in (([], 'raster'), (['--pathtrace', '--spp', '4'], 'pathtrace')):
+        png = os.path.join(root, f'h5_to_png_{suffix}.png')
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        render_h5_to_png.main([files[0], '--output', png] + flags)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launched = {k: v for k, v in LAUNCHES.items() if v}
+        img = read_png(png)
+        print(f'ft128: render_h5_to_png {suffix}: {img.shape} in {secs:.2f} s, mean '
+              f'{img.mean():.2f}, kernels launched {launched}, on {card}', flush=True)
+        if launched or img.shape != (256, 256, 3) or not img.any():
+            fail(f'ft128: render_h5_to_png {suffix}: launches {launched} or image '
+                 f'{img.shape} empty')
+    return ran
+
+
+def batch_infer_order(h5_dir):
+    """The scene names in the order batch_infer renders them."""
+    from renderformer_tpu_torch.io.h5 import list_scene_files
+    return [os.path.splitext(os.path.basename(p))[0] for p in list_scene_files(h5_dir)]
+
+
+def ft128_checks(card):
+    """Phase 13 with h5py and PyYAML unimportable: (a) the cut of ft128
+    written as H5 files by the port and read back, (b) train.main -c from
+    the YAML, (c) infer, batch_infer and render_h5_to_png from the files.
+    Returns the launches of one fit step and of one render of each of infer
+    and batch_infer, by path."""
+    t0 = time.time()
+    probe = ('import importlib, json\nout = {}\n'
+             f'for name in {FT_PROBED!r}:\n'
+             '    try:\n        importlib.import_module(name)\n        out[name] = True\n'
+             '    except Exception:\n        out[name] = False\nprint(json.dumps(out))\n')
+    res = subprocess.run([sys.executable, '-c', probe], capture_output=True, text=True,
+                         timeout=300)
+    print(f'ft128: import on this machine: {res.stdout.strip() or res.stderr.strip()[-300:]}',
+          flush=True)
+    already = sorted(m for m in sys.modules if m.split('.')[0] in FT_BLOCKED)
+    if already:
+        fail(f'ft128: {already} imported before phase 13')
+    blocker = _Blocked()
+    sys.meta_path.insert(0, blocker)
+    shutil.rmtree(FT_SCRATCH, ignore_errors=True)
+    os.makedirs(FT_SCRATCH)
+    try:
+        with contextlib.chdir(HERE):   # the JSONs and the YAML name paths from the repo root
+            files, tris = ft_convert(FT_SCRATCH)
+            print(f'ft128: (a) done ({time.time() - t0:.1f} s)', flush=True)
+            launches, numbers = ft_fit(card, FT_SCRATCH)
+            print(f'ft128: (b) done ({time.time() - t0:.1f} s)', flush=True)
+            ran = ft_render_checks(card, FT_SCRATCH, files, tris)
+        imported = sorted(m for m in sys.modules if m.split('.')[0] in FT_BLOCKED)
+        if imported:
+            fail(f'ft128: {imported} imported during phase 13')
+    finally:
+        sys.meta_path.remove(blocker)
+        shutil.rmtree(FT_SCRATCH, ignore_errors=True)
+    print('ft128 ' + json.dumps({**numbers, 'seconds': time.time() - t0}), flush=True)
+    print(f'ft128: phase 13 in {time.time() - t0:.1f} s on {card}', flush=True)
+    return {FT128: launches, **ran}
+
+
 def _times(weighted):
     """ms, plain_ms, bound_ms and library_ms of (row, launches) pairs: each
     row's median times its launches, summed; library_ms None where a row has
@@ -3680,6 +4067,7 @@ def main():
         scene_checks(card)
         launches.update(parallel_checks(card, rows))
         launches.update(tool_checks(card, keep))
+        launches.update(ft128_checks(card))
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     for name in KERNELS:

@@ -13,7 +13,8 @@ with it is an error, ``auto`` says so).  Two paths: frames batched with static-s
 (``render`` a batch), and, where the frames share one scene and differ only
 in their cameras, the video path (the scene moves to the device once and
 ``render_many`` renders ``--frames_per_call`` chunks of ``--batch_size``
-views a call).  Reading the H5 files needs ``h5py``; writing the video
+views a call).  The H5 files are read by the port's ``io/hdf5`` (no
+``h5py``); writing the video
 needs ``cv2``, which is imported before the first render so that a missing
 ``cv2`` fails at once.  ``run_batches`` and ``run_video`` take iterables of
 the dicts that ``SceneFolderDataset.batches`` and

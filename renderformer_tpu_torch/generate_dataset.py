@@ -30,7 +30,8 @@ GT sources (``--gt_mode``):
 
 ``pathtrace`` and ``model`` run on the card unless ``--cpu`` is given.
 The GT pass (``render_gt``) takes scene dicts; the H5 files are read
-(``h5py``) only by ``render_gt_batch``, at its edge.
+only by ``render_gt_batch``, at its edge, and written, both through the
+port's ``io/hdf5`` (no ``h5py``).
 """
 
 from __future__ import annotations

@@ -12,9 +12,9 @@ attention path).  ``--shard`` renders on a (1, world) mesh of the process group 
 torchrun's environment describes, one GPU a process, the attention sites
 split over the ranks (``torchrun --nproc_per_node=N -m
 renderformer_tpu_torch.infer --shard ...``; rank 0 writes the files); in
-one process it renders as without it and says so.  Reading the H5 scene
-needs ``h5py``; ``render_scene`` takes the scene as a dict of arrays and
-needs neither ``h5py`` nor ``cv2``.
+one process it renders as without it and says so.  The H5 scene is read
+by the port's ``io/hdf5`` (no ``h5py``); ``render_scene`` takes the scene
+as a dict of arrays and needs no ``cv2``.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
-"""File formats of the port: safetensors weights, H5 scenes, EXR and PNG
-images and MP4 video.
+"""File formats of the port: safetensors weights, HDF5 files and the H5
+scenes in them, EXR and PNG images and MP4 video.
 
-``safetensors`` and ``image`` need numpy and torch only; ``h5`` imports
-``h5py`` and ``image.write_video`` imports ``cv2`` where they are called, so
-every module imports on a machine that has neither.
+``safetensors``, ``hdf5`` (the HDF5 codec, numpy, ``zlib`` and ``struct``),
+``h5`` and ``image`` need numpy and torch only; ``image.write_video``
+imports ``cv2`` where it is called, so every module imports on a machine
+that has none.
 """

@@ -1,6 +1,5 @@
-"""HDF5 scene container IO (the JAX package's ``renderformer_tpu/io/h5.py``;
-``h5py`` is imported inside the functions that read or write a file, so
-the module imports where ``h5py`` is missing).
+"""HDF5 scene container IO (the JAX package's ``renderformer_tpu/io/h5.py``),
+through the port's own HDF5 codec, ``io/hdf5.py``: no ``h5py`` is needed.
 
 Field layout is byte-compatible with the reference's scene converter
 (its ``scene_processor/to_h5.py``):
@@ -17,6 +16,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from renderformer_tpu_torch.io import hdf5
+
 
 def load_scene_h5(file_path: str, padding_length: Optional[int] = None,
                   texture_dtype=np.float32) -> Dict[str, np.ndarray]:
@@ -26,8 +27,7 @@ def load_scene_h5(file_path: str, padding_length: Optional[int] = None,
     ``texture_dtype=np.float16`` keeps the texture in its on-disk H5
     dtype (to_h5.py stores f16) — LOSSLESS, and halves the bytes a
     training batch ships host->device (the padded texture dominates)."""
-    import h5py
-    with h5py.File(file_path, 'r') as f:
+    with hdf5.File(file_path, 'r') as f:
         scene = {k: np.asarray(f[k]) for k in ('triangles', 'texture', 'vn', 'c2w', 'fov')}
     return pad_scene(scene, padding_length, texture_dtype)
 
@@ -65,9 +65,7 @@ def pad_scene(scene: Dict[str, np.ndarray], padding_length: Optional[int] = None
 
 def save_scene_h5(path: str, triangles, vn, texture, c2w, fov) -> None:
     """Write the reference H5 layout (gzip-9, as its ``to_h5.py``)."""
-    import h5py
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with h5py.File(path, 'w') as f:
+    with hdf5.File(path, 'w') as f:
         f.create_dataset('triangles', data=np.asarray(triangles, np.float32),
                          compression='gzip', compression_opts=9)
         f.create_dataset('vn', data=np.asarray(vn, np.float32),
@@ -87,8 +85,7 @@ def load_cameras_h5(file_path: str):
     frame but the heavy scene tensors (~10^2 MB of gzip'd texture
     patches) only once — the per-frame H5s of a camera-orbit video
     duplicate them byte-for-byte."""
-    import h5py
-    with h5py.File(file_path, 'r') as f:
+    with hdf5.File(file_path, 'r') as f:
         return (np.asarray(f['c2w'], dtype=np.float32),
                 np.asarray(f['fov'], dtype=np.float32))
 
@@ -105,9 +102,8 @@ def _geometry_digest(file_path: str) -> str:
     already gates entry to this path."""
     import hashlib
 
-    import h5py
     h = hashlib.blake2b(digest_size=16)
-    with h5py.File(file_path, 'r') as f:
+    with hdf5.File(file_path, 'r') as f:
         for k in ('triangles', 'vn'):
             arr = np.ascontiguousarray(np.asarray(f[k]))
             h.update(str(arr.shape).encode())
@@ -124,10 +120,9 @@ def probe_static_scene(files: List[str]) -> bool:
     """True if the folder looks like a camera-only animation: the first
     two frames' scene tensors (triangles, vn, texture) are bitwise
     equal. Single-file folders count as static."""
-    import h5py
     if len(files) < 2:
         return True
-    with h5py.File(files[0], 'r') as a, h5py.File(files[1], 'r') as b:
+    with hdf5.File(files[0], 'r') as a, hdf5.File(files[1], 'r') as b:
         for k in ('triangles', 'vn', 'texture'):
             da, db = np.asarray(a[k]), np.asarray(b[k])
             if da.shape != db.shape or not np.array_equal(da, db):

@@ -8,8 +8,8 @@ Prints the datasets' shapes and ranges, then writes a PNG: by default a
 flat-shaded rasterization of the triangle soup through the scene's camera
 (``debug_render``, numpy, a geometry and camera check, not physically
 based), or with ``--pathtrace`` a path-traced render by
-``scene/path_tracer.py``, on the card unless ``--cpu`` is given.  Reading
-the H5 file needs ``h5py``.
+``scene/path_tracer.py``, on the card unless ``--cpu`` is given.  The H5
+file is read by the port's ``io/hdf5`` (no ``h5py``).
 """
 
 from __future__ import annotations

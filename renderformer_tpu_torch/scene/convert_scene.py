@@ -1,6 +1,7 @@
 """JSON scene -> H5 conversion CLI (the JAX package's
 ``scene/convert_scene.py``, the reference implementation's
-``scene_processor/convert_scene.py``); the H5 file needs ``h5py``:
+``scene_processor/convert_scene.py``); the H5 file is written by the port's
+``io/hdf5`` (no ``h5py``):
     python -m renderformer_tpu_torch.scene.convert_scene scene.json out.h5
 """
 

@@ -2,8 +2,10 @@
 JAX package's ``scene/h5_tools.py``, the reference implementation's
 ``scene_processor/h5_tools.py`` without its dacite dependency).
 
-``h5py`` is imported inside the functions that open a file, so the module
-imports where ``h5py`` is missing.
+Files are read and written through the port's HDF5 codec, ``io/hdf5.py``:
+no ``h5py`` is needed.  It reads the files h5py writes too, whose strings
+are variable-length (the port writes them fixed-length); both read back as
+``bytes``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Any, Dict
 
 import numpy as np
 
+from renderformer_tpu_torch.io import hdf5
 from renderformer_tpu_torch.scene.scene_config import scene_config_from_dict
 
 
@@ -38,16 +41,14 @@ def _write_dict_to_group(group, data: Dict[str, Any]) -> None:
 
 
 def save_dict_to_h5(data: Dict[str, Any], h5_path: str) -> None:
-    import h5py
-    with h5py.File(h5_path, 'w') as f:
+    with hdf5.File(h5_path, 'w') as f:
         _write_dict_to_group(f, data)
 
 
 def _read_group_to_dict(group) -> Dict[str, Any]:
-    import h5py
     out: Dict[str, Any] = {}
     for key, item in group.items():
-        if isinstance(item, h5py.Group):
+        if isinstance(item, hdf5.Group):
             out[key] = _read_group_to_dict(item)
         else:
             val = item[()]
@@ -66,8 +67,7 @@ def _read_group_to_dict(group) -> Dict[str, Any]:
 
 
 def load_dict_from_h5(h5_path: str) -> Dict[str, Any]:
-    import h5py
-    with h5py.File(h5_path, 'r') as f:
+    with hdf5.File(h5_path, 'r') as f:
         return _read_group_to_dict(f)
 
 

@@ -4,7 +4,8 @@
 Follows the reference implementation's ``scene_processor/to_h5.py``: per-triangle
 13-channel 32x32 texture patches (diffuse 3 + specular 3 + roughness 1 +
 normal 3 + irradiance 3) with the lower-triangle mask (x + y <= 32),
-look-at cameras, gzip-9 datasets.
+look-at cameras, gzip-9 datasets, written by the port's ``io/hdf5`` (no
+``h5py``).
 """
 
 from __future__ import annotations

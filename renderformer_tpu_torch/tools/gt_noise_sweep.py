@@ -14,7 +14,8 @@ JAX tool does; the random streams differ between the packages, so the
 numbers agree in distribution, not in bits.  With ``--out`` the
 '## Path-traced GT noise vs spp' section of that markdown file is
 replaced (or appended).  Runs on the card unless given ``--cpu``;
-reading the H5 scenes needs ``h5py``, ``sweep`` takes loaded scene dicts.
+the H5 scenes are read by the port's ``io/hdf5`` (no ``h5py``); ``sweep``
+takes loaded scene dicts.
 """
 
 from __future__ import annotations

@@ -10,8 +10,8 @@ H5 per frame (``frame_<i:04d>.h5``).  The orbit keeps the radius and
 elevation of the scene's own first camera and sweeps only the azimuth, so
 it stays inside the trained envelope (camera distance 1.5-2.0, fov 30-60).
 
-``orbit_frames`` returns the frames as arrays and needs neither ``h5py``
-nor a file; ``main`` writes them with ``io/h5.save_scene_h5`` (``h5py``).
+``orbit_frames`` returns the frames as arrays and needs no file; ``main``
+writes them with ``io/h5.save_scene_h5`` (the port's ``io/hdf5``).
 The default ``--out`` lies under the system's temporary directory.
 """
 
@@ -73,7 +73,7 @@ def frame_name(i: int) -> str:
 
 
 def write_frames(frames: List[Dict[str, np.ndarray]], out: str) -> None:
-    """Each frame as ``out/frame_<i:04d>.h5`` (``h5py``)."""
+    """Each frame as ``out/frame_<i:04d>.h5``."""
     from renderformer_tpu_torch.io.h5 import save_scene_h5
     os.makedirs(out, exist_ok=True)
     for i, fr in enumerate(frames):

@@ -26,7 +26,7 @@ trained weights needed.
 
 On the card unless given ``--cpu`` (then batch 2, as the JAX tool's CPU
 run).  The frames stay in memory (``training.dataset.InMemoryDataset``:
-the items are those of their H5 files, so no ``h5py`` is needed); the
+the items are those of their H5 files, with no file written); the
 ground truth PNGs go to ``WORKDIR/data``.
 ``--artifacts`` writes ``training_losses.png`` and ``overfit_run.json``
 into ``--workdir`` (default: under the system's temporary directory).

@@ -19,8 +19,9 @@ architecture at size, not the perceptual quality of trained outputs.
         --h5 FRAMES/frame_0000.h5 --res 512 [--pad 4352] [--cpu]
 
 ``--preset`` is a preset name or a checkpoint directory, as
-``from_pretrained`` takes either.  Reading ``--h5`` needs ``h5py``;
-``study`` takes the scene as arrays.  On the card unless given ``--cpu``.
+``from_pretrained`` takes either.  ``--h5`` is read by the port's
+``io/hdf5`` (no ``h5py``); ``study`` takes the scene as arrays.  On the
+card unless given ``--cpu``.
 """
 
 from __future__ import annotations

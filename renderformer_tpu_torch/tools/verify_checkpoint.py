@@ -13,8 +13,8 @@ downloaded) or a directory that either package's ``export_params`` wrote.
 Checks, in order:
   1. the load: ``RenderingPipeline.from_pretrained``, the config, and the
      parameter count of the JAX tree, the RoPE buffers included;
-  2. a finite render of a seeded random scene (or ``--h5_file``, which
-     needs ``h5py``);
+  2. a finite render of a seeded random scene (or ``--h5_file``, read by
+     the port's ``io/hdf5``);
   3. with ``--torch_compare``, the raw model against the upstream PyTorch
      ``renderformer`` (on the CPU) on the same weights and inputs, fp32
      (max|err| and PSNR, >= 60 dB); the upstream package is imported from
@@ -32,6 +32,8 @@ import types
 
 import numpy as np
 
+from renderformer_tpu_torch.io import hdf5
+
 
 def psnr(a, b):
     mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
@@ -40,8 +42,7 @@ def psnr(a, b):
 
 
 def load_scene(h5_file):
-    import h5py
-    with h5py.File(h5_file, 'r') as f:
+    with hdf5.File(h5_file, 'r') as f:
         return dict(
             triangles=f['triangles'][:][None],
             texture=f['texture'][:].astype(np.float32)[None],

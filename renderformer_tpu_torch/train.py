@@ -14,8 +14,9 @@ and ``memory`` (``autocast_dtype``, where float16 means bfloat16;
 the YAML, sets the process group.  Under torchrun each process drives the
 GPU of its ``LOCAL_RANK`` (NCCL; gloo with ``--cpu``), and the trainer
 trains data-parallel on the ranks (``training/trainer.py``); rank 0 prints
-and writes.  It runs on ``cuda`` unless given ``--cpu``.  PyYAML is
-imported by :func:`load_config`, h5py by the dataset's H5 read.
+and writes.  It runs on ``cuda`` unless given ``--cpu``.  The YAML is read
+by the port's ``utils/yaml_config`` and the H5 scenes by its ``io/hdf5``:
+neither PyYAML nor h5py is needed.
 """
 
 from __future__ import annotations
@@ -30,12 +31,11 @@ from renderformer_tpu_torch.pipelines.rendering_pipeline import RenderingPipelin
 from renderformer_tpu_torch.training.dataset import RenderFormerDataset
 from renderformer_tpu_torch.training.state import TrainConfig
 from renderformer_tpu_torch.training.trainer import RenderFormerTrainer, TrainerConfig
+from renderformer_tpu_torch.utils import yaml_config
 
 
 def load_config(path: str) -> dict:
-    import yaml
-    with open(path) as f:
-        return yaml.safe_load(f) or {}
+    return yaml_config.load_file(path) or {}
 
 
 def make_dataset(cfg: dict) -> RenderFormerDataset:

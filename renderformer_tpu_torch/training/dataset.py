@@ -14,10 +14,13 @@ compact only when every item is; otherwise its compact items are
 expanded to the full items' patch size.  ``texture_patch_size`` is the
 scenes' patch size, for the trainer to hold against the model's.
 
-``h5py`` is imported by the H5 read (``_list_scenes``, ``_scene_shape``
-and ``_read_scene``, which a subclass may replace to read scenes from
-elsewhere, as ``InMemoryDataset`` reads arrays), ``cv2`` by the
-ground-truth read, so the module imports without either.  Data-parallel runs pass ``batches`` their ``rank`` and
+The H5 read (``_list_scenes``, ``_scene_shape`` and ``_read_scene``, which
+a subclass may replace to read scenes from elsewhere, as ``InMemoryDataset``
+reads arrays) goes through the port's HDF5 codec, ``io/hdf5.py``, with no
+``h5py``; ``_scene_shape`` reads the files' metadata only.  ``cv2`` is
+imported only to resize a ground truth that is not ``max_resolution``
+square, so the module imports without it.
+Data-parallel runs pass ``batches`` their ``rank`` and
 ``world``: every rank shuffles alike and takes its slice of each global
 batch, as the reference's DistributedSampler deals it.
 """
@@ -29,6 +32,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from renderformer_tpu_torch.io import hdf5
 from renderformer_tpu_torch.io.h5 import list_scene_files, load_scene_h5, pad_scene
 from renderformer_tpu_torch.io.image import read_png
 
@@ -111,8 +115,7 @@ class RenderFormerDataset:
 
     def _scene_shape(self, path: str) -> Tuple[int, int]:
         """(triangle count, texture patch size) from the file's metadata."""
-        import h5py
-        with h5py.File(path, 'r') as h:
+        with hdf5.File(path, 'r') as h:
             return int(h['triangles'].shape[0]), int(h['texture'].shape[-1])
 
     def _read_scene(self, path: str) -> Dict[str, np.ndarray]:
@@ -229,10 +232,10 @@ class RenderFormerDataset:
 
 
 class InMemoryDataset(RenderFormerDataset):
-    """The dataset over scenes held in memory, for a machine without
-    ``h5py``: ``scenes`` maps a name to a scene's arrays (``triangles``,
-    ``texture``, ``vn``, ``c2w``, ``fov``, as an H5 file holds them), taken
-    in the order given; the ground truth of scene ``name`` is
+    """The dataset over scenes held in memory, not in files: ``scenes``
+    maps a name to a scene's arrays (``triangles``, ``texture``, ``vn``,
+    ``c2w``, ``fov``, as an H5 file holds them), taken in the order given;
+    the ground truth of scene ``name`` is
     ``gt_dir/<name>.png``.  Only the H5 read is replaced: the items are the
     H5 dataset's, texture in float16."""
 

@@ -40,7 +40,8 @@ for n in ('nn.swin', 'ops.swin_attention', 'ops.shifted_regroup', 'ops.s2d_conv'
           'ops.dpt_tail', 'ops.fused_resize', 'ops.flash_attention', 'ops.fused_norm',
           'training.state',
           'training.checkpoint', 'training.trainer', 'io.safetensors', 'io.image',
-          'io.h5', 'utils.tone_map', 'utils.prefetch', 'utils.profiling', 'infer',
+          'io.h5', 'io.hdf5', 'utils.yaml_config', 'utils.tone_map', 'utils.prefetch',
+          'utils.profiling', 'infer',
           'batch_infer', 'training.dataset', 'train', 'utils.look_at', 'scene.scene_config',
           'scene.mesh', 'scene.remesh', 'scene.scene_mesh', 'scene.to_h5', 'scene.h5_tools',
           'scene.convert_scene', 'scene.path_tracer', 'scene.render_scene',
@@ -62,6 +63,24 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
     assert n_modules >= 20, res.stdout
+
+
+def test_no_source_imports_h5py_or_yaml():
+    """The port reads and writes HDF5 with io/hdf5 and reads YAML with
+    utils/yaml_config: no source file of the package, and not chip_smoke.py,
+    imports h5py or PyYAML, not even inside a function."""
+    import re
+    pattern = re.compile(r'^\s*(import|from) (h5py|yaml)\b', re.M)
+    pkg = os.path.join(REPO, 'renderformer_tpu_torch')
+    files = [os.path.join(root, f) for root, _, names in os.walk(pkg) for f in names
+             if f.endswith('.py')] + [os.path.join(REPO, 'chip_smoke.py')]
+    assert len(files) > 50
+    bad = []
+    for path in files:
+        with open(path, encoding='utf-8') as f:
+            bad += [f'{os.path.relpath(path, REPO)}: {m.group(0).strip()}'
+                    for m in pattern.finditer(f.read())]
+    assert not bad, bad
 
 
 _HELP = r'''
