@@ -15,7 +15,9 @@ or a NeRF-encoded 2-D ray map, the DPT head or the linear head, and full
 or Swin window self-attention in the view stage; ``pe_type='learned'``
 raises.  A :class:`~renderformer_tpu_torch.nn.core.DropoutKey` turns on
 the config's dropout: the encoder takes the key folded with 0, the view
-stage with 1, as the JAX package splits its dropout rng in two.
+stage with 1, as the JAX package splits its dropout rng in two.  Under a
+profiler session stage 1 is the range ``rf.model.encoder`` and the call of
+the view stage ``rf.model.view``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from renderformer_tpu_torch.encodings.nerf import nerf_encode, nerf_out_dim
 from renderformer_tpu_torch.models.view_transformer import ViewTransformer
 from renderformer_tpu_torch.nn.attention import TransformerEncoder
 from renderformer_tpu_torch.nn.core import DropoutKey, RMSNorm, make_norm
+from renderformer_tpu_torch.utils.profiling import annotate
 
 
 def check_supported(cfg: RenderFormerConfig) -> None:
@@ -136,9 +139,10 @@ class RenderFormer(nn.Module):
         enc_key = view_key = None
         if dropout_key is not None and self.config.dropout > 0.0:
             enc_key, view_key = dropout_key.fold(0), dropout_key.fold(1)
-        seq, mask_padded, rope_pos = self.construct_seq(
-            tri_vpos, texture_patches, valid_mask, vns)
-        seq = self.transformer(seq, mask_padded, rope_pos, enc_key)
+        with annotate('rf.model.encoder'):
+            seq, mask_padded, rope_pos = self.construct_seq(
+                tri_vpos, texture_patches, valid_mask, vns)
+            seq = self.transformer(seq, mask_padded, rope_pos, enc_key)
 
         b, v = rays_o.shape[0], rays_o.shape[1]
         n_tok = seq.shape[1]
@@ -146,7 +150,8 @@ class RenderFormer(nn.Module):
         valid_bv = valid_mask[:, None].expand(b, v, valid_mask.shape[1]).reshape(b * v, -1)
         tri_view = tri_vpos_view_tf.reshape(b * v, *tri_vpos_view_tf.shape[2:])
         pos_seq, _ = self.process_tri_vpos(tri_view, valid_bv)
-        img = self.view_transformer(
-            rays_o.reshape(b * v, 3), rays_d.reshape(b * v, *rays_d.shape[2:]),
-            seq, pos_seq, mask_bv, view_key)
+        with annotate('rf.model.view'):
+            img = self.view_transformer(
+                rays_o.reshape(b * v, 3), rays_d.reshape(b * v, *rays_d.shape[2:]),
+                seq, pos_seq, mask_bv, view_key)
         return img.reshape(b, v, *img.shape[1:])

@@ -15,7 +15,8 @@ With ``use_dpt_decoder=False`` the linear head replaces the DPT head:
 ``out_proj``, ELU(1e-3) in the stage's dtype, then the unpatchify
 ``'b (h1 w1) (c p1 p2) -> b (h1 p1) (w1 p2) c'``.  ``(c p1 p2)`` is the
 reference's torch layout of ``ray_map_encoder.weight`` and
-``out_proj.weight``.
+``out_proj.weight``.  Under a profiler session the DPT head is the range
+``rf.model.dpt``.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from renderformer_tpu_torch.nn.attention import TransformerDecoder
 from renderformer_tpu_torch.nn.core import DropoutKey, elu, make_norm
 from renderformer_tpu_torch.nn.dpt import DPTHead
 from renderformer_tpu_torch.ops.flash_attention import fan_out
+from renderformer_tpu_torch.utils.profiling import annotate
 
 
 class ViewTransformer(nn.Module):
@@ -120,7 +122,8 @@ class ViewTransformer(nn.Module):
             out_layers=out_layers, grid=(patch_h, patch_w), key=dropout_key)
         p = cfg.patch_size
         if cfg.use_dpt_decoder:
-            img = self.out_dpt(taps, patch_h, patch_w, patch_size=p)
+            with annotate('rf.model.dpt'):
+                img = self.out_dpt(taps, patch_h, patch_w, patch_size=p)
             return elu(img.float(), alpha=1e-3)
         dec = elu(self.out_proj(seq), alpha=1e-3)
         b, od = dec.shape[0], cfg.out_dim

@@ -20,6 +20,12 @@ float16 maximum would become inf.
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
 asked for CUDA on a machine without it, they raise.
 
+:data:`UPLOADS` counts the calls of ``render`` and ``render_many``, and the
+bytes they moved from host memory (numpy arrays, CPU tensors) to the
+pipeline's device; inputs already there add nothing.  Under a profiler
+session each call is the range ``rf.render`` and its uploads
+``rf.render.upload`` (``utils/profiling.annotate``).
+
 ``use_mesh`` renders on a (data, seq) mesh of the process group's ranks,
 one GPU each: ``render`` gives each ``data`` rank its slice of the scenes,
 splits the full attention sites over the ``seq`` ranks (ring attention
@@ -46,6 +52,7 @@ from renderformer_tpu_torch.parallel.distributed import all_gather_cat, rank_and
 from renderformer_tpu_torch.parallel.sharding import (
     axis_group, axis_index, axis_size, make_mesh, use_sharding)
 from renderformer_tpu_torch.utils.hdr import hdr_decode_image, hdr_encode_texture
+from renderformer_tpu_torch.utils.profiling import annotate
 from renderformer_tpu_torch.utils.rays import generate_rays, generate_rays_patched
 from renderformer_tpu_torch.utils.transform import trans_to_cam_coord
 
@@ -54,6 +61,10 @@ _DTYPES = {
     'fp16': torch.bfloat16, 'float16': torch.bfloat16,
     'fp32': torch.float32, 'float32': torch.float32,
 }
+# calls of render/render_many, and the bytes they moved from host memory to
+# the pipeline's device
+UPLOADS = {'renders': 0, 'bytes': 0}
+
 _OUT_DTYPES = {
     'float32': torch.float32, 'fp32': torch.float32,
     'float16': torch.float16, 'fp16': torch.float16,
@@ -207,23 +218,30 @@ class RenderingPipeline:
         return model, (_OUT_DTYPES[output_dtype] if output_dtype else None)
 
     def _arg(self, x, dtype) -> torch.Tensor:
-        """x on the pipeline's device in ``dtype``; no copy if it is there."""
-        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
-                               device=self.device).to(dtype)
+        """x on the pipeline's device in ``dtype``; no copy if it is there.
+        A copy from host memory adds its bytes to ``UPLOADS``."""
+        x = x if torch.is_tensor(x) else np.asarray(x)
+        if self.device.type != 'cpu' and (not torch.is_tensor(x) or x.device.type == 'cpu'):
+            UPLOADS['bytes'] += x.nbytes
+        return torch.as_tensor(x, device=self.device).to(dtype)
 
     def render(self, triangles, texture, mask, vn, c2w, fov, resolution: int = 512,
                precision: Optional[str] = None, view_precision: Optional[str] = None,
                output_dtype: Optional[str] = None) -> torch.Tensor:
         """Render numpy arrays or tensors; returns HDR [bs, V, H, W, 3] on the
         pipeline's device."""
-        model, out_dt = self._prepare(precision, view_precision, output_dtype)
-        with torch.inference_mode():
-            args = (self._arg(triangles, torch.float32), self._arg(texture, torch.float32),
-                    self._arg(mask, torch.bool), self._arg(vn, torch.float32),
-                    self._arg(c2w, torch.float32), self._arg(fov, torch.float32))
-            if self.mesh is None:
-                return render_fn(model, *args, resolution=resolution, output_dtype=out_dt)
-            return self._render_sharded(model, args, resolution, out_dt)
+        UPLOADS['renders'] += 1
+        with annotate('rf.render'):
+            model, out_dt = self._prepare(precision, view_precision, output_dtype)
+            with torch.inference_mode():
+                with annotate('rf.render.upload'):
+                    args = (self._arg(triangles, torch.float32),
+                            self._arg(texture, torch.float32), self._arg(mask, torch.bool),
+                            self._arg(vn, torch.float32), self._arg(c2w, torch.float32),
+                            self._arg(fov, torch.float32))
+                if self.mesh is None:
+                    return render_fn(model, *args, resolution=resolution, output_dtype=out_dt)
+                return self._render_sharded(model, args, resolution, out_dt)
 
     __call__ = render
 
@@ -257,20 +275,24 @@ class RenderingPipeline:
         if self.mesh is not None:
             raise NotImplementedError('render_many is the one-device video path; '
                                       'sharded rendering uses render()')
-        model, out_dt = self._prepare(precision, view_precision, output_dtype)
-        cfg = model.config
-        with torch.inference_mode():
-            tris, msk, vns = (self._arg(triangles, torch.float32), self._arg(mask, torch.bool),
-                              self._arg(vn, torch.float32))
-            tex = self._arg(texture, torch.float32)
-            if not cfg.use_ldr:
-                tex = hdr_encode_texture(tex)
-            c2w_seq, fov_seq = self._arg(c2w_seq, torch.float32), self._arg(fov_seq, torch.float32)
-            k, bs, nv = c2w_seq.shape[:3]
-            out = torch.empty((k, bs, nv, resolution, resolution, cfg.out_dim),
-                              dtype=out_dt or torch.float32, device=self.device)
-            for i in range(k):
-                out[i] = render_fn(model, tris, tex, msk, vns, c2w_seq[i], fov_seq[i],
-                                   resolution=resolution, output_dtype=out_dt,
-                                   texture_encoded=True)
-            return out
+        UPLOADS['renders'] += 1
+        with annotate('rf.render'):
+            model, out_dt = self._prepare(precision, view_precision, output_dtype)
+            cfg = model.config
+            with torch.inference_mode():
+                with annotate('rf.render.upload'):
+                    tris, msk, vns = (self._arg(triangles, torch.float32),
+                                      self._arg(mask, torch.bool), self._arg(vn, torch.float32))
+                    tex = self._arg(texture, torch.float32)
+                    c2w_seq = self._arg(c2w_seq, torch.float32)
+                    fov_seq = self._arg(fov_seq, torch.float32)
+                if not cfg.use_ldr:
+                    tex = hdr_encode_texture(tex)
+                k, bs, nv = c2w_seq.shape[:3]
+                out = torch.empty((k, bs, nv, resolution, resolution, cfg.out_dim),
+                                  dtype=out_dt or torch.float32, device=self.device)
+                for i in range(k):
+                    out[i] = render_fn(model, tris, tex, msk, vns, c2w_seq[i], fov_seq[i],
+                                       resolution=resolution, output_dtype=out_dt,
+                                       texture_encoded=True)
+                return out

@@ -48,6 +48,13 @@ norm and takes the same NaN-skip and clip decision (the JAX step reads them
 of the global batch).  The attention sites split over the ``seq`` axis
 (sequence-split attention), whose ranks then hold the same gradients.
 A group of one rank still runs the all-reduce; without a mesh there is none.
+
+Under a profiler session a step is three ranges: ``rf.train.forward`` (the
+render and the loss), ``rf.train.backward`` (``autograd.grad``, whose
+launches and remat's recomputation run on autograd's own thread inside it,
+and the fp32 casts of the gradients) and ``rf.train.optimizer`` (the
+all-reduce, the global norm, the one read of the loss and the norm, the
+NaN skip, the clip, AdamW and the shadow's copy).
 """
 
 from __future__ import annotations
@@ -71,6 +78,7 @@ from renderformer_tpu_torch.ops.flash_attention import BWD_VARIANTS, flash_backw
 from renderformer_tpu_torch.parallel.sharding import axis_group, axis_size, use_sharding
 from renderformer_tpu_torch.pipelines.rendering_pipeline import render_fn
 from renderformer_tpu_torch.training.dataset import texture_patch_mask
+from renderformer_tpu_torch.utils.profiling import annotate
 
 VIEW_PREFIX = 'view_transformer.'
 
@@ -413,13 +421,17 @@ def make_loss_fns(model: nn.Module, tc: TrainConfig, mesh=None):
 
     def loss_and_grads(state: TrainState, batch):
         key = DropoutKey(tc.seed, state.step) if use_dropout else None
-        with (flash_backward(variant), cudnn_deterministic(tc.deterministic),
-              nan_check(tc.debug_nans)):
-            imgs = images(state, batch, key)
-            loss = torch.mean(torch.square(imgs - batch['gt'].to(imgs.dtype)))
+        with flash_backward(variant), cudnn_deterministic(tc.deterministic):
+            with annotate('rf.train.forward'), nan_check(tc.debug_nans):
+                imgs = images(state, batch, key)
+                loss = torch.mean(torch.square(imgs - batch['gt'].to(imgs.dtype)))
             wrt = list((state.shadow if use_shadow else state.model).parameters())
-            grads = torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
-        return loss.detach(), [g.float() for g in grads]
+            with annotate('rf.train.backward'):
+                with nan_check(tc.debug_nans):
+                    grads = torch.autograd.grad(loss, wrt, allow_unused=True,
+                                                materialize_grads=True)
+                grads = [g.float() for g in grads]
+        return loss.detach(), grads
 
     return images, loss_and_grads
 
@@ -457,15 +469,16 @@ def make_train_step(model: nn.Module, tx: AdamW, tc: TrainConfig, mesh=None):
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, float]]:
         loss, grads = loss_and_grads(state, batch)
-        if mesh is not None:
-            loss = all_reduce_mean(grads, loss, mesh)
-        gnorm = global_norm(grads)
-        loss_f, gnorm_f = torch.stack([loss.float(), gnorm]).tolist()
-        if not tc.skip_nonfinite or (math.isfinite(loss_f) and math.isfinite(gnorm_f)):
-            tx.update(grads, state.opt_state, dict(state.model.named_parameters()), gnorm_f,
-                      decayed)
-            if use_shadow:
-                sync_shadow(state)
+        with annotate('rf.train.optimizer'):
+            if mesh is not None:
+                loss = all_reduce_mean(grads, loss, mesh)
+            gnorm = global_norm(grads)
+            loss_f, gnorm_f = torch.stack([loss.float(), gnorm]).tolist()
+            if not tc.skip_nonfinite or (math.isfinite(loss_f) and math.isfinite(gnorm_f)):
+                tx.update(grads, state.opt_state, dict(state.model.named_parameters()),
+                          gnorm_f, decayed)
+                if use_shadow:
+                    sync_shadow(state)
         state.step += 1
         return state, {'loss': loss_f, 'grad_norm': gnorm_f}
 

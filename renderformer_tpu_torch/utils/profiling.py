@@ -4,7 +4,14 @@
   CUDA where there is a card) that writes a Chrome/TensorBoard trace,
   ``<host>_<pid>.<time>.pt.trace.json``, into its directory;
 * :func:`annotate`: a named range in that trace (``record_function``),
-  and on a card also an NVTX range;
+  on the clock of the device events, while a profiler session is on; with
+  none on it costs one read of the profiler's flag and enters nothing.
+  The port's spans: ``rf.render`` (``RenderingPipeline.render`` and
+  ``render_many``) around ``rf.render.upload`` (the inputs to the device);
+  ``rf.model.encoder`` (stage 1), ``rf.model.view`` (stage 2) around
+  ``rf.model.dpt`` (the DPT head); and a train step's ``rf.train.forward``,
+  ``rf.train.backward`` (``autograd.grad`` and the fp32 gradients) and
+  ``rf.train.optimizer`` (all-reduce, norm, NaN skip, clip, AdamW);
 * :class:`ThroughputMeter`: rays/s and tokens/s of the inference CLIs from
   host-clock windows.  A window is what the caller puts between ``start``
   and ``stop``; the meter synchronises nothing, so a window measures the
@@ -36,19 +43,16 @@ def trace(log_dir: str = 'runs/trace'):
             torch.cuda.synchronize()
 
 
-@contextlib.contextmanager
+_NULL = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
 def annotate(name: str):
-    """A named range of the block in the profiler's trace, and an NVTX range
-    on a card."""
-    with torch.profiler.record_function(name):
-        if not torch.cuda.is_available():
-            yield
-            return
-        torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            torch.cuda.nvtx.range_pop()
+    """A context manager: a named range of the block in the profiler's trace
+    while a session is on, else a shared null context."""
+    if not _profiler_enabled():
+        return _NULL
+    return torch.profiler.record_function(name)
 
 
 @dataclass

@@ -305,9 +305,17 @@ def test_batch_infer_shard_takes_the_per_batch_path(tmp_path, ckpt, monkeypatch,
     assert 'video mode: static scene detected' not in log
 
 
-def test_trace_names_an_annotated_range(tmp_path, ckpt):
+def test_trace_names_an_annotated_range(tmp_path, ckpt, monkeypatch):
+    """A range of the caller's and the pipeline's own ranges land in the
+    exported trace; ``annotate`` sets no NVTX range."""
     from renderformer_tpu_torch import RenderingPipeline
     from renderformer_tpu_torch.utils.profiling import annotate, trace
+
+    def no_nvtx(*a, **kw):
+        raise AssertionError('annotate called NVTX')
+
+    monkeypatch.setattr(torch.cuda.nvtx, 'range_push', no_nvtx)
+    monkeypatch.setattr(torch.cuda.nvtx, 'range_pop', no_nvtx)
     pipe = RenderingPipeline.from_pretrained(ckpt, device='cpu')
     rng = np.random.default_rng(0)
     n = 6
@@ -324,3 +332,6 @@ def test_trace_names_an_annotated_range(tmp_path, ckpt):
     with open(os.path.join(str(tmp_path / 'trace'), files[0])) as f:
         text = f.read()
     assert 'rf_traced_render' in text and 'aten::' in text
+    assert all(f'"{name}"' in text for name in ('rf.render', 'rf.render.upload',
+                                                'rf.model.encoder', 'rf.model.view',
+                                                'rf.model.dpt'))
