@@ -17,8 +17,9 @@ Phases, each printing its own lines:
      K11's backward and K5;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      every shape the v1-base, v1.1-swin-large and v1-base nerf 512^2 renders
-     give it, in bf16 and fp32 (the flash forward without RoPE, K10, and the
-     fused RMSNorm, K11, in the renders' bf16), with kernel, plain, library
+     give it, in bf16 and fp32 (the flash forward without RoPE, K10, in the
+     renders' bf16, and the fused RMSNorm, K11, at each render path's norms
+     in the dtype each stage runs), with kernel, plain, library
      and bound times (CUDA events, median; K4 and K5 also by CUDA graphs of
      calls, beside F.interpolate's; K3 also by CUDA graphs of calls, beside
      its bytes bound; K11's forward and backward also by CUDA graphs, beside
@@ -31,7 +32,7 @@ Phases, each printing its own lines:
      the shapes of phase 13's renders: infer's unpadded scene (1,809 keys,
      one view) and batch_infer's batches of 8 scenes at 3,728 keys;
   4. render, for each of v1-base, v1.1-swin-large and v1-base nerf
-     (V1_BASE_NERF, pe_type='nerf', with RuntimeConfig(fused_norm=True)) at
+     (V1_BASE_NERF, pe_type='nerf'), each with the default RuntimeConfig() at
      full width and full depth from a seeded init, with the default composed
      DPT tail: 1 scene x 8 views x 2048 triangles at 512^2 in bf16 (the
      bench.py workload), with exact launch counts of every kernel (counts set
@@ -42,7 +43,8 @@ Phases, each printing its own lines:
      the card, median of timed renders, and a profiler breakdown of one
      render (device time by kernel, and the device's idle share of the
      median unprofiled render); for v1-base also, with no bar, rays/s of the
-     render with fused_norm=True beside the default, timed in turn;
+     render with fused_norm=False (the torch-op norms) beside the default,
+     timed in turn;
   6. training kernels: the forward with its logsumexp (K1/K2, timed in
      turn with the render's instantiation), K3 (also by CUDA graphs of
      calls), the flash backward's tile plan at each site (keys a block, q
@@ -365,16 +367,19 @@ def _launches(**nonzero):
 # launches in one bf16 512^2 render with the composed DPT tail:
 # v1-base: 12 encoder + 6 decoder masked attentions (K1), 6 ray
 #   self-attentions (K2), a K rotation before each (K3), refinenet4/3/2
-#   upsamples (K4), refinenet1's upsample into s2d layout (K5);
+#   upsamples (K4), refinenet1's upsample into s2d layout (K5), and K11 at
+#   each of the 99 RMSNorms (the default runtime's fused_norm): 2 stage-1
+#   embeddings, 4 a self-attention block (query, q, k, FFN), the ray encoder,
+#   8 a decoder block (query, context, cross q and k, self-attention input, q
+#   and k, FFN);
 # swin-large: 12 encoder + 12 decoder masked attentions (K1, K3), window
 #   attention in every decoder layer (K6), the regroup before and after it in
-#   the 6 shifted layers (K7), and the same DPT head;
+#   the 6 shifted layers (K7), the same DPT head, and K11 at the 147 RMSNorms
+#   of 12 + 12 blocks;
 # v1-base nerf: the same attention sites without RoPE (K10 masked 12 + 6,
-#   unmasked 6), the same DPT head, and with fused_norm=True K11 at each of the
-#   102 RMSNorms: 3 stage-1 embeddings, 4 a self-attention block (query, q, k,
-#   FFN), the ray encoder and the 2 position encodings of the view stage, 8 a
-#   decoder block (query, context, cross q and k, self-attention input, q and
-#   k, FFN).
+#   unmasked 6), the same DPT head, and K11 at each of the 102 RMSNorms: v1-base's
+#   99, a third stage-1 embedding and the 2 position encodings of the view
+#   stage.
 # One v1-base train step with remat (each of the 24 attention sites runs K3
 # and K1/K2 with the logsumexp in the forward, both again in the backward's
 # recomputation, then K3 and the backward), the three K4 upsamples and K5 in
@@ -393,9 +398,10 @@ _TRAIN = dict(flash_fwd_rope_mask=36, flash_fwd_rope_nomask=12, rot_kv_broadcast
               resize_bilinear=3, resize_bilinear_t=4, resize_s2d=1)
 EXPECTED_LAUNCHES = {
     BASE: _launches(flash_fwd_rope_mask=18, flash_fwd_rope_nomask=6, rot_kv_broadcast=24,
-                    resize_bilinear=3, resize_s2d=1),
+                    resize_bilinear=3, resize_s2d=1, rms_norm_fwd=99),
     SWIN: _launches(flash_fwd_rope_mask=24, rot_kv_broadcast=24, resize_bilinear=3,
-                    resize_s2d=1, swin_window_attention=12, shifted_regroup=12),
+                    resize_s2d=1, swin_window_attention=12, shifted_regroup=12,
+                    rms_norm_fwd=147),
     NERF: _launches(flash_fwd_mask=18, flash_fwd_nomask=6, resize_bilinear=3, resize_s2d=1,
                     rms_norm_fwd=102),
     TRAIN: _launches(**_TRAIN, flash_bwd_mask=18, flash_bwd_nomask=6),
@@ -724,7 +730,7 @@ def k3_tol(ref):
                                              else 2.0 ** -22)
 
 
-NORM_D = 768  # the model width of v1-base, the width of every K11 site
+NORM_D = 768  # the model width of v1-base, the width of its K11 sites
 
 # the flash forward at its tile edges, bf16 (csrc/flash_fwd_sm90.cu) and fp32
 # (csrc/flash_attention.cu, 64-row q tiles, 32-key tiles, keys split across
@@ -942,8 +948,8 @@ def ulp_tol(ref):
     return amax * 2.0 ** -20
 
 
-def check_rms_norm(rows, randn, site, r, dtype, eps, per_fwd, per_bwd):
-    """K11's forward and backward at x [r, 768] against their plain versions;
+def check_rms_norm(rows, randn, site, r, dtype, eps, per_fwd, per_bwd, d=NORM_D):
+    """K11's forward and backward at x [r, d] against their plain versions;
     torch.nn.functional.rms_norm and its autograd are the library
     yardsticks."""
     import torch
@@ -951,8 +957,8 @@ def check_rms_norm(rows, randn, site, r, dtype, eps, per_fwd, per_bwd):
     from renderformer_tpu_torch.ops import reference_kernels
     from renderformer_tpu_torch.ops.fused_norm import rms_norm_bwd, rms_norm_fwd
     it = 2 if dtype == torch.bfloat16 else 4
-    x, g = randn(r, NORM_D, dtype=dtype), randn(r, NORM_D, dtype=dtype)
-    scale = 1 + 0.1 * randn(NORM_D)
+    x, g = randn(r, d, dtype=dtype), randn(r, d, dtype=dtype)
+    scale = 1 + 0.1 * randn(d)
     why = ('the same arithmetic, inv from a sum of squares in another order, which can '
            'round bf16(inv) to its other neighbour: 1 bf16 ulp of max|ref|, fp32 2^-20 of it')
     ws = scale.to(dtype)  # the paths hand K11 the scale in x's dtype
@@ -962,14 +968,14 @@ def check_rms_norm(rows, randn, site, r, dtype, eps, per_fwd, per_bwd):
             ref = rms_norm_fwd(x, ws, eps)
         record_row(rows, 'rms_norm_fwd', site, dtype, per_fwd, y, ref, ulp_tol(ref), why,
                    lambda: rms_norm_fwd(x, ws, eps),
-                   lambda: F.rms_norm(x, (NORM_D,), ws, eps),
-                   2 * r * NORM_D * it + NORM_D * ws.element_size(), 4 * r * NORM_D,
+                   lambda: F.rms_norm(x, (d,), ws, eps),
+                   2 * r * d * it + d * ws.element_size(), 4 * r * d,
                    PEAK_FP32)
         # host and device apart: the single call above holds the host's work
         # where the card waits for it; a graph of LSE_BURST calls does not
         row = rows[-1]
         row['burst_ms'] = graph_burst_ms(lambda: rms_norm_fwd(x, ws, eps))
-        row['library_burst_ms'] = graph_burst_ms(lambda: F.rms_norm(x, (NORM_D,), ws, eps))
+        row['library_burst_ms'] = graph_burst_ms(lambda: F.rms_norm(x, (d,), ws, eps))
         print(f'norm: rms_norm_fwd {site} {row["dtype"]} scale {row["dtype"]}: single call '
               f'{row["ms"]:.4f} ms against F.rms_norm {row["library_ms"]:.4f}; device (graph of '
               f'{LSE_BURST}) {row["burst_ms"]:.4f} ms a call against {row["library_burst_ms"]:.4f}'
@@ -989,7 +995,7 @@ def check_rms_norm(rows, randn, site, r, dtype, eps, per_fwd, per_bwd):
                 fail(f'rms_norm_bwd {site}: a call or graph replay differs from the checked '
                      'call, or ds is not its fp32 sum rounded to the scale\'s dtype')
     xl, wl = x.detach().clone().requires_grad_(True), ws.detach().clone().requires_grad_(True)
-    yl = F.rms_norm(xl, (NORM_D,), wl, eps)
+    yl = F.rms_norm(xl, (d,), wl, eps)
     with torch.no_grad():
         record_row(rows, 'rms_norm_bwd', site, dtype, per_bwd, got, ref,
                    (ulp_tol(ref[0]), 1e-5 * float(ref[1].abs().max())),
@@ -997,12 +1003,12 @@ def check_rms_norm(rows, randn, site, r, dtype, eps, per_fwd, per_bwd):
                    'rows, 1e-5 of max|ds|',
                    lambda: rms_norm_bwd(x, ws, g, eps),
                    lambda: torch.autograd.grad(yl, (xl, wl), g, retain_graph=True),
-                   3 * r * NORM_D * it + 2 * NORM_D * ws.element_size(), 10 * r * NORM_D,
+                   3 * r * d * it + 2 * d * ws.element_size(), 10 * r * d,
                    PEAK_FP32)
         row = rows[-1]
         row['burst_ms'] = graph_burst_ms(lambda: rms_norm_bwd(x, ws, g, eps))
     row['library_burst_ms'] = autograd_graph_ms(
-        lambda a, w: F.rms_norm(a, (NORM_D,), w, eps), (x, ws), g)
+        lambda a, w: F.rms_norm(a, (d,), w, eps), (x, ws), g)
     print(f'norm: rms_norm_bwd {site} {row["dtype"]} scale {row["dtype"]}: single call '
           f'{row["ms"]:.4f} ms against autograd of F.rms_norm {row["library_ms"]:.4f}; device '
           f'(graph of {LSE_BURST}) {row["burst_ms"]:.5f} ms a call against '
@@ -1187,10 +1193,34 @@ def kernel_checks():
         check_flash_fwd(rows, randn, site, b, sq, sk, masked, bf, {NERF: n})
     for dtype in (bf, f32):
         check_flash_edges(rows, randn, tables, False, dtype)
+    # K11 at every render path's norms, each at its width in the dtype its
+    # stage runs: the triangle embeddings' norms (torch's default eps), the
+    # stage-1 tokens (triangles + registers; with one view, or with the
+    # v1-base context of every view, also the view stage's context norms),
+    # the ray tokens (with the ray encoder's norm), nerf's context expanded
+    # over the views; launches per render by path
     eps_tiny = float(np.finfo(np.float32).eps)  # torch's RMSNorm default
-    for site, r, eps, n in (('embed_2048', NTRI, eps_tiny, 3), ('stage1_2064', SK, 1e-6, 48),
-                            ('rays_8x4096', V * ST, 1e-6, 38), ('tris_8x2064', V * SK, 1e-6, 13)):
-        check_rms_norm(rows, randn, site, r, bf, eps, {NERF: n}, {})
+    for site, r, d, dtype, eps, n in (
+            ('embed_2048', NTRI, NORM_D, bf, eps_tiny, {NERF: 3, BASE: 2}),
+            ('stage1_2064', SK, NORM_D, bf, 1e-6, {NERF: 48, BASE: 60}),
+            ('rays_8x4096', V * ST, NORM_D, bf, 1e-6, {NERF: 38, BASE: 37, FT_BATCH: 37}),
+            ('tris_8x2064', V * SK, NORM_D, bf, 1e-6, {NERF: 13}),
+            ('ft128_infer_embed', FT_INFER_TRIS, NORM_D, bf, eps_tiny, {FT_INFER: 2}),
+            ('ft128_infer_stage1', FT_INFER_SK, NORM_D, bf, 1e-6, {FT_INFER: 60}),
+            ('ft128_infer_rays', ST, NORM_D, bf, 1e-6, {FT_INFER: 37}),
+            ('ft128_batch_embed', V * FT_PAD, NORM_D, bf, eps_tiny, {FT_BATCH: 2}),
+            ('ft128_batch_stage1', V * FT_SK, NORM_D, bf, 1e-6, {FT_BATCH: 60}),
+            ('swin_embed_2048', NTRI, SWIN_C, bf, eps_tiny, {SWIN: 2}),
+            ('swin_stage1_2064', SK, SWIN_C, bf, 1e-6, {SWIN: 72}),
+            ('swin_rays_8x4096', V * ST, SWIN_C, bf, 1e-6, {SWIN: 73}),
+            ('precision_embed', PRECISION_PAD, SWIN_C, bf, eps_tiny,
+             {PREC_F32V: 2, PREC_BF16: 2}),
+            ('precision_stage1', TOOL_SK, SWIN_C, bf, 1e-6, {PREC_F32V: 48, PREC_BF16: 72}),
+            ('precision_rays', ST, SWIN_C, bf, 1e-6, {PREC_BF16: 73}),
+            ('precision_embed', PRECISION_PAD, SWIN_C, f32, eps_tiny, {PREC_F32: 2}),
+            ('precision_stage1', TOOL_SK, SWIN_C, f32, 1e-6, {PREC_F32: 72, PREC_F32V: 24}),
+            ('precision_rays', ST, SWIN_C, f32, 1e-6, {PREC_F32: 73, PREC_F32V: 73})):
+        check_rms_norm(rows, randn, site, r, dtype, eps, n, {}, d)
     return rows
 
 
@@ -1213,11 +1243,10 @@ def bench_inputs(n_tris=NTRI, n_views=V):
 
 def render_pipeline(path):
     """The seeded pipeline of a render path: the presets as they are, and
-    V1_BASE_NERF with the fused RMSNorm."""
-    from renderformer_tpu_torch import V1_BASE_NERF, RenderingPipeline, RuntimeConfig
+    V1_BASE_NERF."""
+    from renderformer_tpu_torch import V1_BASE_NERF, RenderingPipeline
     if path == NERF:
-        return RenderingPipeline.from_config(V1_BASE_NERF, seed=0,
-                                             runtime=RuntimeConfig(fused_norm=True))
+        return RenderingPipeline.from_config(V1_BASE_NERF, seed=0)
     return RenderingPipeline.from_pretrained(path, seed=0)
 
 
@@ -1233,22 +1262,24 @@ def time_render(pipe, dargs):
 
 def fused_norm_ab(card, pipe, dargs):
     """Informational, no bar: rays/s of the v1-base render with
-    fused_norm=True beside the default on the same model, timed in turn."""
+    fused_norm=False (the torch-op norms) beside the default on the same
+    model, timed in turn."""
     from renderformer_tpu_torch import RenderingPipeline, RuntimeConfig
     from renderformer_tpu_torch.ops import LAUNCHES, reset_launch_counts
-    fused = RenderingPipeline(pipe.model, runtime=RuntimeConfig(fused_norm=True))
+    torch_ops = RenderingPipeline(pipe.model, runtime=RuntimeConfig(fused_norm=False))
+    time_render(torch_ops, dargs)  # warm-up
     reset_launch_counts()
-    time_render(fused, dargs)  # warm-up, and its K11 launches
+    time_render(pipe, dargs)
     n_norm = LAUNCHES['rms_norm_fwd']
-    turns = [(time_render(pipe, dargs), time_render(fused, dargs)) for _ in range(5)]
-    default, with_k11 = (statistics.median(x) for x in zip(*turns))
+    turns = [(time_render(torch_ops, dargs), time_render(pipe, dargs)) for _ in range(5)]
+    without, default = (statistics.median(x) for x in zip(*turns))
     rays = V * RES * RES
-    print(f'speed: {BASE} bf16 {RES}^2 fused_norm=True (informational, no bar): '
-          f'{rays / with_k11:.1f} rays/s ({with_k11 * 1e3:.2f} ms, {n_norm} K11 launches) '
-          f'against the default {rays / default:.1f} rays/s ({default * 1e3:.2f} ms), medians '
-          f'of 5 turns {[(round(a * 1e3, 2), round(b * 1e3, 2)) for a, b in turns]} ms, '
-          f'on {card}', flush=True)
-    del fused
+    print(f'speed: {BASE} bf16 {RES}^2 fused_norm=False (informational, no bar): '
+          f'{rays / without:.1f} rays/s ({without * 1e3:.2f} ms) against the default '
+          f'{rays / default:.1f} rays/s ({default * 1e3:.2f} ms, {n_norm} K11 launches), '
+          f'medians of 5 turns {[(round(a * 1e3, 2), round(b * 1e3, 2)) for a, b in turns]} '
+          f'ms, on {card}', flush=True)
+    del torch_ops
 
 
 def render_checks(card, preset):
@@ -2330,7 +2361,8 @@ FIT_CONFIG = {
 LINEAR, VDIR = 'v1-base linear head', 'v1-base vdir_num_freqs=6'
 FIT_RENDERS = {
     LINEAR: (dict(use_dpt_decoder=False),
-             _launches(flash_fwd_rope_mask=18, flash_fwd_rope_nomask=6, rot_kv_broadcast=24)),
+             _launches(flash_fwd_rope_mask=18, flash_fwd_rope_nomask=6, rot_kv_broadcast=24,
+                       rms_norm_fwd=99)),
     VDIR: (dict(vdir_num_freqs=6), EXPECTED_LAUNCHES[BASE]),
 }
 

@@ -138,13 +138,18 @@ class RuntimeConfig:
     JAX package's default), ``'s2d'`` or ``'plain'``; all three are the
     same function up to summation order (``nn/dpt.py``).  ``fused_norm``
     sends every RMSNorm whose shape passes the gate through kernel K11, as
-    ``RFTPU_FUSE_NORM=1`` does in the JAX package; off by default, as
-    there."""
+    ``RFTPU_FUSE_NORM=1`` does in the JAX package.  It is on by default
+    here and off there: XLA fuses the jnp norm into one pass on a TPU,
+    while eager CUDA runs the torch-op norm as about nine launches over
+    the tensor.  On the CPU the norm takes K11's plain version, the
+    torch-op norm's arithmetic bit for bit; ``fused_norm=False`` keeps the
+    torch ops everywhere.  Training has its own ``TrainConfig.fused_norm``,
+    off by default."""
 
     compute_dtype: str = 'bfloat16'
     view_dtype: str = 'bfloat16'
     dpt_tail: str = 'composed'
-    fused_norm: bool = False
+    fused_norm: bool = True
 
     def __post_init__(self):
         if self.dpt_tail not in DPT_TAILS:

@@ -7,10 +7,12 @@ Numerics match the JAX package:
     low-precision input the rescale runs in that dtype, in the order
     ``x * inv.to(dt) * scale.to(dt)``.
 
-``RMSNorm.fused`` (off by default, the JAX package's ``RFTPU_FUSE_NORM``)
-sends a norm whose shape passes ``fused_rms_norm_supported`` through kernel
-K11 (``ops/fused_norm.py``); otherwise the norm is the torch ops below, the
-counterpart of the JAX package's jnp ``rms_norm``.
+``RMSNorm.fused`` (the JAX package's ``RFTPU_FUSE_NORM``; a render sets it
+from ``RuntimeConfig.fused_norm``, on by default, a train step from
+``TrainConfig.fused_norm``, off by default) sends a norm whose shape passes
+``fused_rms_norm_supported`` through kernel K11 (``ops/fused_norm.py``);
+otherwise the norm is the torch ops below, the counterpart of the JAX
+package's jnp ``rms_norm``.
 """
 
 from __future__ import annotations

@@ -226,8 +226,11 @@ class _FusedRMSNorm(torch.autograd.Function):
 
 def fused_rms_norm(x, scale, eps: float):
     """RMSNorm of x [..., D] over its last axis through K11; where autograd
-    tracks x or the scale, the backward is K11's too."""
+    tracks x or the scale, the backward is K11's too.  A view that flattens
+    to rows that are not contiguous or not 16-byte aligned is copied once."""
     x2 = x.reshape(-1, x.shape[-1])
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = x2.clone(memory_format=torch.contiguous_format)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         out = _FusedRMSNorm.apply(x2, scale, eps)
     else:

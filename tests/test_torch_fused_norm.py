@@ -168,24 +168,57 @@ def test_gate_agrees_with_jax(shape, scale_len):
     assert fused_rms_norm_supported(torch.zeros(shape), torch.ones(d)) == want
 
 
-@pytest.mark.parametrize('precision', ['fp32', 'bf16'])
-def test_fused_module_equals_torch_op_norm(precision):
+# (x's shape, whether it passes the gate): the first the original case; the
+# render's widths at row counts that are not a multiple of 8; one below the
+# gate's 256 rows
+MODULE_CASES = [((3, 100, 256), True), ((2, 301, 768), True), ((1, 259, 1024), True),
+                ((2, 100, 768), False)]
+
+
+@pytest.mark.parametrize('precision,shape,gated', [
+    pytest.param(p, shape, gated, id=p if k == 0 else f'{p}-{"x".join(map(str, shape))}')
+    for k, (shape, gated) in enumerate(MODULE_CASES) for p in ('fp32', 'bf16')])
+def test_fused_module_equals_torch_op_norm(monkeypatch, precision, shape, gated):
     """RMSNorm with ``fused`` set takes K11 (its plain version on the CPU),
     whose arithmetic is the torch-op norm's: bit for bit; below the gate it
     keeps the torch-op norm."""
+    from renderformer_tpu_torch.nn import core
     _, tdt = DTYPES[precision]
-    x, scale, _ = _inputs((3, 100, 256), 2)
-    norm = RMSNorm(256, ATTN_EPS)
+    d = shape[-1]
+    x, scale, _ = _inputs(shape, 2)
+    norm = RMSNorm(d, ATTN_EPS)
     with torch.no_grad():
         norm.weight.copy_(torch.from_numpy(scale))
     norm = norm.to(tdt)
     tx = torch.from_numpy(x).to(tdt)
+    taken = []
+    monkeypatch.setattr(core, 'fused_rms_norm',
+                        lambda *a: taken.append(1) or fused_rms_norm(*a))
     with torch.no_grad():
         want = norm(tx)
+        assert not taken
         norm.fused = True
         assert torch.equal(norm(tx), want)
-        assert torch.equal(rms_norm_fwd_plain(tx.reshape(-1, 256), norm.weight, ATTN_EPS),
-                           want.reshape(-1, 256))
+        assert len(taken) == int(gated)
+        assert torch.equal(rms_norm_fwd_plain(tx.reshape(-1, d), norm.weight, ATTN_EPS),
+                           want.reshape(-1, d))
+
+
+@pytest.mark.parametrize('view', ['strided', 'misaligned'])
+def test_fused_norm_copies_a_view_the_kernel_does_not_take(view):
+    """A view whose rows are strided, or start off a 16-byte boundary, is
+    copied once into contiguous rows: the result is the torch-op norm's."""
+    x, scale, _ = _inputs((300, 2 * 256 + 8), 3)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    v = tx[:, :256] if view == 'strided' else tx.reshape(-1)[1:1 + 300 * 256].view(300, 256)
+    assert (not v.is_contiguous()) if view == 'strided' else v.data_ptr() % 16
+    ts = torch.from_numpy(scale[:256]).to(torch.bfloat16)
+    norm = RMSNorm(256, ATTN_EPS).to(torch.bfloat16)
+    with torch.no_grad():
+        norm.weight.copy_(ts)
+        want = norm(v)
+        got = fused_rms_norm(v, ts, ATTN_EPS)
+    assert got.is_contiguous() and torch.equal(got, want)
 
 
 def test_wrappers_check_shapes():

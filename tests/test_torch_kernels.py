@@ -873,6 +873,54 @@ def test_rms_norm_bwd_kernel_in_a_cuda_graph(cuda, warm_capture_stream, d, dtype
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('swin', [False, True])
+def test_default_render_runs_every_norm_through_the_kernel(cuda, swin):
+    """A bf16 render at the default runtime launches K11's forward once for
+    each RMSNorm forward call, which forward hooks count (every site passes
+    the gate: widths of 256, 300 triangles + 4 registers, 2 views of 16 x 16
+    ray tokens), and gives the image of the ``fused_norm=False`` render
+    within one bf16 ulp of each value."""
+    from renderformer_tpu_torch import RenderFormerConfig, RenderingPipeline, RuntimeConfig
+    from renderformer_tpu_torch.models.renderformer import RenderFormer
+    from renderformer_tpu_torch.nn.core import RMSNorm, init_weights
+
+    cfg = RenderFormerConfig(latent_dim=256, num_layers=2, num_heads=2, dim_feedforward=256,
+                             num_register_tokens=4, view_transformer_latent_dim=256,
+                             view_transformer_ffn_hidden_dim=256, view_transformer_n_heads=2,
+                             view_transformer_n_layers=4, view_transformer_use_swin_attn=swin,
+                             dpt_features=128, dpt_out_channels=[32, 64, 128, 128])
+    model = init_weights(RenderFormer(cfg), torch.Generator().manual_seed(0))
+    calls = [0]
+
+    def count(*_):
+        calls[0] += 1
+
+    for m in model.modules():
+        if isinstance(m, RMSNorm):
+            m.register_forward_hook(count)
+    rng = np.random.default_rng(0)
+    n, v = 300, 2
+    c2w = np.tile(np.eye(4, dtype=np.float32), (1, v, 1, 1))
+    c2w[0, :, 2, 3] = 2.0
+    scene = (rng.normal(size=(1, n, 3, 3)).astype(np.float32) * 0.3,
+             rng.uniform(0, 1, (1, n, 13, 32, 32)).astype(np.float32), np.ones((1, n), bool),
+             rng.normal(size=(1, n, 3, 3)).astype(np.float32), c2w,
+             np.full((1, v, 1), 40.0, np.float32))
+    imgs = {}
+    for runtime in (RuntimeConfig(), RuntimeConfig(fused_norm=False)):
+        pipe = RenderingPipeline(model, runtime, device=cuda)
+        before, calls[0] = LAUNCHES['rms_norm_fwd'], 0
+        imgs[runtime.fused_norm] = pipe.render(*scene, resolution=128, precision='bf16')
+        torch.cuda.synchronize()
+        launched = LAUNCHES['rms_norm_fwd'] - before
+        assert calls[0] > 0 and launched == (calls[0] if runtime.fused_norm else 0)
+    got, want = (imgs[k].float().cpu().numpy() for k in (True, False))
+    assert np.isfinite(got).all()
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), np.finfo(np.float32).tiny))) - 7)
+    assert (np.abs(got - want) <= ulp).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('layout,in_hw,out_hw', [
     ('nhwc', (16, 16), (32, 32)), ('nhwc', (12, 20), (23, 41)),

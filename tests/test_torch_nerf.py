@@ -182,16 +182,21 @@ def norm_calls(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize('precision', ['fp32', 'bf16'])
-def test_fused_norm_render_equals_torch_op_norm(norm_calls, precision):
+@pytest.mark.parametrize('precision,default', [
+    pytest.param(p, default, id=p + ('-default' if default else ''))
+    for default in (False, True) for p in ('fp32', 'bf16')])
+def test_fused_norm_render_equals_torch_op_norm(norm_calls, precision, default):
+    """With ``default`` the fused pipeline is the default runtime's, which
+    sends the norms through K11."""
     model = init_weights(RenderFormer(RenderFormerConfig(**WIDE)),
                          torch.Generator().manual_seed(0))
     b = _wide_batch()
     scene = [b[k] for k in ('triangles', 'texture', 'mask', 'vn', 'c2w', 'fov')]
+    assert RuntimeConfig().fused_norm
     imgs, pipes = {}, {}
     for fused in (False, True, False):  # two pipelines on one model, in turn
-        pipe = pipes.setdefault(fused, RenderingPipeline(model, RuntimeConfig(fused_norm=fused),
-                                                         device='cpu'))
+        runtime = RuntimeConfig() if fused and default else RuntimeConfig(fused_norm=fused)
+        pipe = pipes.setdefault(fused, RenderingPipeline(model, runtime, device='cpu'))
         before = norm_calls['fwd']
         imgs[fused] = pipe.render(*scene, resolution=RES_WIDE, precision=precision)
         assert norm_calls['fwd'] - before == (N_NORMS if fused else 0)

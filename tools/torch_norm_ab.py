@@ -8,9 +8,10 @@ library of their own, and the parent's wrapper module is loaded from its
 file and bound to that library, so that the parent's host path (its checks,
 its cast of the scale, its stream lookup) is timed as well as its kernel.
 
-At each K11 forward site of the v1-base nerf 512^2 render and of the nerf
-256^2 train step (x [R, 768] in the dtype the path runs there, the scale in
-the same dtype, as a stage's cast weights arrive), the parent's and the
+At each K11 forward site of the v1-base nerf 512^2 render, of the nerf
+256^2 train step and of the v1-base and v1.1-swin-large 512^2 renders'
+ray tokens (x [R, D] in the dtype the path runs there, the scale in the
+same dtype, as a stage's cast weights arrive), the parent's and the
 working tree's wrappers are timed in turns (parent, change, change,
 parent), each checked against the plain version, beside
 ``torch.nn.functional.rms_norm`` on the same inputs:
@@ -53,13 +54,15 @@ sys.path.insert(0, REPO)
 
 NORM_D = 768
 EPS_TINY = float(np.finfo(np.float32).eps)
-SITES = [  # name, rows, dtype name, eps
-    ('embed_2048', 2048, 'bfloat16', EPS_TINY),
-    ('stage1_2064', 2064, 'bfloat16', 1e-6),
-    ('rays_8x4096', 8 * 4096, 'bfloat16', 1e-6),
-    ('tris_8x2064', 8 * 2064, 'bfloat16', 1e-6),
-    ('train_rays_1024', 1024, 'float32', 1e-6),
-    ('train_tris_2064', 2064, 'float32', 1e-6),
+SITES = [  # name, rows, dtype name, eps, width
+    ('embed_2048', 2048, 'bfloat16', EPS_TINY, NORM_D),
+    ('stage1_2064', 2064, 'bfloat16', 1e-6, NORM_D),
+    ('rays_8x4096', 8 * 4096, 'bfloat16', 1e-6, NORM_D),
+    ('tris_8x2064', 8 * 2064, 'bfloat16', 1e-6, NORM_D),
+    ('train_rays_1024', 1024, 'float32', 1e-6, NORM_D),
+    ('train_tris_2064', 2064, 'float32', 1e-6, NORM_D),
+    ('swin_rays_8x4096', 8 * 4096, 'bfloat16', 1e-6, 1024),
+    ('swin_stage1_4112', 4112, 'bfloat16', 1e-6, 1024),
 ]
 BWD_SITES = [  # the nerf train step's backward sites
     ('train_embed_2048', 2048, 'bfloat16', EPS_TINY),
@@ -185,10 +188,10 @@ def main():
     g = torch.Generator(device='cuda').manual_seed(0)
     if args.bwd:
         return bwd_sites(parent, fused_norm, g, args)
-    for site, r, dtname, eps in SITES:
+    for site, r, dtname, eps, d in SITES:
         dt = getattr(torch, dtname)
-        x = torch.randn(r, NORM_D, generator=g, device='cuda').to(dt)
-        w = (1 + 0.1 * torch.randn(NORM_D, generator=g, device='cuda')).to(dt)
+        x = torch.randn(r, d, generator=g, device='cuda').to(dt)
+        w = (1 + 0.1 * torch.randn(d, generator=g, device='cuda')).to(dt)
         with torch.inference_mode():
             with reference_kernels():
                 ref = fused_norm.rms_norm_fwd(x, w, eps)
@@ -201,12 +204,12 @@ def main():
                     single=round(event_ms(fn, args.iters), 4),
                     device=round(graph_ms(fn, args.burst, args.iters), 4),
                     host_us=round(host_us(fn), 2), err=err))
-            lib = lambda: F.rms_norm(x, (NORM_D,), w, eps)  # noqa: E731
+            lib = lambda: F.rms_norm(x, (d,), w, eps)  # noqa: E731
             res['rms_norm'] = dict(single=round(event_ms(lib, args.iters), 4),
                                    device=round(graph_ms(lib, args.burst, args.iters), 4),
                                    host_us=round(host_us(lib), 2))
-        nbytes = 2 * r * NORM_D * x.element_size() + NORM_D * w.element_size()
-        print(json.dumps({'site': site, 'dtype': dtname, 'rows': r, **res,
+        nbytes = 2 * r * d * x.element_size() + d * w.element_size()
+        print(json.dumps({'site': site, 'dtype': dtname, 'rows': r, 'width': d, **res,
                           'bound_ms': round(nbytes / 3.35e12 * 1e3, 5)}), flush=True)
 
 
