@@ -5,6 +5,7 @@ axis, with the raw input optionally prepended."""
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -15,6 +16,17 @@ def nerf_out_dim(in_dim: int, num_frequencies: int, include_input: bool = False)
     return in_dim * num_frequencies * 2 + (in_dim if include_input else 0)
 
 
+@functools.lru_cache(maxsize=None)  # unbounded: a captured CUDA graph reads it in place
+def frequency_table(num_frequencies: int, min_freq_exp: float, max_freq_exp: float,
+                    dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``2 ** linspace(min_exp, max_exp, num)`` in ``dtype`` on ``device``,
+    copied there once (a copy from pageable host memory waits for the
+    device, and a CUDA graph cannot capture it)."""
+    freqs = 2.0 ** np.linspace(min_freq_exp, max_freq_exp, num_frequencies)
+    with torch.inference_mode(False):  # cached: usable later under autograd
+        return torch.as_tensor(freqs, dtype=dtype).to(device)
+
+
 def nerf_encode(x: torch.Tensor, num_frequencies: int, min_freq_exp: float = 0.0,
                 max_freq_exp: Optional[float] = None,
                 include_input: bool = False) -> torch.Tensor:
@@ -23,9 +35,7 @@ def nerf_encode(x: torch.Tensor, num_frequencies: int, min_freq_exp: float = 0.0
         max_freq_exp = num_frequencies - 1
     if num_frequencies == 0:
         return x if include_input else x[..., :0]
-    freqs = torch.as_tensor(
-        2.0 ** np.linspace(min_freq_exp, max_freq_exp, num_frequencies),
-        dtype=x.dtype, device=x.device)
+    freqs = frequency_table(num_frequencies, min_freq_exp, max_freq_exp, x.dtype, x.device)
     scaled = (x[..., None] * freqs).reshape(*x.shape[:-1], -1)
     encoded = torch.sin(torch.cat([scaled, scaled + np.pi / 2.0], dim=-1))
     if include_input:

@@ -339,7 +339,10 @@ def remat_call(module: nn.Module, *args):
     of this forward: the stage casts a train step puts in place with
     ``functional_call`` are gone by the time the backward runs.  So is the
     sharding context: the recomputation re-enters this forward's, so that
-    its attention sites split as the forward's did."""
+    its attention sites split as the forward's did.  The RNG states are not
+    stashed (``preserve_rng_state=False``, which a CUDA graph's capture
+    needs): no block draws from them, dropout takes its masks from
+    :class:`DropoutKey` generators."""
     named = dict(module.named_parameters())
     named.update(module.named_buffers())
     names, n = list(named), len(args)
@@ -349,7 +352,8 @@ def remat_call(module: nn.Module, *args):
         with restored_sharding(sharding):
             return functional_call(module, dict(zip(names, flat[n:])), flat[:n])
 
-    return checkpoint(run, *args, *named.values(), use_reentrant=False)
+    return checkpoint(run, *args, *named.values(), use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def _run_block(remat: bool, layer: nn.Module, *args):

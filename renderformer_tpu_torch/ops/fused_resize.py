@@ -39,7 +39,7 @@ def interp_gather(n_in: int, n_out: int):
     return i0, i1, frac
 
 
-@functools.lru_cache(maxsize=128)
+@functools.lru_cache(maxsize=None)  # unbounded: a captured CUDA graph reads it in place
 def _device_taps(n_in: int, n_out: int, device: torch.device, dtype: torch.dtype):
     """:func:`interp_gather`'s tables on ``device``, copied there once (a
     copy from pageable host memory waits for the device to drain)."""
@@ -83,7 +83,7 @@ def adjoint_taps(n_in: int, n_out: int):
     return span, w
 
 
-@functools.lru_cache(maxsize=128)
+@functools.lru_cache(maxsize=None)  # unbounded: a captured CUDA graph reads it in place
 def _device_adjoint_taps(n_in: int, n_out: int, device: torch.device):
     span, w = adjoint_taps(n_in, n_out)
     with torch.inference_mode(False):  # cached: usable later under autograd
@@ -98,7 +98,7 @@ def _lerp_axis(x, axis: int, n_out: int):
     return x.index_select(axis, i0) * (1 - f) + x.index_select(axis, i1) * f
 
 
-@functools.lru_cache(maxsize=128)
+@functools.lru_cache(maxsize=None)  # unbounded: a captured CUDA graph reads it in place
 def _device_adjoint(n_in: int, n_out: int, device: torch.device, dtype: torch.dtype):
     """[n_in, n_out] fp32 transpose of the resize's matrix with the weights
     1 - f and f that the lerp takes in ``dtype``, on ``device``."""

@@ -57,9 +57,10 @@ def regroup_index(h: int, w: int, ws: int, inverse: bool) -> np.ndarray:
     return (tbl[:, quad].astype(np.int64) * ws * ws + pos).reshape(-1)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)  # unbounded: a captured CUDA graph reads it in place
 def _device_table(wr: int, wc: int, inverse: bool, device: torch.device):
-    return torch.from_numpy(window_table(wr, wc, inverse)).to(device)
+    with torch.inference_mode(False):  # cached: usable later under autograd
+        return torch.from_numpy(window_table(wr, wc, inverse)).to(device)
 
 
 def regroup_kernel_applicable(seq: int, grid_hw: Tuple[int, int], ws: int,

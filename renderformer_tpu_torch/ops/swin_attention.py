@@ -41,12 +41,13 @@ def q_scale(d: int) -> float:
     return 1.0 / math.sqrt(d) * LOG2E
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)  # unbounded: a captured CUDA graph reads it in place
 def region_table(h: int, w: int, window_size: int, shift_size: int,
                  device: torch.device) -> torch.Tensor:
     """The [nW, ws*ws] uint8 region table of a shifted h x w grid, on
     ``device``."""
-    return torch.from_numpy(swin_regions(h, w, window_size, shift_size)).to(device)
+    with torch.inference_mode(False):  # cached: usable later under autograd
+        return torch.from_numpy(swin_regions(h, w, window_size, shift_size)).to(device)
 
 
 def _probs(q, k, num_heads: int, regions: Optional[torch.Tensor]):

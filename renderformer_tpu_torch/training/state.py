@@ -49,6 +49,17 @@ of the global batch).  The attention sites split over the ``seq`` axis
 (sequence-split attention), whose ranks then hold the same gradients.
 A group of one rank still runs the all-reduce; without a mesh there is none.
 
+On the card a step replays CUDA graphs of its forward and its backward
+(``TrainConfig.cuda_graphs``, where :func:`graphs_apply` passes): the
+first step of each batch signature (:func:`batch_signature`) runs them
+once eagerly on a side stream, captures each as a graph, both in one
+memory pool, and replays them, as every later step of that signature
+does after copying its batch into the graphs' static inputs.  Autograd's
+thread and remat's recomputation then launch nothing from Python.  The
+graphs read the masters, the buffers and the cached device tables where
+they lie: AdamW updates them in place.  The global norm, the one read of
+the loss and the norm, the NaN skip, the clip and AdamW stay eager.
+
 Under a profiler session a step is three ranges: ``rf.train.forward`` (the
 render and the loss), ``rf.train.backward`` (``autograd.grad``, whose
 launches and remat's recomputation run on autograd's own thread inside it,
@@ -62,6 +73,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -74,6 +86,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from renderformer_tpu_torch.nn.core import DropoutKey, RopeFreqs
+from renderformer_tpu_torch.ops import LAUNCHES, use_plain
 from renderformer_tpu_torch.ops.flash_attention import BWD_VARIANTS, flash_backward
 from renderformer_tpu_torch.parallel.sharding import axis_group, axis_size, use_sharding
 from renderformer_tpu_torch.pipelines.rendering_pipeline import render_fn
@@ -104,6 +117,8 @@ class TrainConfig:
     flash_bwd: str = ''        # attention backward: K8 'fused' or K9 'twokernel';
     #                            '' -> 'fused', or 'twokernel' under deterministic
     fused_norm: bool = False   # RMSNorms through K11 (forward and backward) where the gate passes
+    cuda_graphs: bool = True   # replay the forward and backward as CUDA graphs where
+    #                            graphs_apply passes; False: every step eager
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -261,6 +276,8 @@ def make_shadow(model: nn.Module, tc: TrainConfig) -> nn.Module:
     with torch.no_grad():
         for n, p in shadow.named_parameters():
             p.data = p.data.to(stage_dtype(n, dtype, view_dtype))
+    shadow.remat = tc.remat
+    shadow.fused_norm = tc.fused_norm
     return shadow.requires_grad_(True)
 
 
@@ -387,53 +404,196 @@ def cudnn_deterministic(on: bool):
         flags.deterministic, flags.benchmark = prev
 
 
+@contextlib.contextmanager
+def step_kernels(tc: TrainConfig):
+    """The attention backward (:func:`flash_bwd_variant`) and cuDNN's
+    algorithms of a step of ``tc``, inside the block."""
+    with flash_backward(flash_bwd_variant(tc)), cudnn_deterministic(tc.deterministic):
+        yield
+
+
 def make_loss_fns(model: nn.Module, tc: TrainConfig, mesh=None):
     """Build ``images(state, batch)``, the render of the batch in the
     stages' compute dtypes (in-graph casts of the masters, or the shadow),
     and ``loss_and_grads(state, batch) -> (loss, grads)``: the MSE loss and
-    its fp32 gradients in the order of ``state.model.parameters()``.  With
-    the config's dropout on, ``loss_and_grads`` draws the masks of
+    its fp32 gradients in the order of ``state.model.parameters()``, eager.
+    With the config's dropout on, ``loss_and_grads`` draws the masks of
     ``DropoutKey(tc.seed, state.step)``; ``images`` takes a key or none.
     With a ``mesh``, ``images`` splits the attention sites over its seq
-    axis (``parallel.sharding.use_sharding``)."""
-    variant = flash_bwd_variant(tc)
+    axis (``parallel.sharding.use_sharding``).  The model's ``remat`` and
+    ``fused_norm`` are set from ``tc`` here, once."""
+    return _loss_fns(model, tc, mesh)[:2]
+
+
+def _loss_fns(model: nn.Module, tc: TrainConfig, mesh=None):
+    """:func:`make_loss_fns`'s two functions and the phases of
+    ``loss_and_grads``: ``forward(state, batch, key)``, the loss with its
+    autograd graph, and ``backward(state, loss)``, the fp32 gradients."""
+    flash_bwd_variant(tc)  # raises for a backward the config cannot take
     dtype, view_dtype = resolve_dtypes(tc)
     use_shadow = _uses_shadow(tc)
     step_module = _RenderStep(model, tc.resolution)
     use_dropout = model.config.dropout > 0.0
+    model.remat = tc.remat
+    model.fused_norm = tc.fused_norm
 
     def images(state: TrainState, batch, key: Optional[DropoutKey] = None):
         with contextlib.nullcontext() if mesh is None else use_sharding(mesh):
             return _images(state, batch, key)
 
     def _images(state: TrainState, batch, key: Optional[DropoutKey] = None):
-        state.model.remat = tc.remat
-        state.model.fused_norm = tc.fused_norm
         if use_shadow:
             if state.shadow is None:
                 state.shadow = make_shadow(state.model, tc)
-            state.shadow.remat = tc.remat
-            state.shadow.fused_norm = tc.fused_norm
             return _RenderStep(state.shadow, tc.resolution)(batch, key)
         cast = {f'model.{n}': p.to(stage_dtype(n, dtype, view_dtype))
                 for n, p in state.model.named_parameters()}
         return functional_call(step_module, cast, (batch, key))
 
+    def forward(state: TrainState, batch, key: Optional[DropoutKey] = None):
+        imgs = images(state, batch, key)
+        return torch.mean(torch.square(imgs - batch['gt'].to(imgs.dtype)))
+
+    def backward(state: TrainState, loss: torch.Tensor) -> List[torch.Tensor]:
+        wrt = list((state.shadow if use_shadow else state.model).parameters())
+        with nan_check(tc.debug_nans):
+            grads = torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
+        return [g.float() for g in grads]
+
     def loss_and_grads(state: TrainState, batch):
         key = DropoutKey(tc.seed, state.step) if use_dropout else None
-        with flash_backward(variant), cudnn_deterministic(tc.deterministic):
+        with step_kernels(tc):
             with annotate('rf.train.forward'), nan_check(tc.debug_nans):
-                imgs = images(state, batch, key)
-                loss = torch.mean(torch.square(imgs - batch['gt'].to(imgs.dtype)))
-            wrt = list((state.shadow if use_shadow else state.model).parameters())
+                loss = forward(state, batch, key)
             with annotate('rf.train.backward'):
-                with nan_check(tc.debug_nans):
-                    grads = torch.autograd.grad(loss, wrt, allow_unused=True,
-                                                materialize_grads=True)
-                grads = [g.float() for g in grads]
+                grads = backward(state, loss)
         return loss.detach(), grads
 
-    return images, loss_and_grads
+    return images, loss_and_grads, forward, backward
+
+
+MAX_SIGNATURES = 2  # batch signatures a step captures; a further one runs eager
+
+
+def graphs_apply(tc: TrainConfig, model: nn.Module, mesh, batch) -> bool:
+    """Whether a step of ``tc`` replays CUDA graphs for ``batch``: graphs
+    on (``tc.cuda_graphs``), every tensor of the batch on CUDA, no mesh
+    (the all-reduce and the split attention sites stay eager), no dropout
+    (a graph would keep the first step's masks), no ``debug_nans`` (its
+    checks read each output on the host), no bf16 shadow, and the kernels,
+    not their plain versions (``ops.reference_kernels``, a check whose
+    plain versions copy tables from the host at every call)."""
+    return (tc.cuda_graphs and mesh is None and model.config.dropout == 0.0
+            and not tc.debug_nans and not _uses_shadow(tc)
+            and all(v.is_cuda for v in batch.values()) and not use_plain(batch['gt']))
+
+
+def batch_signature(batch) -> Tuple:
+    """What a captured step is good for: the batch's keys, shapes, dtypes
+    and devices, and the settings a graph keeps from its capture (TF32 in
+    cuBLAS and cuDNN)."""
+    return (tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in sorted(batch.items())),
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one side stream of a device that every step's warm-up and
+    capture run on: cuBLAS keeps a workspace for each stream it ran on, as
+    long as the process lives."""
+    return torch.cuda.Stream(device)
+
+
+def capture_graphs(phases, device: torch.device):
+    """Run each of ``phases`` (functions of no arguments) once in turn on a
+    side stream of ``device``, the warm-up, then capture each in turn as a
+    CUDA graph on that stream, all in one memory pool.  Returns, a phase,
+    its capture's outputs, which each replay writes again, and the graph's
+    ``replay``."""
+    side = _capture_stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for fn in phases:
+            fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    pool = torch.cuda.graph_pool_handle()
+    captured = []
+    for fn in phases:
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: other threads (the trainer's, pinning the next batch) may go on
+        with torch.cuda.graph(graph, pool=pool, stream=side, capture_error_mode='thread_local'):
+            out = fn()
+        captured.append((out, graph.replay))
+    return captured
+
+
+class StepGraphs:
+    """A step's ``loss_and_grads`` from CUDA graphs (:func:`capture_graphs`):
+    for each batch signature, up to ``MAX_SIGNATURES``, a forward graph (the
+    stage casts, the render, the loss) and a backward graph
+    (``autograd.grad`` with remat's recomputation, the fp32 casts), captured
+    at the signature's first step.  A step copies its batch into the static
+    inputs and replays the two, each inside its span.  Launches: the
+    warm-up and the capture count nothing, a replay the capture's, so a
+    step counts one step's launches either way.  A step whose masters or
+    buffers no longer lie where the graphs read them captures anew."""
+
+    def __init__(self, tc: TrainConfig, forward, backward):
+        self.tc, self.forward, self.backward = tc, forward, backward
+        self.captured: Dict[Tuple, Tuple] = {}
+        self.addresses: Optional[List[int]] = None
+
+    def __call__(self, state: TrainState, batch):
+        """(loss, grads) as ``loss_and_grads`` gives them, or None for a new
+        signature past ``MAX_SIGNATURES``."""
+        addresses = [t.data_ptr() for t in (*state.model.parameters(),
+                                             *state.model.buffers())]
+        if addresses != self.addresses:
+            self.captured.clear()
+            self.addresses = addresses
+        sig = batch_signature(batch)
+        if sig not in self.captured:
+            if len(self.captured) >= MAX_SIGNATURES:
+                return None
+            self.captured[sig] = self._capture(state, batch)
+        static, (loss, forward), (grads, backward), counts = self.captured[sig]
+        with annotate('rf.train.forward'):
+            for k, v in batch.items():
+                static[k].copy_(v, non_blocking=True)
+            forward()
+        with annotate('rf.train.backward'):
+            backward()
+        for k, n in counts.items():
+            LAUNCHES[k] += n
+        return loss, grads
+
+    def _capture(self, state: TrainState, batch):
+        static = {k: v.clone() for k, v in batch.items()}
+        held = {}
+        deltas = []
+
+        def counted(fn):
+            def run():
+                before = dict(LAUNCHES)
+                out = fn()
+                deltas.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+                return out
+            return run
+
+        def forward():
+            held['loss'] = self.forward(state, static)
+            return held['loss'].detach()
+
+        def backward():
+            return self.backward(state, held.pop('loss'))
+
+        start = dict(LAUNCHES)
+        with step_kernels(self.tc):
+            fwd, bwd = capture_graphs([counted(forward), counted(backward)],
+                                      batch['gt'].device)
+        counts = {k: deltas[-2][k] + deltas[-1][k] for k in LAUNCHES}
+        LAUNCHES.update(start)
+        return static, fwd, bwd, {k: n for k, n in counts.items() if n}
 
 
 def all_reduce_mean(grads: List[torch.Tensor], loss: torch.Tensor, mesh) -> torch.Tensor:
@@ -463,12 +623,14 @@ def make_train_step(model: nn.Module, tx: AdamW, tc: TrainConfig, mesh=None):
     [B, V, H, W, 3], optional valid [B].
     Metrics are Python floats: the step reads the loss and the grad norm
     once, to decide the NaN skip and the clip."""
-    images, loss_and_grads = make_loss_fns(model, tc, mesh)
+    images, loss_and_grads, forward, backward = _loss_fns(model, tc, mesh)
     use_shadow = _uses_shadow(tc)
     decayed = decayed_buffers(model)
+    graphs = StepGraphs(tc, forward, backward)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, float]]:
-        loss, grads = loss_and_grads(state, batch)
+        out = graphs(state, batch) if graphs_apply(tc, model, mesh, batch) else None
+        loss, grads = out if out is not None else loss_and_grads(state, batch)
         with annotate('rf.train.optimizer'):
             if mesh is not None:
                 loss = all_reduce_mean(grads, loss, mesh)
