@@ -218,6 +218,7 @@ and per train step, the nvidia-smi line, and the result line.  Any failed
 check exits non-zero before the result line.  Imports nothing of JAX.
 """
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -356,6 +357,15 @@ KERNELS = {
     'rms_norm_bwd': dict(
         route='cuda', source='renderformer_tpu_torch/csrc/fused_norm.cu',
         replaces='renderformer_tpu/ops/fused_norm.py:73'),
+    # the split-TF32 product of every fp32 linear with TF32 off
+    # (nn/core.py:linear): forward, dX and dW.  No Pallas kernel: the JAX
+    # package leaves its fp32 products to XLA
+    'gemm_tf32x3_fwd': dict(
+        route='cuda', source='renderformer_tpu_torch/csrc/gemm_tf32x3.cu', replaces=None),
+    'gemm_tf32x3_dgrad': dict(
+        route='cuda', source='renderformer_tpu_torch/csrc/gemm_tf32x3.cu', replaces=None),
+    'gemm_tf32x3_wgrad': dict(
+        route='cuda', source='renderformer_tpu_torch/csrc/gemm_tf32x3.cu', replaces=None),
 }
 
 
@@ -394,8 +404,15 @@ def _launches(**nonzero):
 # layers runs K7 into and out of shifted order in the forward, both again in
 # the recomputation, and both again as their VJPs (the regroup's VJP is the
 # inverse regroup); the same DPT head's K4, K5 and K4^T.
+# Every train step's fp32 view stage (and the fp32 precision-study render's
+# stage 1) runs its linears through the split-TF32 GEMM (gemm_sites below):
+# the forward of each (its ray encoder once, the blocks' twice under remat),
+# dX of each but the ray encoder (its input, the rays, needs none) and dW of
+# each.  v1-base: 6 view layers of 11 linears (cross q, k, v, out; the ray
+# self-attention's in_proj in three and out; w1, w3, w2); swin-large 12.
+_GEMM_BASE = dict(gemm_tf32x3_fwd=133, gemm_tf32x3_dgrad=66, gemm_tf32x3_wgrad=67)
 _TRAIN = dict(flash_fwd_rope_mask=36, flash_fwd_rope_nomask=12, rot_kv_broadcast=72,
-              resize_bilinear=3, resize_bilinear_t=4, resize_s2d=1)
+              resize_bilinear=3, resize_bilinear_t=4, resize_s2d=1, **_GEMM_BASE)
 EXPECTED_LAUNCHES = {
     BASE: _launches(flash_fwd_rope_mask=18, flash_fwd_rope_nomask=6, rot_kv_broadcast=24,
                     resize_bilinear=3, resize_s2d=1, rms_norm_fwd=99),
@@ -409,12 +426,97 @@ EXPECTED_LAUNCHES = {
     FT128: _launches(**_TRAIN, flash_bwd_mask=18, flash_bwd_nomask=6),
     TRAIN_NERF: _launches(flash_fwd_mask=36, flash_fwd_nomask=12, flash_bwd_mask=18,
                           flash_bwd_nomask=6, resize_bilinear=3, resize_bilinear_t=4,
-                          resize_s2d=1, rms_norm_fwd=198, rms_norm_bwd=102),
+                          resize_s2d=1, rms_norm_fwd=198, rms_norm_bwd=102, **_GEMM_BASE),
     TRAIN_SWIN: _launches(flash_fwd_rope_mask=48, rot_kv_broadcast=72, flash_bwd_mask=24,
                           resize_bilinear=3, resize_bilinear_t=4, resize_s2d=1,
                           swin_window_attention=24, swin_window_attention_bwd=12,
-                          shifted_regroup=36),
+                          shifted_regroup=36, gemm_tf32x3_fwd=265, gemm_tf32x3_dgrad=132,
+                          gemm_tf32x3_wgrad=133),
 }
+# the precision study's swin-large renders: the bf16 render's kernels, and the
+# GEMM at each fp32 linear: the view stage's 1 + 12 x 11, and in the fp32
+# stage 1 the texture encoder and 12 x 7 (in_proj in three, out, w1, w3, w2;
+# the vn encoder's 117 inputs fail the route's gate)
+PRECISION_LAUNCHES = {
+    PREC_F32: _launches(**{k: v for k, v in EXPECTED_LAUNCHES[SWIN].items() if v},
+                        gemm_tf32x3_fwd=218),
+    PREC_F32V: _launches(**{k: v for k, v in EXPECTED_LAUNCHES[SWIN].items() if v},
+                         gemm_tf32x3_fwd=133),
+    PREC_BF16: EXPECTED_LAUNCHES[SWIN],
+}
+
+
+def _nerf_width(dims, freqs):
+    """nerf_out_dim(dims, freqs, include_input=True)."""
+    return dims * (1 + 2 * freqs)
+
+
+def gemm_sites(cfg, res, tris, train=False, remat=False, stage1=False):
+    """{(product, M tokens, N out, K in, bias): launches} of the split-TF32
+    GEMM in one render (one view, fp32 view stage; ``stage1`` an fp32 stage
+    1 too) or one train step (``train``) of one scene of ``tris`` padded
+    triangles at ``res``^2 under ``cfg``: the fp32 linears whose widths pass
+    the route's gate (K and N multiples of 4), as the model calls them."""
+    sites = collections.Counter()
+
+    def linear(m, n, k, bias, calls, dx=True):
+        if n % 4 or k % 4:
+            return
+        sites['fwd', m, n, k, bias] += calls
+        if train:
+            if dx:
+                sites['dgrad', m, n, k, False] += 1
+            sites['wgrad', m, n, k, False] += 1
+
+    fwd = 2 if train and remat else 1
+    ctx, d = tris + cfg.num_register_tokens, cfg.latent_dim
+    if stage1:
+        tex = cfg.texture_channels * cfg.texture_encode_patch_size ** 2
+        linear(tris, d, tex, True, 1, dx=False)
+        if cfg.use_vn_encoder:
+            linear(tris, d, _nerf_width(9, cfg.vn_pe_num_freqs), True, 1, dx=False)
+        if cfg.pe_type == 'nerf':
+            linear(tris, d, _nerf_width(9, cfg.vertex_pe_num_freqs), True, 1, dx=False)
+        for _ in range(cfg.num_layers):
+            for n, k in ((d, d),) * 4 + ((cfg.dim_feedforward, d),) * 2 + (
+                    (d, cfg.dim_feedforward),):
+                linear(ctx, n, k, cfg.bias, fwd)
+    rays, dv, fv = (res // cfg.patch_size) ** 2, cfg.view_transformer_latent_dim, \
+        cfg.view_transformer_ffn_hidden_dim
+    linear(rays, dv, _nerf_width(3, cfg.vdir_num_freqs) * cfg.patch_size ** 2, True, 1, dx=False)
+    if cfg.pe_type == 'nerf':
+        linear(ctx, dv, _nerf_width(9, cfg.vertex_pe_num_freqs), True, 1, dx=False)
+    for _ in range(cfg.view_transformer_n_layers):
+        linear(rays, dv, dv, cfg.bias, fwd)                 # cross q
+        linear(ctx, dv, d, cfg.bias, fwd)                   # cross k, v
+        linear(ctx, dv, d, cfg.bias, fwd)
+        linear(rays, dv, dv, cfg.bias, fwd)                 # cross out
+        if cfg.view_transformer_include_self_attn:
+            for _ in range(4):                              # in_proj's three, out
+                linear(rays, dv, dv, cfg.bias, fwd)
+        linear(rays, fv, dv, cfg.bias, fwd)                 # w1, w3, w2
+        linear(rays, fv, dv, cfg.bias, fwd)
+        linear(rays, dv, fv, cfg.bias, fwd)
+    return dict(sites)
+
+
+def gemm_paths():
+    """{path: its gemm_sites} of every path that runs the GEMM."""
+    from renderformer_tpu_torch import V1_BASE_NERF
+    from renderformer_tpu_torch.config import PRESETS
+    base, swin = PRESETS[BASE], PRESETS[SWIN]
+    train = dict(res=TRAIN_RES, train=True, remat=True)
+    return {
+        TRAIN: gemm_sites(base, tris=NTRI, **train),
+        TRAIN2: gemm_sites(base, tris=NTRI, **train),
+        TRAIN_NERF: gemm_sites(V1_BASE_NERF, tris=NTRI, **train),
+        FT128: gemm_sites(base, tris=FT_PAD, **train),
+        TRAIN_SWIN: gemm_sites(swin, SWIN_TRAIN_RES, NTRI, train=True, remat=True),
+        OVERFIT: gemm_sites(base, TRAIN_RES, PRECISION_PAD, train=True),
+        PREC_F32: gemm_sites(swin, PRECISION_RES, PRECISION_PAD, stage1=True),
+        PREC_F32V: gemm_sites(swin, PRECISION_RES, PRECISION_PAD),
+    }
+
 
 def fail(msg):
     print(f'FAIL: {msg}', flush=True)
@@ -1414,6 +1516,50 @@ def check_dq(row, lib, io, sdpa_io, site, dtype):
           flush=True)
     if not all(same):
         fail(f'flash_bwd_dq {site} {dt}: dq differs between calls or graph replays ({same})')
+
+
+def gemm_checks():
+    """The split-TF32 GEMM (forward, dX, dW) at each shape of each path that
+    runs it (gemm_paths), against float64: a row each, its max error within
+    4 times torch's fp32 product's (TF32 off) at the same shape, timed beside
+    its plain version and that product (cuBLAS's SIMT sgemm), its bound as
+    split TF32."""
+    import torch
+    from renderformer_tpu_torch.ops.gemm_tf32x3 import (
+        gemm_tf32x3_dgrad, gemm_tf32x3_fwd, gemm_tf32x3_wgrad)
+    rows = []
+    per = collections.defaultdict(dict)
+    for path, sites in gemm_paths().items():
+        for key, n in sites.items():
+            per[key][path] = n
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    for (product, m, n, k, bias), per_run in sorted(per.items()):
+        x = torch.randn(m, k, device='cuda', generator=gen)
+        w = torch.randn(n, k, device='cuda', generator=gen) / k ** 0.5
+        gy = torch.randn(m, n, device='cuda', generator=gen)
+        b = torch.randn(n, device='cuda', generator=gen) if bias else None
+        if product == 'fwd':
+            fn, lib = (lambda: gemm_tf32x3_fwd(x, w, b)), (lambda: torch.nn.functional.linear(x, w, b))
+            ref = x.double() @ w.double().t() + (0 if b is None else b.double())
+            mo, no, kr = m, n, k
+        elif product == 'dgrad':
+            fn, lib = (lambda: gemm_tf32x3_dgrad(gy, w)), (lambda: gy @ w)
+            ref = gy.double() @ w.double()
+            mo, no, kr = m, k, n
+        else:
+            fn, lib = (lambda: gemm_tf32x3_wgrad(gy, x)), (lambda: gy.t() @ x)
+            ref = gy.double().t() @ x.double()
+            mo, no, kr = n, k, m
+        with torch.inference_mode():
+            out = fn()
+            err32 = float((lib().double() - ref).abs().max())
+        tol = 4 * max(err32, float(ref.abs().max()) * 2.0 ** -24)
+        record_row(rows, f'gemm_tf32x3_{product}', f'{m}x{n}x{k}' + (' bias' if bias else ''),
+                   torch.float32, per_run, out, ref, tol,
+                   f"4x torch's fp32 product's max error ({err32:.3g}) against float64",
+                   fn, lib, 4 * (mo * kr + no * kr + mo * no), 2 * mo * no * kr, SPLIT_TF32)
+        del x, w, gy, b, ref, out
+    return rows
 
 
 def train_kernel_checks():
@@ -3463,10 +3609,12 @@ def parallel_checks(card, rows):
 # one student step of tools/overfit_run at its defaults, whose TrainConfig
 # keeps remat off as the JAX tool's does: each of the 24 attention sites
 # runs K3 and K1/K2 with the logsumexp in the forward, then K3 again and K8
-# in the backward; the DPT head's K4 x3 and K5, and K4^T for the VJP of each
+# in the backward; the DPT head's K4 x3 and K5, and K4^T for the VJP of each;
+# the fp32 view stage's linears through the GEMM (forward once, no remat)
 OVERFIT_LAUNCHES = _launches(flash_fwd_rope_mask=18, flash_fwd_rope_nomask=6,
                              rot_kv_broadcast=48, flash_bwd_mask=18, flash_bwd_nomask=6,
-                             resize_bilinear=3, resize_bilinear_t=4, resize_s2d=1)
+                             resize_bilinear=3, resize_bilinear_t=4, resize_s2d=1,
+                             gemm_tf32x3_fwd=67, gemm_tf32x3_dgrad=66, gemm_tf32x3_wgrad=67)
 OVERFIT_FRAMES = 8                    # the JAX tool's 8 orbit frames of cbox
 # gt_noise_sweep cut to the phase's time (the tool: 256^2, 1024-spp
 # reference, spp 8..256, clamp 10); at clamp 10 cbox's clamped and unclamped
@@ -3614,7 +3762,8 @@ def precision_checks(card, frame):
     for p, vp, launches, dts in seen:
         print(f'precision: {SWIN} {p} / view {vp}: weights {[str(d) for d in dts]}, launches '
               + json.dumps({k: v for k, v in launches.items() if v}), flush=True)
-        if launches != EXPECTED_LAUNCHES[SWIN] or dts != (_DTYPES[p], _DTYPES[vp]):
+        if (launches != PRECISION_LAUNCHES[PRECISION_PATHS[p, vp]]
+                or dts != (_DTYPES[p], _DTYPES[vp])):
             fail(f'precision_study {p}/{vp}: launches {launches} or weight dtypes {dts}')
     psnrs = [v for k in ('psnr_hdr', 'psnr_ldr_pbr_neutral') for v in out[k].values()]
     if len(seen) != 3 or not all(np.isfinite(psnrs)):
@@ -4089,6 +4238,7 @@ def main():
     rows = kernel_checks()
     launches = {preset: render_checks(card, preset) for preset in PATHS}
     rows += train_kernel_checks()
+    rows += gemm_checks()
     launches.update(train_checks(card))
     launches.update(train_nerf_checks(card))
     launches.update(train_swin_checks(card))

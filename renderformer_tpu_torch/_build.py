@@ -83,6 +83,12 @@ SIGNATURES = {
     'rf_rms_norm_bwd': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # dtype, D -> blocks of the backward the card holds at once
     'rf_rms_norm_bwd_capacity': [_I, _I],
+    # a, b_hi, b_lo, bias, c, a_mn, M, N, K, lda, ldb, splits, grid, stream
+    'rf_gemm_tf32x3': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, hi, lo, rows, cols, ldx, ldo, transpose, stream
+    'rf_tf32x3_split': [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # partials, bias, out, rows, cols, splits, stream
+    'rf_gemm_tf32x3_reduce': [_P, _P, _P, _I, _I, _I, _P],
 }
 DTYPE_CODES = {'bfloat16': 0, 'float32': 1}
 

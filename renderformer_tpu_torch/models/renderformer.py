@@ -31,7 +31,7 @@ from renderformer_tpu_torch.config import RenderFormerConfig
 from renderformer_tpu_torch.encodings.nerf import nerf_encode, nerf_out_dim
 from renderformer_tpu_torch.models.view_transformer import ViewTransformer
 from renderformer_tpu_torch.nn.attention import TransformerEncoder
-from renderformer_tpu_torch.nn.core import DropoutKey, RMSNorm, make_norm
+from renderformer_tpu_torch.nn.core import DropoutKey, Linear, RMSNorm, make_norm
 from renderformer_tpu_torch.utils.profiling import annotate
 
 
@@ -51,14 +51,14 @@ class RenderFormer(nn.Module):
         tex_in = cfg.texture_channels * cfg.texture_encode_patch_size ** 2
         self.tri_token = nn.Parameter(torch.zeros(1, 1, d))
         self.reg_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, d))
-        self.texture_encoder = nn.Linear(tex_in, d, bias=True)
+        self.texture_encoder = Linear(tex_in, d, bias=True)
         self.texture_encoder_norm = make_norm(cfg.texture_encoder_norm_type, d)
         if cfg.use_vn_encoder:
-            self.vn_encoding_proj = nn.Linear(
+            self.vn_encoding_proj = Linear(
                 nerf_out_dim(9, cfg.vn_pe_num_freqs, include_input=True), d, bias=True)
             self.vn_encoder_norm = make_norm(cfg.vn_encoder_norm_type, d)
         if cfg.pe_type == 'nerf':
-            self.tri_encoding_proj = nn.Linear(
+            self.tri_encoding_proj = Linear(
                 nerf_out_dim(9, cfg.vertex_pe_num_freqs, include_input=True), d, bias=True)
             # the JAX package builds this norm with the vn encoder's type
             self.tri_encoding_norm = make_norm(cfg.vn_encoder_norm_type, d)

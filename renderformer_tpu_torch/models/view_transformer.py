@@ -29,7 +29,7 @@ import torch.nn as nn
 from renderformer_tpu_torch.config import RenderFormerConfig
 from renderformer_tpu_torch.encodings.nerf import nerf_encode, nerf_out_dim
 from renderformer_tpu_torch.nn.attention import TransformerDecoder
-from renderformer_tpu_torch.nn.core import DropoutKey, elu, make_norm
+from renderformer_tpu_torch.nn.core import DropoutKey, Linear, elu, make_norm
 from renderformer_tpu_torch.nn.dpt import DPTHead
 from renderformer_tpu_torch.ops.flash_attention import fan_out
 from renderformer_tpu_torch.utils.profiling import annotate
@@ -44,10 +44,10 @@ class ViewTransformer(nn.Module):
         self.ray_map_patch_token = nn.Parameter(torch.zeros(1, 1, d))
         p = cfg.patch_size
         vdir_dim = nerf_out_dim(3, cfg.vdir_num_freqs, include_input=True)
-        self.ray_map_encoder = nn.Linear(vdir_dim * p * p, d, bias=True)
+        self.ray_map_encoder = Linear(vdir_dim * p * p, d, bias=True)
         self.ray_map_encoder_norm = make_norm(cfg.norm_type, d)
         if cfg.pe_type == 'nerf':
-            self.pe_token_proj = nn.Linear(
+            self.pe_token_proj = Linear(
                 nerf_out_dim(9, cfg.vertex_pe_num_freqs, include_input=True), d, bias=True)
             self.token_pos_pe_norm = make_norm(cfg.norm_type, d)
         self.transformer = TransformerDecoder(
@@ -72,7 +72,7 @@ class ViewTransformer(nn.Module):
                                    out_channels=tuple(cfg.dpt_out_channels),
                                    out_dim=cfg.out_dim)
         else:
-            self.out_proj = nn.Linear(d, p * p * cfg.out_dim, bias=True)
+            self.out_proj = Linear(d, p * p * cfg.out_dim, bias=True)
 
     def pos_pe(self, pos, dtype):
         """The NeRF encoding of positions [B, S, 9] (fp32), projected and

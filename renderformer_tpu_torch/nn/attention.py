@@ -48,14 +48,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from renderformer_tpu_torch.encodings.rope import (
     apply_rope, freqs_to_cos_sin, rope_frequencies, triangle_freqs)
 from renderformer_tpu_torch.nn.core import (
-    ATTN_EPS, DropoutKey, RopeFreqs, dropout, gelu, make_norm, silu)
+    ATTN_EPS, DropoutKey, Linear, RopeFreqs, dropout, gelu, linear, make_norm, silu)
 from renderformer_tpu_torch.nn.swin import seq_from_window_order, seq_to_window_order
 from renderformer_tpu_torch.ops.flash_attention import (
     fan_out, flash_attention, flash_attention_rope, rotate_kv)
@@ -95,10 +94,10 @@ class FeedForward(nn.Module):
             raise ValueError(f'Unsupported activation: {activation}')
         self.activation = activation
         self.dropout = dropout
-        self.w1 = nn.Linear(dim, hidden_dim, bias=bias)
-        self.w2 = nn.Linear(hidden_dim, dim, bias=bias)
+        self.w1 = Linear(dim, hidden_dim, bias=bias)
+        self.w2 = Linear(hidden_dim, dim, bias=bias)
         if activation == 'swiglu':
-            self.w3 = nn.Linear(dim, hidden_dim, bias=bias)
+            self.w3 = Linear(dim, hidden_dim, bias=bias)
 
     def forward(self, x, key: Optional[DropoutKey] = None):
         if self.activation == 'swiglu':
@@ -117,8 +116,8 @@ def _split_in_proj(x, in_proj: nn.Linear, d: int):
     """q, k, v as three products from the sliced packed weight instead of one
     packed product and a split along its minor dim."""
     w, b3 = in_proj.weight, in_proj.bias
-    return tuple(F.linear(x, w[i * d:(i + 1) * d],
-                          None if b3 is None else b3[i * d:(i + 1) * d])
+    return tuple(linear(x, w[i * d:(i + 1) * d],
+                        None if b3 is None else b3[i * d:(i + 1) * d])
                  for i in range(3))
 
 
@@ -134,12 +133,12 @@ class MultiHeadAttention(nn.Module):
         self.is_self_attn = kv_dim is None
         d = query_dim
         if self.is_self_attn:
-            self.in_proj = nn.Linear(d, 3 * d, bias=bias)
+            self.in_proj = Linear(d, 3 * d, bias=bias)
         else:
-            self.q_proj = nn.Linear(d, d, bias=bias)
-            self.k_proj = nn.Linear(kv_dim, d, bias=bias)
-            self.v_proj = nn.Linear(kv_dim, d, bias=bias)
-        self.out_proj = nn.Linear(d, d, bias=bias)
+            self.q_proj = Linear(d, d, bias=bias)
+            self.k_proj = Linear(kv_dim, d, bias=bias)
+            self.v_proj = Linear(kv_dim, d, bias=bias)
+        self.out_proj = Linear(d, d, bias=bias)
         self.qk_norm = qk_norm
         if qk_norm:
             self.q_norm = make_norm(norm_type, d, ATTN_EPS)
@@ -248,8 +247,8 @@ class SwinSelfAttention(nn.Module):
         self.num_heads = num_heads
         self.window_size = window_size
         self.shift_size = shift_size
-        self.in_proj = nn.Linear(dim, 3 * dim, bias=bias)
-        self.out_proj = nn.Linear(dim, dim, bias=bias)
+        self.in_proj = Linear(dim, 3 * dim, bias=bias)
+        self.out_proj = Linear(dim, dim, bias=bias)
         self.qk_norm = qk_norm
         if qk_norm:
             self.q_norm = make_norm(norm_type, dim, ATTN_EPS)

@@ -13,6 +13,11 @@ from ``RuntimeConfig.fused_norm``, on by default, a train step from
 ``fused_rms_norm_supported`` through kernel K11 (``ops/fused_norm.py``);
 otherwise the norm is the torch ops below, the counterpart of the JAX
 package's jnp ``rms_norm``.
+
+Every linear of the port goes through :func:`linear` (:class:`Linear` is
+``nn.Linear`` calling it): a CUDA float32 product with TF32 off in cuBLAS
+takes the split-TF32 kernel (``ops/gemm_tf32x3.py``), forward and backward;
+anything else is ``F.linear`` as it is.
 """
 
 from __future__ import annotations
@@ -27,10 +32,28 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from renderformer_tpu_torch.ops.fused_norm import fused_rms_norm, fused_rms_norm_supported
+from renderformer_tpu_torch.ops.gemm_tf32x3 import tf32x3_linear, tf32x3_linear_supported
 
 TORCH_DEFAULT_RMS_EPS = float(np.finfo(np.float32).eps)
 TORCH_DEFAULT_LN_EPS = 1e-5
 ATTN_EPS = 1e-6
+
+
+def linear(x, weight, bias=None):
+    """``F.linear(x, weight, bias)``; in split TF32 on the tensor cores where
+    the operands are CUDA float32, TF32 is off and the widths suit the
+    kernel (``tf32x3_linear_supported``)."""
+    if tf32x3_linear_supported(x, weight, bias):
+        return tf32x3_linear(x, weight, bias)
+    return F.linear(x, weight, bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` (the same parameters and state-dict keys) through
+    :func:`linear`."""
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias)
 
 
 class RMSNorm(nn.Module):

@@ -32,6 +32,9 @@ LAUNCHES = {
     'shifted_regroup': 0,
     'rms_norm_fwd': 0,
     'rms_norm_bwd': 0,
+    'gemm_tf32x3_fwd': 0,
+    'gemm_tf32x3_dgrad': 0,
+    'gemm_tf32x3_wgrad': 0,
 }
 
 _plain_on_cuda = False
